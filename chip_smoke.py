@@ -7,25 +7,44 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 1. device  — a CUDA device of compute capability 9.0 is required; prints
              the card's name and power limit (nvidia-smi), torch and CUDA
              versions.
-2. build   — compiles the three CUDA kernels from src/repro_torch/csrc
-             (one nvcc per source, in parallel).
-3. parity  — each kernel against its plain PyTorch version, bit for bit,
-             over code_bits {2, 4, 8, 16} x the six predicates x constants
-             {0, 1, vmax//2, vmax-1, vmax} x n_words {1, 127, 32771,
-             2^22+17}, a 16-bit all-selected column whose sum passes 2^31,
-             and a numpy oracle on the small sizes.
-4. main    — the query engine's main path at full size: a 2^30-row table
+2. build   — compiles the four CUDA sources of src/repro_torch/csrc (one
+             nvcc per source, all started together).
+3. parity  — each kernel against its plain PyTorch version, bit for bit.
+             Single-row kernels: code_bits {2, 4, 8, 16} x the six
+             predicates x constants {0, 1, vmax//2, vmax-1, vmax} x n_words
+             {1, 127, 32771, 2^22+17}, a 16-bit all-selected column whose
+             sum passes 2^31, and a numpy oracle on the small sizes.
+             Batched kernels: every width x n_chunks {1, 7, 4096} x n_words
+             {1, 131, 2052} and a full 16-bit chunk, ragged validity with an
+             empty chunk, the six predicates at a random constant per chunk;
+             the RLE kernels over the six predicates at n_chunks {1, 7, 4096}
+             x n_runs {1, 3, 1001, 4096}, zero-length runs included.
+4. main    — the query engine's flat path at full size: a 2^30-row table
              {"a": 8, "b": 8, "w": 16, "x": 4} built on the card from a
              seeded torch.Generator, the eleven plan shapes of the engine
              tests answered by QueryEngine(mode="auto") and compared with
-             QueryEngine(mode="torch_ref") on the same table; every
-             kernel's launch counter must have moved.
-5. times   — each kernel at the main path's shapes: median of 20 timed
-             runs after 3 warm-ups (CUDA events), its plain version's
-             time, and the bound: the larger of bytes over the card's
-             memory rate and operations over its CUDA-core rate.
+             QueryEngine(mode="torch_ref") on the same table; the flat
+             path's kernels' launch counters must have moved.
+5. times   — each flat-path kernel at the main path's shapes: the median
+             of 20 CUDA-event samples after 3 warm-ups, a sample being one
+             call with its host work (ms) or 20 launches back to back
+             (ms_back_to_back, per launch); its plain version's time; and
+             the bound: the larger
+             of bytes over the card's memory rate and operations over its
+             CUDA-core rate.
 6. profile — the eleven queries again, warm, then under torch.profiler:
              the device's busy share and device time by kernel name.
+7. store   — the compressed store at full size: the store tests' column
+             mix at 2^28 rows, built on the card and encoded there in
+             65536-row chunks (4096 a column); the sixteen store plan
+             shapes cold and warm through QueryEngine(encoded, "auto"),
+             against QueryEngine(plain table, "auto") and
+             QueryEngine(encoded, "torch_ref"), and one per-chunk pass
+             (batched=False); the store path's kernels' launch counters
+             must have moved.
+8. store times / store profile — the batched and RLE kernels at the store
+             path's shapes (and the RLE kernel at its largest legal plane),
+             timed as in 5; the store queries under torch.profiler.
 
 The second-to-last line of output is one JSON object {"kernels": [...]};
 the last is {"ok": true, "device": {...}}.
@@ -55,6 +74,7 @@ MAIN_SPEC = {"a": 8, "b": 8, "w": 16, "x": 4}
 PARITY_WORDS = (1, 127, 32771, (1 << 22) + 17)
 ORACLE_MAX_WORDS = 127
 WARMUP, TIMED = 3, 20
+KERNEL_REPS = 20        # back-to-back launches per timed sample of a kernel
 
 # The H100 SXM (torch names it "H100 80GB HBM3") datasheet rates: memory
 # 3.35 TB/s; CUDA cores 67 TFLOP/s float32 outside the tensor cores, an
@@ -233,6 +253,128 @@ def parity_phase() -> dict:
     return err
 
 
+BATCHED_SHAPES = ((1, 1), (7, 131), (4096, 2052))
+RLE_CHUNKS, RLE_RUNS = (1, 7, 4096), (1, 3, 1001, 4096)
+
+
+def ragged_valid(n_chunks: int, n_words: int, bits: int,
+                 g: torch.Generator) -> torch.Tensor:
+    """(n_chunks, n_words) validity with a random row count per chunk;
+    chunk 0 holds no row (an empty chunk)."""
+    from repro_torch.kernels.scan_filter.ref import pack_bits
+    cpw = 32 // bits
+    rows = torch.randint(0, n_words * cpw + 1, (n_chunks,), device="cuda",
+                         generator=g)
+    rows[0] = 0
+    sel = torch.arange(n_words * cpw, device="cuda")[None, :] < rows[:, None]
+    return pack_bits(sel.reshape(-1), bits).reshape(n_chunks, n_words)
+
+
+def batched_parity_phase() -> dict:
+    """Kernels 4-7 against their plain versions, bit for bit."""
+    phase("parity (batched and RLE kernels)")
+    from repro_torch.kernels.aggregate import ops as agg_ops
+    from repro_torch.kernels.scan_aggregate import ops as fused_ops
+    from repro_torch.kernels.scan_compressed import ops as rle_ops
+    from repro_torch.kernels.scan_filter.ops import canonical_pred
+    from repro_torch.kernels.scan_filter.ref import OPS, field_masks
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    names = ("aggregate_batched", "scan_aggregate_batched",
+             "rle_scan_aggregate", "rle_scan_aggregate_batched")
+    err = dict.fromkeys(names, 0)
+    cases = dict.fromkeys(names, 0)
+    bad = []
+
+    def check(name, k, r, *what):
+        e = int((k.long() - r.long()).abs().max()) if k.numel() else 0
+        if k.shape != r.shape:
+            e = max(e, 1)
+        err[name] = max(err[name], e)
+        cases[name] += 1
+        if e:
+            bad.append((name, *what))
+
+    t0 = time.perf_counter()
+    for bits in (2, 4, 8, 16):
+        delim, _, value = field_masks(bits)
+        vmax = int(value)
+        payload = ~int(delim) & 0xFFFFFFFF
+        shapes = BATCHED_SHAPES + ((3, 65536 * bits // 32),)  # full chunks
+        for n_chunks, n_words in shapes:
+            pred = random_words(n_chunks * n_words, payload, g).reshape(
+                n_chunks, n_words)
+            agg = random_words(n_chunks * n_words, payload, g).reshape(
+                n_chunks, n_words)
+            valid = ragged_valid(n_chunks, n_words, bits, g)
+            mask = random_words(n_chunks * n_words, int(delim), g).reshape(
+                n_chunks, n_words) & valid
+            check("aggregate_batched",
+                  agg_ops.aggregate_batched(agg, mask, bits, mode="cuda"),
+                  agg_ops.aggregate_batched(agg, mask, bits,
+                                            mode="torch_ref"),
+                  bits, n_chunks, n_words)
+            consts = torch.randint(-1, vmax + 2, (n_chunks,),
+                                   generator=torch.Generator().manual_seed(
+                                       n_chunks * bits)).tolist()
+            for op in OPS:
+                triples = [canonical_pred(op, c, bits) for c in consts]
+                check("scan_aggregate_batched",
+                      fused_ops.scan_aggregate_batched(
+                          pred, agg, valid, triples, bits, mode="cuda"),
+                      fused_ops.scan_aggregate_batched(
+                          pred, agg, valid, triples, bits,
+                          mode="torch_ref"), bits, n_chunks, n_words, op)
+    for n_chunks in RLE_CHUNKS:
+        for n_runs in RLE_RUNS:
+            for bits in (4, 16):
+                vmax = (1 << (bits - 1)) - 1
+                values = torch.randint(0, vmax + 1, (n_chunks, n_runs),
+                                       device="cuda", dtype=torch.int32,
+                                       generator=g)
+                lengths = torch.randint(0, 17, (n_chunks, n_runs),
+                                        device="cuda", dtype=torch.int32,
+                                        generator=g)
+                # ragged run counts: chunk k keeps its first runs only
+                planes = [(values[k, :n_runs - k % 3 * (n_runs // 3)],
+                           lengths[k, :n_runs - k % 3 * (n_runs // 3)])
+                          for k in range(n_chunks)]
+                for op in OPS:
+                    c = vmax // 2
+                    check("rle_scan_aggregate_batched",
+                          rle_ops.rle_scan_aggregate_batched(
+                              planes, c, op, bits, mode="cuda"),
+                          rle_ops.rle_scan_aggregate_batched(
+                              planes, c, op, bits, mode="torch_ref"),
+                          n_chunks, n_runs, bits, op)
+                    if n_chunks == 1:
+                        v, n = planes[0]
+                        check("rle_scan_aggregate",
+                              rle_ops.rle_scan_aggregate(
+                                  v, n, c, op, bits, mode="cuda").row,
+                              rle_ops.rle_scan_aggregate(
+                                  v, n, c, op, bits, mode="torch_ref").row,
+                              n_runs, bits, op)
+    # a full chunk of the 16-bit payload max as one run: the sum grazes 2^31
+    v = torch.full((2, 1), 32767, dtype=torch.int32, device="cuda")
+    n = torch.full((2, 1), 65536, dtype=torch.int32, device="cuda")
+    row = rle_ops.rle_scan_aggregate_batched([(v[0], n[0]), (v[1], n[1])],
+                                             0, "ge", 16, mode="cuda")
+    one = rle_ops.rle_scan_aggregate(v[0], n[0], 0, "ge", 16, mode="cuda")
+    got = [(int(r[1]) << 16) + int(r[0]) for r in (*row.tolist(),
+                                                   one.row.tolist())]
+    if got != [32767 * 65536] * 3:
+        bad.append(("rle sum at the chunk bound", got))
+    torch.cuda.synchronize()
+    print(f"batched parity cases {cases} max_abs_err {err} "
+          f"in {time.perf_counter() - t0:.3f} s", flush=True)
+    if bad:
+        for b in bad[:20]:
+            print("MISMATCH", b, file=sys.stderr)
+        fail(f"{len(bad)} batched kernel/plain mismatches")
+    return err
+
+
 # --------------------------------------------------------------------------
 # 4. main path
 # --------------------------------------------------------------------------
@@ -334,22 +476,27 @@ def main_phase(table) -> dict:
     return launches
 
 
-def profile_phase(table) -> None:
+# device kernels of the port, by the names nvcc gave them
+PORT_KERNELS = ("scan_kernel", "aggregate_kernel", "aggregate_batched_kernel",
+                "rle_scan_aggregate_kernel")
+
+
+def profile_phase(table, shapes, label: str) -> None:
     """Where a warm query's time goes: each plan shape again (the caching
-    allocator now holds its blocks), then once more under torch.profiler
-    for the device's busy share and the device time by kernel name."""
-    phase("profile")
+    allocator, and for a store table the bind cache, now hold their
+    blocks), then once more under torch.profiler for the device's busy
+    share and the device time by kernel name."""
+    phase(f"profile {label}")
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.query import Query, QueryEngine
-    shapes = plan_shapes()
     eng = QueryEngine(table, mode="auto")
     for name, plan, aggs in shapes:
         eng.submit(Query(plan, aggregates=aggs))
         res = eng.run()[0]
-        print(f"warm {name:18s} {res.latency_s * 1e3:9.3f} ms "
+        print(f"warm {name:24s} {res.latency_s * 1e3:9.3f} ms "
               f"{res.bytes_scanned / res.latency_s / 1e9:8.1f} GB/s")
-    print("summary warm", json.dumps(eng.summary()))
+    print(f"summary warm {label}", json.dumps(eng.summary()))
     eng = QueryEngine(table, mode="auto")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -364,11 +511,12 @@ def profile_phase(table) -> None:
             if e.self_cpu_time_total == 0 and e.self_device_time_total > 0]
     busy_us = sum(r[0] for r in rows)
     ours_us = sum(r[0] for r in rows
-                  if "scan_kernel" in r[2] or "aggregate_kernel" in r[2])
-    print(f"profiled 11 queries: wall {wall_us / 1e3:.3f} ms, device busy "
-          f"{busy_us / 1e3:.3f} ms, busy share {busy_us / wall_us:.4f}; "
-          f"the port's CUDA kernels {ours_us / 1e3:.3f} ms, other device "
-          f"work {(busy_us - ours_us) / 1e3:.3f} ms")
+                  if any(k in r[2] for k in PORT_KERNELS))
+    print(f"profiled {len(shapes)} {label} queries: wall "
+          f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
+          f"busy share {busy_us / wall_us:.4f}; the port's CUDA kernels "
+          f"{ours_us / 1e3:.3f} ms, other device work "
+          f"{(busy_us - ours_us) / 1e3:.3f} ms")
     for us, count, key in sorted(rows, reverse=True)[:10]:
         print(f"  device {us / 1e3:10.3f} ms  x{count:5d}  {key[:100]}")
 
@@ -377,8 +525,12 @@ def profile_phase(table) -> None:
 # 5. times
 # --------------------------------------------------------------------------
 
-def time_ms(fn) -> float:
-    """Median of TIMED CUDA-event timings after WARMUP runs."""
+def time_ms(fn, reps: int = 1) -> float:
+    """Median over TIMED samples (CUDA events, after WARMUP calls) of the
+    time per call of `reps` calls back to back. With reps > 1 the host's
+    launch work overlaps the previous launch, so a short kernel is timed
+    without its wrapper's host time in front of it; with reps = 1 a
+    sample is one call as a query makes it, host time included."""
     for _ in range(WARMUP):
         fn()
     ts = []
@@ -386,10 +538,11 @@ def time_ms(fn) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        ts.append(a.elapsed_time(b))
+        ts.append(a.elapsed_time(b) / reps)
     return statistics.median(ts)
 
 
@@ -433,26 +586,292 @@ def times_phase(table, dev: dict, launches: dict, parity_err: dict) -> list:
                     "src/repro/kernels/scan_aggregate/kernel.py:233"}
     out = []
     for name, (kern, plain, nbytes, ops) in runs.items():
-        e = int((kern().long() - plain().long()).abs().max())
-        ms = time_ms(kern)
-        plain_ms = time_ms(plain)
-        bytes_ms = nbytes / MEM_BPS * 1e3
-        ops_ms = ops / CORE_OPS * 1e3
-        rec = {"name": name, "route": "cuda",
-               "source": f"src/repro_torch/csrc/{name}.cu",
-               "replaces": replaces[name], "launches": launches[name],
-               "max_abs_err": max(e, parity_err[name]), "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               "library_ms": None, "bytes": nbytes, "ops": ops,
-               "n_words": n, "code_bits": bits}
-        print(f"{name:15s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})  "
-              f"{nbytes / ms / 1e6:.1f} GB/s  [{dev['smi']}]", flush=True)
-        if e:
-            fail(f"{name} differs from its plain version at the main "
-                 f"path's shape (max abs err {e})")
+        rec = time_kernel(name, kern, plain, nbytes, ops, dev)
+        rec.update({"source": f"src/repro_torch/csrc/{name}.cu",
+                    "replaces": replaces[name], "launches": launches[name],
+                    "max_abs_err": max(rec["max_abs_err"],
+                                       parity_err[name]),
+                    "n_words": n, "code_bits": bits})
         out.append(rec)
+    return out
+
+
+def time_kernel(name, kern, plain, nbytes: int, ops: int, dev: dict) -> dict:
+    """Check the kernel against its plain version once, then time both
+    (time_ms) and compute the bound; fails on a difference. `ms` is one
+    call with its wrapper's host work; `ms_back_to_back` is the time a
+    launch over KERNEL_REPS launches back to back."""
+    e = int((kern().long() - plain().long()).abs().max())
+    ms = time_ms(kern)
+    b2b_ms = time_ms(kern, KERNEL_REPS)
+    plain_ms = time_ms(plain)
+    bytes_ms = nbytes / MEM_BPS * 1e3
+    ops_ms = ops / CORE_OPS * 1e3
+    rec = {"name": name, "route": "cuda", "launches": 0,
+           "max_abs_err": e, "ms": ms, "ms_back_to_back": b2b_ms,
+           "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": None, "bytes": nbytes, "ops": ops}
+    print(f"{name:26s} kernel {ms:.4f} ms one call ({b2b_ms:.4f} ms back "
+          f"to back)  plain {plain_ms:.4f} ms  "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})  "
+          f"{nbytes / ms / 1e6:.1f} GB/s  [{dev['smi']}]", flush=True)
+    if e:
+        fail(f"{name} differs from its plain version at the path's shape "
+             f"(max abs err {e})")
+    return rec
+
+
+# --------------------------------------------------------------------------
+# 7. the compressed store
+# --------------------------------------------------------------------------
+
+STORE_ROWS = 1 << 28
+STORE_CHUNK_ROWS = 65536          # MAX_CHUNK_ROWS: 4096 chunks a column
+
+
+def store_plan_shapes():
+    """The sixteen plan shapes of tests/test_store.py::PLAN_SHAPES."""
+    from repro_torch.query import And, Or, Pred
+    return [
+        ("rle_fused_self_agg", Pred("r", "lt", 4), ("r",)),
+        ("rle_fused_eq", Pred("r", "eq", 3), ("r",)),
+        ("rle_fused_ne", Pred("r", "ne", 3), ("r",)),
+        ("rle_pred_other_agg", Pred("r", "ge", 6), ("f",)),
+        ("for_fused_same_width", Pred("f", "ge", 44), ("f",)),
+        ("for_cross_column", Pred("f", "lt", 44), ("w",)),
+        ("for16_pred", Pred("w", "ge", 9050), ("u",)),
+        ("plain_pred_for_agg", Pred("u", "lt", 64), ("w",)),
+        ("and_mixed_encodings", Pred("f", "ge", 42) & Pred("w", "lt", 9080),
+         ("w", "x")),
+        ("or_mixed_widths", Pred("x", "eq", 3) | Pred("w", "lt", 9010),
+         ("u",)),
+        ("nested_and_or",
+         And.of(Or.of(Pred("r", "le", 2), Pred("u", "gt", 120)),
+                Pred("x", "ne", 0)), ("f",)),
+        ("multi_agg_all_encodings", Pred("f", "ge", 43),
+         ("r", "f", "w", "u", "x")),
+        ("empty_selection_rle", Pred("r", "gt", 7), ("r",)),
+        ("empty_selection_for", Pred("f", "lt", 40), ("w",)),
+        ("all_match_for", Pred("w", "ge", 0), ("w",)),
+        ("below_frame_constant", Pred("w", "lt", 5), ("w",)),
+    ]
+
+
+def build_store_table():
+    """tests/test_store.py's column mix at 2^28 rows, built on the card
+    from a seeded generator: r sorted over 8 values (RLE), f 40 + [0, 8)
+    and w 9000 + [0, 100) (FOR), u [0, 128) (plain), x [0, 8) at 4 bits."""
+    from repro_torch.db import BitPackedColumn, Table
+    from repro_torch.store.exec import pack_codes
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    n = STORE_ROWS
+
+    def rnd(lo, hi):
+        return torch.randint(lo, hi, (n,), device="cuda", dtype=torch.int32,
+                             generator=g)
+
+    spec = {"r": (lambda: rnd(0, 8).sort().values, 8),
+            "f": (lambda: rnd(40, 48), 8),
+            "w": (lambda: rnd(9000, 9100), 16),
+            "u": (lambda: rnd(0, 128), 8),
+            "x": (lambda: rnd(0, 8), 4)}
+    t = Table("store")
+    for name, (make, bits) in spec.items():
+        t.add(BitPackedColumn(name, bits, n, pack_codes(make(), bits)))
+    for col in t.columns.values():
+        col.valid_words       # build the cached validity masks up front
+    torch.cuda.synchronize()
+    return t
+
+
+def store_kernel_modules():
+    """Kernel name -> (wrapper module, name of its launch counter)."""
+    from repro_torch.kernels.aggregate import kernel as agg_k
+    from repro_torch.kernels.scan_aggregate import kernel as fused_k
+    from repro_torch.kernels.scan_compressed import kernel as rle_k
+    return {"aggregate_batched": (agg_k, "BATCHED_LAUNCHES"),
+            "scan_aggregate_batched": (fused_k, "BATCHED_LAUNCHES"),
+            "rle_scan_aggregate": (rle_k, "LAUNCHES"),
+            "rle_scan_aggregate_batched": (rle_k, "BATCHED_LAUNCHES")}
+
+
+def store_phase(table, encoded, encode_s: float) -> dict:
+    phase("store")
+    from repro_torch.query import Pred, Query, QueryEngine
+    from repro_torch.store import execute_encoded
+    st = encoded.stats()
+    print(f"store {encoded.num_rows} rows, chunk_rows {encoded.chunk_rows}, "
+          f"{encoded.n_chunks} chunks a column; physical "
+          f"{st['physical_bytes'] / 2**30:.4f} GiB, logical "
+          f"{st['logical_bytes'] / 2**30:.4f} GiB, ratio {st['ratio']}; "
+          f"encodings {json.dumps(st['encodings'])}")
+    print(f"encode {encode_s:.3f} s (all five columns, on the card, "
+          f"checksums included)", flush=True)
+    shapes = store_plan_shapes()
+    mods = store_kernel_modules()
+    for m, attr in mods.values():
+        setattr(m, attr, 0)
+    eng = QueryEngine(encoded, mode="auto")
+    cold, warm = [], []
+    for runs in (cold, warm):
+        for name, plan, aggs in shapes:
+            eng.submit(Query(plan, aggregates=aggs))
+            runs.append(eng.run()[0])
+    t0 = time.perf_counter()
+    loop = execute_encoded(Pred("r", "lt", 4), ("r",), encoded, mode="auto",
+                           batched=False)
+    loop_s = time.perf_counter() - t0
+    launches = {k: getattr(m, attr) for k, (m, attr) in mods.items()}
+    print(f"kernel launches on the store path: {launches}; dispatch counts "
+          f"{eng.metrics.launch_counts()}")
+    print(f"batched=False pass (rle_fused_self_agg, one launch and one host "
+          f"copy per chunk): {loop_s * 1e3:.3f} ms")
+    plain = QueryEngine(table, mode="auto")
+    ref = QueryEngine(encoded, mode="torch_ref")
+    bad = []
+    if loop != warm[0].aggregates:
+        bad.append(("batched=False", loop, warm[0].aggregates))
+    for (name, plan, aggs), c, w in zip(shapes, cold, warm):
+        plain.submit(Query(plan, aggregates=aggs))
+        p = plain.run()[0]
+        ref.submit(Query(plan, aggregates=aggs))
+        r = ref.run()[0]
+        same = c.aggregates == w.aggregates == p.aggregates == r.aggregates
+        print(f"{name:24s} cold {c.latency_s * 1e3:9.3f} ms  warm "
+              f"{w.latency_s * 1e3:8.3f} ms  bind "
+              f"{(c.latency_s - w.latency_s) * 1e3:9.3f} ms  phys "
+              f"{w.bytes_scanned / w.latency_s / 1e9:7.1f} GB/s  eff "
+              f"{w.logical_bytes / w.latency_s / 1e9:7.1f} GB/s | plain "
+              f"{p.latency_s * 1e3:8.3f} ms | torch_ref "
+              f"{r.latency_s * 1e3:9.3f} ms | count {w.count} equal={same}")
+        ok = same and all(
+            0 <= d["count"] <= STORE_ROWS and 0 <= d["min"]
+            and d["max"] <= (1 << (encoded.columns[col].code_bits - 1)) - 1
+            for col, d in w.aggregates.items())
+        if not ok:
+            bad.append((name, c.aggregates, w.aggregates, p.aggregates,
+                        r.aggregates))
+    by_name = {name: w for (name, _, _), w in zip(shapes, warm)}
+    for name in ("empty_selection_rle", "empty_selection_for"):
+        if by_name[name].count != 0:
+            bad.append((name, "count", by_name[name].count))
+    if by_name["all_match_for"].count != STORE_ROWS:
+        bad.append(("all_match_for", "count", by_name["all_match_for"].count))
+    s = eng.summary()
+    print("summary store auto (cold + warm)", json.dumps(s))
+    if not s["effective_gbps"] > s["measured_gbps"] > 0:
+        bad.append(("effective_gbps <= measured_gbps", s))
+    if bad:
+        for b in bad:
+            print("MISMATCH", b, file=sys.stderr)
+        fail(f"{len(bad)} store results differ across the three engines")
+    zero = [k for k, n in launches.items() if n == 0]
+    if zero:
+        fail(f"kernels never launched on the store path: {zero}")
+    return launches
+
+
+def store_times_phase(encoded, dev: dict, launches: dict,
+                      parity_err: dict) -> list:
+    """Kernels 4-7 at the store path's shapes, and the batched RLE kernel
+    at its largest legal plane (4096 chunks x 4096 runs)."""
+    phase("store times")
+    from repro_torch.kernels.aggregate import ref as agg_ref
+    from repro_torch.kernels.scan_aggregate import ref as fused_ref
+    from repro_torch.kernels.scan_compressed import ops as rle_ops
+    from repro_torch.kernels.scan_compressed import ref as rle_ref
+    from repro_torch.kernels.scan_filter.ops import (canonical_pred,
+                                                     mask_batched,
+                                                     packed_triples)
+    from repro_torch.store.exec import _bind_group_cached
+    mods = store_kernel_modules()
+    agg_k = mods["aggregate_batched"][0]
+    fused_k = mods["scan_aggregate_batched"][0]
+    rle_k = mods["rle_scan_aggregate"][0]
+    n = encoded.n_chunks
+    cids = list(range(n))
+    # for_cross_column (f lt 44 over w): f repacked to W=8 beside w, three
+    # distinct planes (for_fused_same_width reads one plane twice)
+    f = _bind_group_cached(encoded.columns["f"], cids, 8)
+    consts, flags = (torch.from_numpy(x).cuda() for x in packed_triples(
+        [canonical_pred("lt", 44 - int(b), 8)
+         for b in encoded.columns["f"].chunk_arrays().base], 8))
+    # and_mixed_encodings: w aggregated at W=8 under w lt 9080
+    w = _bind_group_cached(encoded.columns["w"], cids, 8)
+    wmask = mask_batched(w.words, [
+        canonical_pred("lt", 9080 - int(b), 8)
+        for b in encoded.columns["w"].chunk_arrays().base], 8) & w.valid
+    # rle_fused_self_agg (r lt 4): r's run planes, and its first chunk
+    r = encoded.columns["r"]
+    rv, rl = rle_ops.stack_runs([(ch.values, ch.lengths)
+                                 for ch in r.chunks])
+    v0, l0 = r.chunks[0].values, r.chunks[0].lengths
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    bv = torch.randint(0, 128, (n, 4096), device="cuda", dtype=torch.int32,
+                       generator=g)
+    bl = torch.randint(0, 17, (n, 4096), device="cuda", dtype=torch.int32,
+                       generator=g)
+    ww = w.words.shape[1]
+    # name: (kernel, plain, bytes, ops, shape, what, replaced kernel, file)
+    runs = {
+        "aggregate_batched": (
+            lambda: agg_k.aggregate_batched_packed(w.words, wmask,
+                                                   code_bits=8),
+            lambda: agg_ref.aggregate_batched_ref(w.words, wmask, 8),
+            8 * n * ww + 20 * n, 6 * n * ww * 4 + 2 * n * ww, (n, ww),
+            "w at W=8 (and_mixed_encodings)",
+            "src/repro/kernels/aggregate/kernel.py:152", "aggregate.cu"),
+        "scan_aggregate_batched": (
+            lambda: fused_k.scan_aggregate_batched_packed(
+                consts, flags, f.words, w.words, f.valid, code_bits=8),
+            lambda: fused_ref.scan_aggregate_batched_ref(
+                consts, flags, f.words, w.words, f.valid, 8),
+            12 * n * ww + 8 * n + 20 * n, 6 * n * ww * 4 + 7 * n * ww,
+            (n, ww), "f over w at W=8 (for_cross_column)",
+            "src/repro/kernels/scan_aggregate/kernel.py:192",
+            "scan_aggregate.cu"),
+        "rle_scan_aggregate": (
+            lambda: rle_k.rle_scan_aggregate_packed(
+                v0, l0, constant=4, op="lt", code_bits=8),
+            lambda: rle_ref.rle_scan_aggregate_ref(v0, l0, 4, "lt", 8).row,
+            8 * v0.numel() + 20, 7 * v0.numel(), (1, v0.numel()),
+            "r chunk 0 (rle_fused_self_agg, batched=False)",
+            "src/repro/kernels/scan_compressed/kernel.py:165",
+            "scan_compressed.cu"),
+        "rle_scan_aggregate_batched": (
+            lambda: rle_k.rle_scan_aggregate_batched_packed(
+                rv, rl, constant=4, op="lt", code_bits=8),
+            lambda: rle_ref.rle_scan_aggregate_batched_ref(rv, rl, 4, "lt",
+                                                           8),
+            8 * rv.numel() + 20 * n, 7 * rv.numel(), tuple(rv.shape),
+            "r (rle_fused_self_agg)",
+            "src/repro/kernels/scan_compressed/kernel.py:131",
+            "scan_compressed.cu"),
+    }
+    out = []
+    for name, (kern, plain, nbytes, ops, shape, what, replaces,
+               src) in runs.items():
+        print(f"  {name} at {list(shape)}: {what}")
+        rec = time_kernel(name, kern, plain, nbytes, ops, dev)
+        rec.update({"source": f"src/repro_torch/csrc/{src}",
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": max(rec["max_abs_err"],
+                                       parity_err[name]),
+                    "shape": list(shape)})
+        out.append(rec)
+    print(f"  rle_scan_aggregate_batched at [{n}, 4096]: the largest legal "
+          f"plane")
+    big = time_kernel(
+        "rle_scan_aggregate_batched",
+        lambda: rle_k.rle_scan_aggregate_batched_packed(
+            bv, bl, constant=60, op="lt", code_bits=8),
+        lambda: rle_ref.rle_scan_aggregate_batched_ref(bv, bl, 60, "lt", 8),
+        8 * bv.numel() + 20 * n, 7 * bv.numel(), dev)
+    out[-1]["largest_plane"] = {k: big[k] for k in (
+        "ms", "ms_back_to_back", "plain_ms", "bound_ms", "bound_by",
+        "max_abs_err")}
     return out
 
 
@@ -470,10 +889,23 @@ def main() -> None:
         print(rep["log"].strip())
     print(f"build total {time.perf_counter() - t0:.3f} s", flush=True)
     parity_err = parity_phase()
+    parity_err.update(batched_parity_phase())
     table = build_table()
     launches = main_phase(table)
     kernels = times_phase(table, dev, launches, parity_err)
-    profile_phase(table)
+    profile_phase(table, plan_shapes(), "main")
+    del table
+    torch.cuda.empty_cache()
+
+    from repro_torch.store import EncodedTable
+    table = build_store_table()
+    t0 = time.perf_counter()
+    encoded = EncodedTable.from_table(table, chunk_rows=STORE_CHUNK_ROWS)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    launches = store_phase(table, encoded, encode_s)
+    kernels += store_times_phase(encoded, dev, launches, parity_err)
+    profile_phase(encoded, store_plan_shapes(), "store")
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,5 +8,6 @@ kernel on a ported path becomes a CUDA C++ kernel for `sm_90a` under
 
 Ported so far: the query engine's flat main path (`db`, `query`,
 `serve.sla`, `obs.metrics`, `obs.trace`) over the scan_filter, aggregate
-and scan_aggregate kernels.
+and scan_aggregate kernels, and the compressed store (`store`) over the
+batched aggregate, batched scan_aggregate and scan_compressed kernels.
 """

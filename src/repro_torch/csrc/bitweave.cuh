@@ -74,43 +74,74 @@ __device__ __forceinline__ void accumulate(uint32_t a, uint32_t m, Acc& acc) {
   acc.count += __popc(m & H);
 }
 
-// Reduce the block's accumulators (warp shuffles, then shared memory) and
-// commit them to `scratch` with integer atomics, which are exact in any
-// order. scratch (zeroed by the launcher) holds [sum, count, V - min, max,
-// blocks done]: min is kept as V - min and max-reduced so that zero is its
-// identity. The last block to finish writes the int32[5] output row
-// [sum & 0xFFFF, sum >> 16, count, min, max], the reference's contract.
-template <int BITS>
-__device__ void commit(Acc acc, unsigned long long* scratch, int32_t* out) {
-  constexpr uint32_t V = (1u << (BITS - 1)) - 1u;
+// Reduce the block's accumulators (warp shuffles, then shared memory). The
+// block's total is valid in thread 0 only; every thread must call this.
+// MinMax is uint32_t for the packed kernels and int32_t for the RLE kernel.
+template <typename MinMax>
+__device__ __forceinline__ void block_reduce(unsigned long long& sum,
+                                             unsigned long long& count,
+                                             MinMax& mn, MinMax& mx) {
   constexpr int kWarps = kThreads / 32;
   __shared__ unsigned long long sh_sum[kWarps];
   __shared__ unsigned long long sh_cnt[kWarps];
-  __shared__ uint32_t sh_min[kWarps];
-  __shared__ uint32_t sh_max[kWarps];
+  __shared__ MinMax sh_min[kWarps];
+  __shared__ MinMax sh_max[kWarps];
 
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    acc.sum += __shfl_down_sync(0xffffffffu, acc.sum, off);
-    acc.count += __shfl_down_sync(0xffffffffu, acc.count, off);
-    acc.min = min(acc.min, __shfl_down_sync(0xffffffffu, acc.min, off));
-    acc.max = max(acc.max, __shfl_down_sync(0xffffffffu, acc.max, off));
+    sum += __shfl_down_sync(0xffffffffu, sum, off);
+    count += __shfl_down_sync(0xffffffffu, count, off);
+    mn = min(mn, __shfl_down_sync(0xffffffffu, mn, off));
+    mx = max(mx, __shfl_down_sync(0xffffffffu, mx, off));
   }
   const int warp = threadIdx.x / 32;
   if (threadIdx.x % 32 == 0) {
-    sh_sum[warp] = acc.sum;
-    sh_cnt[warp] = acc.count;
-    sh_min[warp] = acc.min;
-    sh_max[warp] = acc.max;
+    sh_sum[warp] = sum;
+    sh_cnt[warp] = count;
+    sh_min[warp] = mn;
+    sh_max[warp] = mx;
   }
   __syncthreads();
   if (threadIdx.x != 0) return;
   for (int w = 1; w < kWarps; ++w) {
-    acc.sum += sh_sum[w];
-    acc.count += sh_cnt[w];
-    acc.min = min(acc.min, sh_min[w]);
-    acc.max = max(acc.max, sh_max[w]);
+    sum += sh_sum[w];
+    count += sh_cnt[w];
+    mn = min(mn, sh_min[w]);
+    mx = max(mx, sh_max[w]);
   }
+}
+
+// The reference's int32[5] output row [sum & 0xFFFF, sum >> 16, count, min,
+// max]; the sum is exact in 64 bits and split only here.
+template <typename MinMax>
+__device__ __forceinline__ void write_row(unsigned long long sum,
+                                          unsigned long long count, MinMax mn,
+                                          MinMax mx, int32_t* out) {
+  out[0] = (int32_t)(sum & 0xFFFFull);
+  out[1] = (int32_t)(sum >> 16);
+  out[2] = (int32_t)count;
+  out[3] = (int32_t)mn;
+  out[4] = (int32_t)mx;
+}
+
+// Batched kernels: one block reduces one chunk and thread 0 writes that
+// chunk's row directly (no scratch, no atomics, nothing across blocks).
+template <int BITS>
+__device__ __forceinline__ void commit_row(Acc acc, int32_t* out) {
+  block_reduce(acc.sum, acc.count, acc.min, acc.max);
+  if (threadIdx.x == 0) write_row(acc.sum, acc.count, acc.min, acc.max, out);
+}
+
+// Single-row kernels: reduce the block, then commit the block's total to
+// `scratch` with integer atomics, which are exact in any order. scratch
+// (zeroed by the launcher) holds [sum, count, V - min, max, blocks done]:
+// min is kept as V - min and max-reduced so that zero is its identity. The
+// last block to finish writes the output row.
+template <int BITS>
+__device__ void commit(Acc acc, unsigned long long* scratch, int32_t* out) {
+  constexpr uint32_t V = (1u << (BITS - 1)) - 1u;
+  block_reduce(acc.sum, acc.count, acc.min, acc.max);
+  if (threadIdx.x != 0) return;
   atomicAdd(&scratch[0], acc.sum);
   atomicAdd(&scratch[1], acc.count);
   atomicMax(&scratch[2], (unsigned long long)(V - acc.min));

@@ -4,6 +4,10 @@ repro_torch/csrc) with a plain PyTorch version of each:
 - scan_filter:     BitWeaving-H predicate scan
 - aggregate:       masked sum/count/min/max over packed codes
 - scan_aggregate:  the two fused; the mask never leaves registers
+- scan_compressed: fused predicate + aggregate on RLE runs
+
+aggregate and scan_aggregate also have a batched kernel, one launch over
+every chunk of a compressed-store column group.
 
 Each package: kernel.py (ctypes wrapper + launch counter), ops.py (public
 op, dispatched through dispatch.py), ref.py (plain PyTorch version).

@@ -26,24 +26,41 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {"scan_filter": "scan_filter.cu", "aggregate": "aggregate.cu",
-           "scan_aggregate": "scan_aggregate.cu"}
+           "scan_aggregate": "scan_aggregate.cu",
+           "scan_compressed": "scan_compressed.cu"}
 HEADERS = ("bitweave.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _U, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                    ctypes.c_longlong)
-# C entry point and argument types of each family; every pointer and the
-# stream are c_void_p, and each entry returns cudaGetLastError()
+# C entry points and argument types of each family's library; every pointer
+# and the stream are c_void_p, and each entry returns cudaGetLastError()
 SIGNATURES = {
-    # (words, out, n, code_bits, is_eq, const_packed, invert, stream)
-    "scan_filter": ("scan_filter_launch", (_P, _P, _LL, _I, _I, _U, _I, _P)),
-    # (words, mask, scratch, out, n, code_bits, stream)
-    "aggregate": ("aggregate_launch", (_P, _P, _P, _P, _LL, _I, _P)),
-    # (pred, agg, valid, scratch, out, n, code_bits, is_eq, const_packed,
-    #  invert, stream)
-    "scan_aggregate": ("scan_aggregate_launch",
-                       (_P, _P, _P, _P, _P, _LL, _I, _I, _U, _I, _P)),
+    "scan_filter": {
+        # (words, out, n, code_bits, is_eq, const_packed, invert, stream)
+        "scan_filter_launch": (_P, _P, _LL, _I, _I, _U, _I, _P)},
+    "aggregate": {
+        # (words, mask, scratch, out, n, code_bits, stream)
+        "aggregate_launch": (_P, _P, _P, _P, _LL, _I, _P),
+        # (words, mask, out, n_chunks, n_words, code_bits, stream)
+        "aggregate_batched_launch": (_P, _P, _P, _LL, _LL, _I, _P)},
+    "scan_aggregate": {
+        # (pred, agg, valid, scratch, out, n, code_bits, is_eq,
+        #  const_packed, invert, stream)
+        "scan_aggregate_launch": (_P, _P, _P, _P, _P, _LL, _I, _I, _U, _I,
+                                  _P),
+        # (consts, flags, pred, agg, valid, out, n_chunks, n_words,
+        #  code_bits, stream)
+        "scan_aggregate_batched_launch": (_P, _P, _P, _P, _P, _P, _LL, _LL,
+                                          _I, _P)},
+    "scan_compressed": {
+        # (values, lengths, out, n_runs, constant, op, code_bits, stream)
+        "rle_scan_aggregate_launch": (_P, _P, _P, _LL, _I, _I, _I, _P),
+        # (values, lengths, out, n_chunks, n_runs, constant, op, code_bits,
+        #  stream)
+        "rle_scan_aggregate_batched_launch": (_P, _P, _P, _LL, _LL, _I, _I,
+                                              _I, _P)},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -105,7 +122,7 @@ def build(names=None) -> dict[str, dict]:
 
 def load(name: str) -> ctypes.CDLL:
     """The family's library, built first if needed, with its C entry
-    point's argtypes/restype declared."""
+    points' argtypes/restype declared."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
@@ -113,10 +130,10 @@ def load(name: str) -> ctypes.CDLL:
     if not path.exists():
         build((name,))
     lib = ctypes.CDLL(str(path))
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
     lib.bitweave_error_string.argtypes = [ctypes.c_int]
     lib.bitweave_error_string.restype = ctypes.c_char_p
     _LIBS[name] = lib
@@ -142,19 +159,22 @@ def require_hopper(device: torch.device) -> None:
             f"versions")
 
 
-def check_operand(t: torch.Tensor, what: str, like: torch.Tensor | None = None
-                  ) -> None:
-    """Kernel operands are contiguous 1-D int32 CUDA tensors (bit views of
-    the packed uint32 words), all of one length on one device."""
+def check_operand(t: torch.Tensor, what: str, like: torch.Tensor | None = None,
+                  ndim: int = 1) -> None:
+    """Kernel operands are contiguous int32 CUDA tensors of `ndim`
+    dimensions: 1-D packed words or per-chunk constants/flags, 2-D
+    (n_chunks, n_words) batched planes (bit views of the packed uint32
+    words) or (n_chunks, n_runs) run planes. With `like`, the same shape on
+    the same device."""
     if not t.is_cuda:
         raise ValueError(f"{what}: the CUDA kernel needs a CUDA tensor, got "
                          f"one on {t.device}")
     if t.dtype != torch.int32:
         raise ValueError(f"{what}: dtype {t.dtype}; packed words are "
                          f"torch.int32 bit views of uint32")
-    if t.dim() != 1:
-        raise ValueError(f"{what}: shape {tuple(t.shape)}; expected 1-D "
-                         f"packed words")
+    if t.dim() != ndim:
+        raise ValueError(f"{what}: shape {tuple(t.shape)}; expected a "
+                         f"{ndim}-D operand")
     if not t.is_contiguous():
         raise ValueError(f"{what}: not contiguous")
     if like is not None and (t.shape != like.shape

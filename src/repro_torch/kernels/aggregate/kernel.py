@@ -1,6 +1,7 @@
-"""ctypes wrapper of the CUDA masked aggregate (csrc/aggregate.cu).
+"""ctypes wrappers of the CUDA masked aggregates (csrc/aggregate.cu).
 
-Counterpart of repro/kernels/aggregate/kernel.py::aggregate_packed.
+Counterparts of repro/kernels/aggregate/kernel.py::aggregate_packed and
+::aggregate_batched_packed.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.aggregate.ref import identity_row
 
 LAUNCHES = 0        # real CUDA launches of this kernel (not op calls)
+BATCHED_LAUNCHES = 0   # ... of the batched kernel
 
 
 def aggregate_packed(words: torch.Tensor, mask_words: torch.Tensor, *,
@@ -35,4 +37,30 @@ def aggregate_packed(words: torch.Tensor, mask_words: torch.Tensor, *,
             out.data_ptr(), n, code_bits, _build.stream_of(words))
     _build.check(lib, err, "aggregate")
     LAUNCHES += 1
+    return out
+
+
+def aggregate_batched_packed(words3: torch.Tensor, mask3: torch.Tensor, *,
+                             code_bits: int) -> torch.Tensor:
+    """(n_chunks, n_words) int32 packed codes + packed delimiter-bit masks
+    on a CUDA device -> int32[n_chunks, 5], one [sum_lo, sum_hi, count,
+    min, max] row per chunk, all chunks in one launch. Zero chunks or zero
+    words return the identity rows without a launch. Launches on the
+    current stream and does not synchronise."""
+    global BATCHED_LAUNCHES
+    if code_bits not in (2, 4, 8, 16):
+        raise ValueError(f"code_bits={code_bits}; expected 2, 4, 8 or 16")
+    _build.check_operand(words3, "words3", ndim=2)
+    _build.check_operand(mask3, "mask3", like=words3, ndim=2)
+    n_chunks, n_words = words3.shape
+    if n_chunks == 0 or n_words == 0:
+        return identity_row(code_bits, words3.device).repeat(n_chunks, 1)
+    out = torch.empty((n_chunks, 5), dtype=torch.int32, device=words3.device)
+    lib = _build.load("aggregate")
+    with torch.cuda.device(words3.device):
+        err = lib.aggregate_batched_launch(
+            words3.data_ptr(), mask3.data_ptr(), out.data_ptr(), n_chunks,
+            n_words, code_bits, _build.stream_of(words3))
+    _build.check(lib, err, "aggregate_batched")
+    BATCHED_LAUNCHES += 1
     return out

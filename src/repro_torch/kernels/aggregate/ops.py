@@ -1,7 +1,6 @@
 """Public masked-aggregate API, dispatched through
 repro_torch.kernels.dispatch (counterpart of
-repro/kernels/aggregate/ops.py; the batched entry comes with the
-compressed store).
+repro/kernels/aggregate/ops.py).
 
 Aggregates carry the sum as two normalized 16-bit planes (sum_hi, sum_lo),
 as the reference does, so results compare field for field; `finalize`
@@ -9,14 +8,16 @@ reassembles the exact Python int on the host.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.aggregate import kernel as K
 from repro_torch.kernels.aggregate import ref
 from repro_torch.kernels.aggregate.ref import (AggRow, as_dict, identity,
-                                               split_sum)
+                                               identity_row, split_sum)
 
-__all__ = ["aggregate", "finalize", "identity", "split_sum",
-           "sum_bound_block_rows"]
+__all__ = ["aggregate", "aggregate_batched", "finalize", "identity",
+           "split_sum", "sum_bound_block_rows", "to3d_words"]
 
 LANES = 128          # the reference's tile width (words per tile row)
 
@@ -51,6 +52,32 @@ def aggregate(words, mask_words, code_bits: int, mode=None) -> dict:
         return ref.aggregate_ref(words, mask_words, code_bits)
     return as_dict(K.aggregate_packed(words, mask_words,
                                       code_bits=code_bits)[0])
+
+
+def to3d_words(words3, lanes: int = LANES):
+    """(n_chunks, n_words) packed planes -> (n_chunks, rows, lanes) tiles,
+    lane-padded with zero words, which no mask ever selects: the
+    reference's TPU tile layout. The port's batched kernels read the
+    (n_chunks, n_words) planes as they are; this stays for layout parity."""
+    n_chunks, n_words = words3.shape
+    pad = (-n_words) % lanes
+    return torch.nn.functional.pad(words3, (0, pad)).reshape(
+        n_chunks, -1, lanes)
+
+
+def aggregate_batched(words3, mask3, code_bits: int, mode=None):
+    """All chunks of one column in one launch: (n_chunks, n_words) packed
+    words + packed masks -> int32[n_chunks, 5], each row equal to the
+    per-chunk `aggregate` at that chunk's words/mask. Padded words carry
+    zero mask bits."""
+    use_kernel = dispatch.resolve(mode, words3)
+    dispatch.count_launch("aggregate")
+    n_chunks, n_words = words3.shape
+    if n_chunks == 0 or n_words == 0:       # empty-selection identities
+        return identity_row(code_bits, words3.device).repeat(n_chunks, 1)
+    if not use_kernel:
+        return ref.aggregate_batched_ref(words3, mask3, code_bits)
+    return K.aggregate_batched_packed(words3, mask3, code_bits=code_bits)
 
 
 def _example(rng):

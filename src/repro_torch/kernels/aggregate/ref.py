@@ -88,3 +88,27 @@ def aggregate_ref(words, mask_words, code_bits: int) -> dict:
         hi = lo + SLICE_WORDS
         acc.add(words[lo:hi], mask_words[lo:hi], code_bits)
     return as_dict(acc.row())
+
+
+def aggregate_batched_ref(words3, mask3, code_bits: int) -> torch.Tensor:
+    """(n_chunks, n_words) packed codes + packed masks -> int32[n_chunks, 5]
+    of [sum_lo, sum_hi, count, min, max] rows, each equal to aggregate_ref
+    on that chunk. Sums in int64 (exact at any size; the store bounds a
+    chunk below 2^31 anyway), a slice of chunks at a time."""
+    n_chunks, n_words = words3.shape
+    if n_chunks == 0 or n_words == 0:
+        return identity_row(code_bits, words3.device).repeat(n_chunks, 1)
+    vmax = (1 << (code_bits - 1)) - 1
+    out = torch.empty((n_chunks, 5), dtype=torch.int32, device=words3.device)
+    step = max(1, SLICE_WORDS // n_words)
+    for lo in range(0, n_chunks, step):
+        w, m = words3[lo:lo + step], mask3[lo:lo + step]
+        k = w.shape[0]
+        vals = unpack(w.reshape(-1), code_bits).reshape(k, -1).to(torch.int64)
+        sel = unpack_mask(m.reshape(-1), code_bits).reshape(k, -1)
+        s = torch.where(sel, vals, 0).sum(1)
+        out[lo:lo + k] = torch.stack([
+            s & 0xFFFF, s >> 16, sel.sum(1),
+            torch.where(sel, vals, vmax).amin(1),
+            torch.where(sel, vals, 0).amax(1)], dim=1).to(torch.int32)
+    return out

@@ -1,7 +1,6 @@
 """Public fused scan+aggregate API, dispatched through
 repro_torch.kernels.dispatch (counterpart of
-repro/kernels/scan_aggregate/ops.py; the batched entry comes with the
-compressed store).
+repro/kernels/scan_aggregate/ops.py).
 
 The full predicate set {lt, le, gt, ge, eq, ne} is composed from the
 kernel's {ge, eq} primitives plus its in-kernel complement, mirroring
@@ -13,9 +12,12 @@ from __future__ import annotations
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.aggregate import ops as agg_ops
-from repro_torch.kernels.aggregate.ref import as_dict, identity
+import torch
+
+from repro_torch.kernels.aggregate.ref import as_dict, identity, identity_row
 from repro_torch.kernels.scan_aggregate import kernel as K
 from repro_torch.kernels.scan_aggregate import ref
+from repro_torch.kernels.scan_filter import ops as scan_ops
 from repro_torch.kernels.scan_filter.ref import OPS
 
 
@@ -59,6 +61,34 @@ def scan_aggregate(pred_words, agg_words, valid_words, constant: int,
     return as_dict(K.scan_aggregate_packed(
         pred_words, agg_words, valid_words, constant=cc, op=prim,
         invert=inv, code_bits=code_bits)[0])
+
+
+def scan_aggregate_batched(pred3, agg3, valid3, triples, code_bits: int,
+                           mode=None):
+    """All chunks of one (pred, agg) column pair in one launch.
+
+    pred3/agg3/valid3: (n_chunks, n_words) packed planes (every chunk
+    already repacked to the shared `code_bits`). triples: per-chunk
+    canonical (prim, constant, invert) from scan_filter.ops.canonical_pred;
+    FOR frames translate the constant differently per chunk, and the
+    kernel takes that difference as data. Returns int32[n_chunks, 5]; each
+    row equals the per-chunk `scan_aggregate` composition for that
+    chunk."""
+    use_kernel = dispatch.resolve(mode, pred3)
+    dispatch.count_launch("scan_aggregate")
+    n_chunks, n_words = pred3.shape
+    if len(triples) != n_chunks:
+        raise ValueError(f"{len(triples)} triples for {n_chunks} chunks")
+    if n_chunks == 0 or n_words == 0:       # empty-selection identities
+        return identity_row(code_bits, pred3.device).repeat(n_chunks, 1)
+    consts, flags = scan_ops.packed_triples(triples, code_bits)
+    if not use_kernel:
+        return ref.scan_aggregate_batched_ref(consts, flags, pred3, agg3,
+                                              valid3, code_bits)
+    dev = pred3.device
+    return K.scan_aggregate_batched_packed(
+        torch.from_numpy(consts).to(dev), torch.from_numpy(flags).to(dev),
+        pred3, agg3, valid3, code_bits=code_bits)
 
 
 def _example(rng):

@@ -1,10 +1,13 @@
 """Plain PyTorch version of the fused scan+aggregate: scan -> valid-mask ->
 aggregate, one slice of words at a time (counterpart of
-repro/kernels/scan_aggregate/ref.py)."""
+repro/kernels/scan_aggregate/ref.py, and of the reference ops'
+`_fused_batched_ref`)."""
 from __future__ import annotations
 
-from repro_torch.kernels.aggregate.ref import Partial, as_dict, identity
-from repro_torch.kernels.scan_filter.ref import OPS, SLICE_WORDS, scan_slice
+from repro_torch.kernels.aggregate.ref import (Partial, aggregate_batched_ref,
+                                               as_dict, identity)
+from repro_torch.kernels.scan_filter.ref import (OPS, SLICE_WORDS, mask_planes,
+                                                 scan_slice)
 
 
 def scan_aggregate_ref(pred_words, agg_words, valid_words, constant: int,
@@ -24,3 +27,12 @@ def scan_aggregate_ref(pred_words, agg_words, valid_words, constant: int,
             & valid_words[lo:hi]
         acc.add(agg_words[lo:hi], mask, code_bits)
     return as_dict(acc.row())
+
+
+def scan_aggregate_batched_ref(consts, flags, pred3, agg3, valid3,
+                               code_bits: int):
+    """The batched fused op's plain version: per-chunk mask planes (packed
+    constant and flags per chunk), validity-masked, aggregated per chunk
+    -> int32[n_chunks, 5]."""
+    mask3 = mask_planes(pred3, consts, flags, code_bits) & valid3
+    return aggregate_batched_ref(agg3, mask3, code_bits)

@@ -15,14 +15,13 @@ from repro_torch.kernels.scan_filter.ref import field_masks
 LAUNCHES = 0        # real CUDA launches of this kernel (not op calls)
 
 
-def packed_constant(constant: int, code_bits: int) -> int:
+def packed_constant(constant, code_bits: int):
     """The constant's payload replicated into every field (delimiter bits
-    stay 0)."""
-    _, _, value = field_masks(code_bits)
-    pc = 0
-    for i in range(32 // code_bits):
-        pc |= (int(constant) & int(value)) << (i * code_bits)
-    return pc
+    stay 0); `constant` is an int or an int64 numpy array of them. A
+    payload fits one field, so multiplying by the fields' low bits
+    replicates it without carries, below 2^31."""
+    _, low, value = field_masks(code_bits)
+    return (constant & int(value)) * int(low)
 
 
 def scan_packed(words: torch.Tensor, constant: int, *, op: str,

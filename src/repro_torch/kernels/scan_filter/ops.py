@@ -1,8 +1,12 @@
 """Public scan-filter API: all six predicates composed from the kernel's
 {ge, eq} primitives and its complement flag, dispatched through
 repro_torch.kernels.dispatch (counterpart of
-repro/kernels/scan_filter/ops.py; the batched entries come with the
-compressed store)."""
+repro/kernels/scan_filter/ops.py).
+
+The batched entry (`scan_filter_batched`) is elementwise mask math over
+(n_chunks, n_words) planes with a constant per chunk; as in the reference,
+whose Pallas and jnp modes share the jnp form, it is plain torch
+(`ref.mask_planes`) in every mode and no kernel replaces it."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,7 +15,8 @@ import torch
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.scan_filter import kernel as K
 from repro_torch.kernels.scan_filter import ref
-from repro_torch.kernels.scan_filter.ref import OPS, as_int32, field_masks
+from repro_torch.kernels.scan_filter.ref import (OPS, as_int32, field_masks,
+                                                 mask_planes)
 
 
 def scan_filter(words, constant: int, op: str, code_bits: int, mode=None):
@@ -52,7 +57,7 @@ def scan_filter(words, constant: int, op: str, code_bits: int, mode=None):
 
 
 # --------------------------------------------------------------------------
-# predicate canonicalisation (shared with the batched paths to come)
+# batched (multi-chunk) path: the per-chunk predicate is data, not code
 # --------------------------------------------------------------------------
 
 def canonical_pred(op: str, constant: int, code_bits: int):
@@ -86,13 +91,31 @@ def packed_triples(triples, code_bits: int):
     """Canonical triples -> (consts, flags) int32 numpy planes for a
     batched launch: consts[k] is chunk k's constant replicated into every
     field of a packed word; flags bit0 = eq-primitive, bit1 = invert."""
-    n = len(triples)
-    consts = np.zeros(n, np.int32)
-    flags = np.zeros(n, np.int32)
-    for k, (prim, c, inv) in enumerate(triples):
-        consts[k] = K.packed_constant(c, code_bits)  # delimiters 0: fits
-        flags[k] = (1 if prim == "eq" else 0) | (2 if inv else 0)
+    if not len(triples):
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    prim, c, inv = zip(*triples)
+    consts = K.packed_constant(np.asarray(c, np.int64),
+                               code_bits).astype(np.int32)
+    flags = ((np.asarray(prim) == "eq").astype(np.int32)
+             | (np.asarray(inv, bool).astype(np.int32) << 1))
     return consts, flags
+
+
+def mask_batched(words3, triples, code_bits: int):
+    """Pure mask math for the batched scan: (n_chunks, n_words) packed
+    codes + per-chunk canonical triples -> (n_chunks, n_words) packed
+    masks. No launch is counted here."""
+    consts, flags = packed_triples(triples, code_bits)
+    return mask_planes(words3, consts, flags, code_bits)
+
+
+def scan_filter_batched(words3, triples, code_bits: int, mode=None):
+    """(n_chunks, n_words) packed codes + per-chunk canonical triples ->
+    (n_chunks, n_words) packed masks in one dispatch (one launch count, as
+    in the reference)."""
+    dispatch.resolve(mode, words3)     # validates the mode and the device
+    dispatch.count_launch("scan_filter")
+    return mask_batched(words3, triples, code_bits)
 
 
 def _example(rng):

@@ -141,3 +141,37 @@ def scan_ref(words, constant: int, op: str, code_bits: int):
         hi = lo + SLICE_WORDS
         out[lo:hi] = scan_slice(words[lo:hi], constant, op, code_bits)
     return out
+
+
+def as_int32_bits(m: torch.Tensor) -> torch.Tensor:
+    """int64 tensor of uint32 bit patterns in [0, 2^32) -> int32 tensor
+    with the same bits."""
+    return (m - ((m >> 31) << 32)).to(torch.int32)
+
+
+def mask_planes(words3, consts, flags, code_bits: int) -> torch.Tensor:
+    """Batched scan: (n_chunks, n_words) int32 packed codes + per-chunk
+    packed constants and flags (bit0 = eq primitive, bit1 = invert; see
+    ops.packed_triples) -> (n_chunks, n_words) packed masks: the kernels'
+    GE/EQ word tricks with each chunk's own constant. Computed in int64
+    (uint32 arithmetic without the CPU's missing uint32 ops), a slice of
+    chunks at a time."""
+    delim, low, _ = field_masks(code_bits)
+    h, lo_mask = int(delim), int(low)
+    dev = words3.device
+    consts = torch.as_tensor(consts, device=dev).to(torch.int64)
+    flags = torch.as_tensor(flags, device=dev).to(torch.int64)
+    out = torch.empty_like(words3)
+    n_chunks, n_words = words3.shape
+    step = max(1, SLICE_WORDS // max(n_words, 1))
+    for lo in range(0, n_chunks, step):
+        hi = lo + step
+        x = words3[lo:hi].to(torch.int64) & 0xFFFFFFFF
+        c = consts[lo:hi, None]
+        f = flags[lo:hi, None]
+        m_ge = ((x | h) - c) & h
+        m_eq = ~(((x ^ c) | h) - lo_mask) & h
+        m = torch.where((f & 1) == 1, m_eq, m_ge)
+        m = torch.where((f & 2) == 2, m ^ h, m)   # m within h: ^h == ~m & h
+        out[lo:hi] = as_int32_bits(m)
+    return out

@@ -1,6 +1,6 @@
 """SLA-aware query engine on a torch device: EDF admission, dispatch
 execution, measured throughput (counterpart of repro/query/engine.py,
-flat-table path).
+flat-table and compressed-store paths).
 
 - queries carry deadlines and are admitted/ordered by the shared EDF
   machinery (repro_torch.serve.sla) with service-time estimates of
@@ -8,13 +8,18 @@ flat-table path).
 - execution routes every operator through repro_torch.kernels.dispatch
   (fused scan+aggregate where the shape allows): on a CUDA table the
   Hopper kernels, on a CPU table their plain PyTorch versions;
+- a repro_torch.store EncodedTable executes compressed
+  (store.exec.execute_encoded): bytes_scanned is the physical
+  (compressed) traffic, logical_bytes the plain-format coverage beside
+  it, so summary()'s effective_gbps exceeds measured_gbps by what
+  compression buys;
 - every query's bytes_scanned and attained wall-clock latency are
   recorded, so measured_bps feeds admission.
 
 The reference engine's tiered, energy, chaos, prefetch, monitoring,
-tracing, relational, sharded, compressed-store and model-feedback paths
-belong to later slices of the port; asking for one raises
-NotImplementedError naming its step in ROADMAP.md ("Modules to port").
+tracing, relational, sharded and model-feedback paths belong to later
+slices of the port; asking for one raises NotImplementedError naming its
+step in ROADMAP.md ("Modules to port").
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ def _later(what: str, step: str) -> NotImplementedError:
 class _Pending:
     qid: int
     query: Query
-    bytes_scanned: int
+    bytes_scanned: int              # physical (compressed) bytes
     submitted_at: float
     tenant: int = 0
     logical_bytes: int = 0
@@ -58,13 +63,14 @@ class QueryResult:
     deadline: float
     met: bool
     tier: dict | None = None        # tiered mode (a later slice): None
-    logical_bytes: int = 0          # == bytes_scanned (no compression yet)
+    logical_bytes: int = 0          # == bytes_scanned unless compressed
     degraded: bool = False          # chaos (a later slice): always False
     error: str | None = None
 
 
 class QueryEngine:
-    """Deadline-batched scan/aggregate execution over a flat table.
+    """Deadline-batched scan/aggregate execution over a flat table or a
+    compressed store table (repro_torch.store.EncodedTable).
 
     est_gbps seeds the admission controller's service-time estimate; it is
     replaced by the measured cumulative scan rate as soon as one query has
@@ -88,8 +94,6 @@ class QueryEngine:
             raise _later("an enabled tracer=", "step 6 (obs tracing)")
         if hasattr(table, "n_shards"):
             raise _later("a sharded table", "step 5 (sharding)")
-        if hasattr(table, "chunk_rows"):
-            raise _later("a compressed-store table", "step 3 (store)")
         self.device = resolve_device(device)
         self.mode = KernelMode(mode)
         if self.mode is KernelMode.CUDA and self.device.type != "cuda":
@@ -128,13 +132,14 @@ class QueryEngine:
         return self.table.num_rows
 
     def bytes_scanned(self, query: Query) -> int:
-        """Bytes the query streams from device memory."""
+        """Physical bytes the query streams from device memory (compressed
+        for a store table)."""
         return physical.referenced_bytes(query.plan(), query.aggregates,
                                          self.table.columns)
 
     def logical_bytes(self, query: Query) -> int:
-        """Plain-format bytes the query covers (== bytes_scanned until the
-        compressed store is ported)."""
+        """Plain-format bytes the query covers; the physical/logical gap
+        is the effective-bandwidth multiplier compression buys."""
         return physical.referenced_logical_bytes(
             query.plan(), query.aggregates, self.table.columns)
 
@@ -171,8 +176,13 @@ class QueryEngine:
 
     # --- execution --------------------------------------------------------
     def _execute(self, query: Query) -> dict:
-        """Exact host-int aggregates; finalize copies each aggregate's row
-        to the host, which waits for the device."""
+        """Exact host-int aggregates; both paths copy their rows to the
+        host, which waits for the device."""
+        if hasattr(self.table, "chunk_rows"):        # a store table
+            # imported here: repro_torch.store imports this package
+            from repro_torch.store.exec import execute_encoded
+            return execute_encoded(query.plan(), query.aggregates,
+                                   self.table, mode=self.mode)
         return physical.finalize_aggs(physical.execute(
             query.plan(), query.aggregates,
             physical.table_slices(self.table), mode=self.mode))
@@ -200,8 +210,8 @@ class QueryEngine:
             deadline=deadline, bytes_expected=pend.bytes_scanned,
             shape="scan")
         aggs = self._execute(pend.query)
-        # finalize inside _execute waited for the device, so t1 - t0 covers
-        # the full scan
+        # the host copies inside _execute waited for the device, so t1 - t0
+        # covers the full scan
         t1 = self.clock()
         self.seconds_total += max(t1 - t0, 1e-12)
         self.bytes_total += pend.bytes_scanned
@@ -227,6 +237,8 @@ class QueryEngine:
         out["measured_gbps"] = (self.bytes_total / self.seconds_total / 1e9
                                 if self.seconds_total > 0 else 0.0)
         out["logical_bytes"] = self.logical_bytes_total
+        # logical coverage per second: > measured_gbps exactly when the
+        # store is compressed
         out["effective_gbps"] = (self.logical_bytes_total
                                  / self.seconds_total / 1e9
                                  if self.seconds_total > 0 else 0.0)

@@ -127,3 +127,84 @@ def test_cuda_mode_on_cpu_tensor_raises():
     w = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError, match="lies on the CPU"):
         tops.aggregate(w, w, 8, mode="cuda")
+
+
+# --- batched (one launch over every chunk of a column group) ---------------
+
+def ragged_planes(rng, bits, n_chunks, n_words):
+    """(n_chunks, n_words) packed codes + masks; chunk k holds its own row
+    count (0 included), the rest zero words with zero mask bits."""
+    vmax = (1 << (bits - 1)) - 1
+    cpw = 32 // bits
+    words = np.zeros((n_chunks, n_words), np.uint32)
+    mask = np.zeros((n_chunks, n_words), np.uint32)
+    for k in range(n_chunks):
+        rows = int(rng.integers(0, n_words * cpw + 1)) if k else 0
+        words[k, :-(-rows // cpw)] = jscan.pack(
+            rng.integers(0, vmax + 1, rows), bits)
+        mask[k] = jscan.pack_mask(
+            (np.arange(n_words * cpw) < rows)
+            & (rng.random(n_words * cpw) < 0.6), bits)
+    return words, mask
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_aggregate_batched_matches_reference(bits):
+    rng = np.random.default_rng(40 + bits)
+    for n_chunks, n_words in ((1, 1), (7, 131), (3, 4096)):
+        words, mask = ragged_planes(rng, bits, n_chunks, n_words)
+        want = np.asarray(jops.aggregate_batched(words, mask, bits,
+                                                 mode="xla_ref"))
+        np.testing.assert_array_equal(
+            np.asarray(jops.aggregate_batched(words, mask, bits,
+                                              mode="pallas")), want)
+        wt, mt = to_torch(words, "cpu"), to_torch(mask, "cpu")
+        for mode in ("auto", "torch_ref"):
+            got = tops.aggregate_batched(wt, mt, bits, mode=mode)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), want)
+        for k in range(n_chunks):
+            assert ints(tops.aggregate(wt[k], mt[k], bits)) == \
+                dict(zip(tref.FIELDS, want[k].tolist()))
+
+
+@pytest.mark.parametrize("shape", ((0, 5), (3, 0), (0, 0)))
+def test_aggregate_batched_empty_is_identity(shape):
+    w = np.zeros(shape, np.uint32)
+    want = np.asarray(jops.aggregate_batched(w, w, 8, mode="pallas"))
+    got = tops.aggregate_batched(to_torch(w, "cpu"), to_torch(w, "cpu"), 8)
+    assert got.shape == (shape[0], 5)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_aggregate_batched_sum_at_the_chunk_bound():
+    """A full 16-bit chunk (65536 rows, 32768 words) of the payload max,
+    every row selected: 2147418112, just below 2^31."""
+    words = np.tile(jscan.pack(np.full(65536, 32767), 16), (2, 1))
+    mask = np.tile(jscan.pack_mask(np.ones(65536, bool), 16), (2, 1))
+    want = np.asarray(jops.aggregate_batched(words, mask, 16,
+                                             mode="xla_ref"))
+    got = tops.aggregate_batched(to_torch(words, "cpu"),
+                                 to_torch(mask, "cpu"), 16)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert tops.finalize(tref.as_dict(got[0]))["sum"] == 32767 * 65536
+
+
+def test_to3d_words_matches_reference():
+    rng = np.random.default_rng(8)
+    words = rng.integers(0, 2**32, (3, 300), dtype=np.uint32)
+    np.testing.assert_array_equal(
+        tops.to3d_words(to_torch(words, "cpu")).numpy().view(np.uint32),
+        np.asarray(jops.to3d_words(words)))
+
+
+def test_batched_kernel_wrapper_rejects_bad_operands():
+    w = torch.zeros((2, 8), dtype=torch.int32)
+    before = tkernel.BATCHED_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tkernel.aggregate_batched_packed(w, w, code_bits=8)
+    with pytest.raises(ValueError, match="code_bits"):
+        tkernel.aggregate_batched_packed(w, w, code_bits=5)
+    with pytest.raises(ValueError, match="lies on the CPU"):
+        tops.aggregate_batched(w, w, 8, mode="cuda")
+    assert tkernel.BATCHED_LAUNCHES == before

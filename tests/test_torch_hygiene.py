@@ -53,6 +53,18 @@ def test_importing_the_engine_loads_no_jax_and_builds_nothing():
     assert out.stdout.strip() == "clean"
 
 
+@pytest.mark.parametrize(
+    "package", sorted(p.parent.name for p in PORT.glob("*/__init__.py")))
+def test_each_package_imports_first(package):
+    """No import cycle: every package of the port imports in a fresh
+    interpreter before any other (repro_torch.store used to fail there)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c",
+                          f"import repro_torch.{package}"], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_default_device_constructors_need_cuda():
     """With no CUDA device the defaults raise; with one they land on it."""
     from repro_torch.db import BitPackedColumn, Table, table_from_arrays

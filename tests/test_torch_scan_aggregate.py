@@ -139,3 +139,90 @@ def test_kernel_wrapper_and_modes_reject_cpu_tensors():
     with pytest.raises(ValueError, match="unknown predicate op"):
         tops.scan_aggregate(w, w, w, 1, "like", 8)
     assert tkernel.LAUNCHES == before
+
+
+# --- batched (one launch over every chunk of a column group) ---------------
+
+def ragged(rng, bits, n_chunks, n_words):
+    """pred/agg/valid (n_chunks, n_words) planes, each chunk with its own
+    row count (0 included) and zero words past it."""
+    vmax = (1 << (bits - 1)) - 1
+    cpw = 32 // bits
+    planes = np.zeros((3, n_chunks, n_words), np.uint32)
+    for k in range(n_chunks):
+        rows = int(rng.integers(0, n_words * cpw + 1)) if k else 0
+        nw = -(-rows // cpw)
+        planes[0, k, :nw] = jscan.pack(rng.integers(0, vmax + 1, rows), bits)
+        planes[1, k, :nw] = jscan.pack(rng.integers(0, vmax + 1, rows), bits)
+        planes[2, k] = jscan.pack_mask(np.arange(n_words * cpw) < rows, bits)
+    return planes
+
+
+@pytest.mark.parametrize("op", jscan.OPS)
+@pytest.mark.parametrize("bits", BITS)
+def test_scan_aggregate_batched_matches_reference(bits, op):
+    """Ragged chunks, a different constant per chunk (tautologies below 0
+    and above vmax included), against the reference's batched op and the
+    per-chunk composition."""
+    from repro.kernels.scan_filter import ops as jscan_ops
+    rng = np.random.default_rng(200 + 10 * bits + jscan.OPS.index(op))
+    vmax = (1 << (bits - 1)) - 1
+    for n_chunks, n_words in ((1, 3), (7, 129)):
+        pred, agg, valid = ragged(rng, bits, n_chunks, n_words)
+        consts = rng.integers(-2, vmax + 3, n_chunks)
+        triples = [jscan_ops.canonical_pred(op, int(c), bits)
+                   for c in consts]
+        want = np.asarray(jops.scan_aggregate_batched(
+            pred, agg, valid, triples, bits, mode="xla_ref"))
+        pt, at, vt = (to_torch(x, "cpu") for x in (pred, agg, valid))
+        for mode in ("auto", "torch_ref"):
+            got = tops.scan_aggregate_batched(pt, at, vt, triples, bits,
+                                              mode=mode)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), want)
+        for k, c in enumerate(consts):
+            if 0 <= c <= vmax:
+                assert ints(tops.scan_aggregate(pt[k], at[k], vt[k], int(c),
+                                                op, bits)) == \
+                    dict(zip(("sum_lo", "sum_hi", "count", "min", "max"),
+                             want[k].tolist()))
+    np.testing.assert_array_equal(
+        np.asarray(jops.scan_aggregate_batched(pred, agg, valid, triples,
+                                               bits, mode="pallas")), want)
+
+
+def test_scan_aggregate_batched_empty_and_mismatch():
+    z = torch.zeros((0, 4), dtype=torch.int32)
+    assert tops.scan_aggregate_batched(z, z, z, [], 8).shape == (0, 5)
+    z = torch.zeros((2, 0), dtype=torch.int32)
+    got = tops.scan_aggregate_batched(z, z, z, [("ge", 0, False)] * 2, 8)
+    assert got.tolist() == [[0, 0, 0, 127, 0]] * 2
+    with pytest.raises(ValueError, match="1 triples for 2 chunks"):
+        tops.scan_aggregate_batched(z, z, z, [("ge", 0, False)], 8)
+
+
+def test_batched_launch_counts_match_reference():
+    from repro.kernels import dispatch as jdispatch
+    rng = np.random.default_rng(1)
+    pred, agg, valid = ragged(rng, 8, 3, 16)
+    triples = [("ge", 5, False)] * 3
+    dispatch.reset_launch_counts()
+    jdispatch.reset_launch_counts()
+    tops.scan_aggregate_batched(*(to_torch(x, "cpu")
+                                  for x in (pred, agg, valid)), triples, 8)
+    jops.scan_aggregate_batched(pred, agg, valid, triples, 8,
+                                mode="xla_ref")
+    assert dispatch.launch_counts() == jdispatch.launch_counts() == \
+        {"scan_aggregate": 1}
+
+
+def test_batched_kernel_wrapper_rejects_cpu_tensors():
+    w = torch.zeros((2, 8), dtype=torch.int32)
+    c = torch.zeros(2, dtype=torch.int32)
+    before = tkernel.BATCHED_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tkernel.scan_aggregate_batched_packed(c, c, w, w, w, code_bits=8)
+    with pytest.raises(ValueError, match="lies on the CPU"):
+        tops.scan_aggregate_batched(w, w, w, [("ge", 1, False)] * 2, 8,
+                                    mode="cuda")
+    assert tkernel.BATCHED_LAUNCHES == before

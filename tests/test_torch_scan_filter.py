@@ -175,7 +175,8 @@ def test_dispatch_resolve_and_launch_counts():
 
 def test_registry_examples_match_refs():
     ops = dispatch.registered()
-    assert set(ops) == {"scan_filter", "aggregate", "scan_aggregate"}
+    assert set(ops) == {"scan_filter", "aggregate", "scan_aggregate",
+                        "scan_compressed"}
     for name, op in ops.items():
         args, kwargs = op.example(np.random.default_rng(0))
         got, want = op.fn(*args, **kwargs), op.ref(*args, **kwargs)
@@ -184,3 +185,32 @@ def test_registry_examples_match_refs():
                 {k: int(v) for k, v in want.items()}, name
         else:
             assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_scan_filter_batched_matches_reference(bits):
+    """Per-chunk canonical triples over (n_chunks, n_words) planes, all six
+    ops at random constants (tautologies included); the plain torch op in
+    every mode, one launch count, as the reference's jnp form."""
+    from repro.kernels import dispatch as jdispatch
+    rng = np.random.default_rng(60 + bits)
+    vmax = (1 << (bits - 1)) - 1
+    words = np.stack([random_words(rng, bits, 257) for _ in range(9)])
+    triples = [jops.canonical_pred(jref.OPS[k % 6], int(c), bits)
+               for k, c in enumerate(rng.integers(-2, vmax + 3, 9))]
+    want = np.asarray(jops.scan_filter_batched(words, triples, bits,
+                                               mode="xla_ref"))
+    wt = tref.to_torch(words, "cpu")
+    dispatch.reset_launch_counts()
+    jdispatch.reset_launch_counts()
+    for mode in ("auto", "torch_ref"):
+        got = tops.scan_filter_batched(wt, triples, bits, mode=mode)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+        jops.scan_filter_batched(words, triples, bits, mode="pallas")
+    assert dispatch.launch_counts() == jdispatch.launch_counts() == \
+        {"scan_filter": 2}
+    np.testing.assert_array_equal(
+        tops.mask_batched(wt, triples, bits).numpy().view(np.uint32),
+        np.asarray(jops.mask_batched(words, triples, bits)))
+    empty = torch.zeros((0, 4), dtype=torch.int32)
+    assert tops.scan_filter_batched(empty, [], bits).shape == (0, 4)
