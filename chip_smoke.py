@@ -46,6 +46,28 @@ Phases (any failure exits non-zero; there is no CPU fallback):
              path's shapes (and the RLE kernel at its largest legal plane),
              timed as in 5; the store queries under torch.profiler.
 
+The grouped slice (GroupBy / HashJoin) adds to these phases:
+
+3. parity  — the grouped kernels (dense group_sum_count, RLE
+             rle_group_accumulate) against their plain versions, bit for
+             bit: G {1, 8, 100, 1024} x n_chunks {1, 7, 4096} with ragged
+             rows and select, keys outside the domain, contiguous and join
+             (non-contiguous) domains, a 65536-row chunk of 65535s and one
+             (1, 2^23, 128) chunk; the RLE kernel over no predicate, ge and
+             eq, each plain and inverted, x n_runs {1, 3, 1001, 4096},
+             zero-length runs, and the one-run chunk whose int32 sum wraps
+             as the reference's does.
+4b. grouped main — after the main profile, six GroupBy/HashJoin shapes on
+             the 2^30-row table through QueryEngine(mode="auto"), against
+             QueryEngine(mode="torch_ref"), the port's oracle on the card,
+             and (GroupBy) the flat engine's totals; kernel 8 timed at the
+             main path's shape (a over w, G = 128).
+7b. grouped store — the seven grouped shapes of tests/test_relational.py
+             on the 2^28-row store, cold then warm, against the torch_ref
+             engine, the oracle and the plain table's engine; kernels 8
+             and 9 timed at the store's shapes (r over u, G = 8; r's run
+             planes) and kernel 9 at 4096 x 4096 runs.
+
 The second-to-last line of output is one JSON object {"kernels": [...]};
 the last is {"ok": true, "device": {...}}.
 """
@@ -478,7 +500,8 @@ def main_phase(table) -> dict:
 
 # device kernels of the port, by the names nvcc gave them
 PORT_KERNELS = ("scan_kernel", "aggregate_kernel", "aggregate_batched_kernel",
-                "rle_scan_aggregate_kernel")
+                "rle_scan_aggregate_kernel", "group_sum_count_kernel",
+                "group_finalize_kernel", "rle_group_accumulate_kernel")
 
 
 def profile_phase(table, shapes, label: str) -> None:
@@ -490,9 +513,12 @@ def profile_phase(table, shapes, label: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.query import Query, QueryEngine
+    # (name, plan, aggregates) plan shapes, or (name, query) pairs
+    queries = [(sh[0], Query(sh[1], aggregates=sh[2]) if len(sh) == 3
+                else sh[1]) for sh in shapes]
     eng = QueryEngine(table, mode="auto")
-    for name, plan, aggs in shapes:
-        eng.submit(Query(plan, aggregates=aggs))
+    for name, q in queries:
+        eng.submit(q)
         res = eng.run()[0]
         print(f"warm {name:24s} {res.latency_s * 1e3:9.3f} ms "
               f"{res.bytes_scanned / res.latency_s / 1e9:8.1f} GB/s")
@@ -500,8 +526,8 @@ def profile_phase(table, shapes, label: str) -> None:
     eng = QueryEngine(table, mode="auto")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for name, plan, aggs in shapes:
-            eng.submit(Query(plan, aggregates=aggs))
+        for name, q in queries:
+            eng.submit(q)
             eng.run()
     wall_us = eng.seconds_total * 1e6
     # device-side rows only (kernels, memcpy, memset: no host time of their
@@ -875,6 +901,372 @@ def store_times_phase(encoded, dev: dict, launches: dict,
     return out
 
 
+# --------------------------------------------------------------------------
+# the grouped slice: GroupBy / HashJoin on kernels 8 and 9
+# --------------------------------------------------------------------------
+
+GROUP_SHAPES = ((1, 1), (7, 131), (4096, 512))   # (n_chunks, rows of 128)
+GROUP_SIZES = (1, 8, 100, 1024)
+GROUP_RUN_CHUNKS, GROUP_RUNS = (1, 7, 4096), (1, 3, 1001, 4096)
+RUN_PREDS = (None, ("ge", 60, False), ("ge", 60, True), ("eq", 7, False),
+             ("eq", 7, True))
+GROUP_REPLACES = "src/repro/kernels/group_aggregate/kernel.py:124"
+
+
+def group_keys(n_groups: int, join: bool, g: torch.Generator):
+    """Sorted int32 group keys on the card, and a key bound past them: an
+    arange 3 .. 3 + G - 1 (a GROUP BY's domain), or G distinct keys drawn
+    from [0, 8G + 64) (a join's build keys)."""
+    if join:
+        gk = torch.randperm(8 * n_groups + 64, device="cuda",
+                            generator=g)[:n_groups].sort().values
+    else:
+        gk = torch.arange(3, 3 + n_groups, device="cuda")
+    return gk.to(torch.int32), int(gk.max()) + 10
+
+
+def group_planes(n_chunks: int, rows: int, kmax: int, g: torch.Generator):
+    """(n_chunks, rows, 128) int32 key/value/select planes: keys in
+    [0, kmax) (some outside the domain), values below 2^16, and a ragged
+    select (chunk c selects a random subset of its first n_c rows; chunk
+    0 all of its rows)."""
+    shape = (n_chunks, rows, 128)
+    k = torch.randint(0, kmax, shape, device="cuda", dtype=torch.int32,
+                      generator=g)
+    v = torch.randint(0, 1 << 16, shape, device="cuda", dtype=torch.int32,
+                      generator=g)
+    s = torch.randint(0, 2, shape, device="cuda", dtype=torch.int32,
+                      generator=g)
+    n_c = torch.randint(0, rows * 128 + 1, (n_chunks,), device="cuda",
+                        generator=g)
+    n_c[0] = rows * 128
+    live = torch.arange(rows * 128, device="cuda")[None, :] < n_c[:, None]
+    return k, v, s * live.reshape(shape)
+
+
+def group_parity_phase() -> dict:
+    """Kernels 8-9 against their plain versions, bit for bit."""
+    phase("parity (grouped kernels)")
+    from repro_torch.kernels.group_aggregate import ops as gops
+    from repro_torch.kernels.scan_compressed.ops import stack_runs
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    names = ("group_sum_count_batched", "rle_group_accumulate_batched")
+    err = dict.fromkeys(names, 0)
+    cases = dict.fromkeys(names, 0)
+    bad = []
+
+    def check(name, k, r, *what):
+        e = int((k.long() - r.long()).abs().max()) if k.numel() else 0
+        if k.shape != r.shape:
+            e = max(e, 1)
+        err[name] = max(err[name], e)
+        cases[name] += 1
+        if e:
+            bad.append((name, *what))
+
+    def dense(k, v, s, gk, *what):
+        out = gops.group_sum_count_batched(k, v, s, gk, mode="cuda")
+        check("group_sum_count_batched", out,
+              gops.group_sum_count_batched(k, v, s, gk, mode="torch_ref"),
+              *what)
+        return out
+
+    t0 = time.perf_counter()
+    for n_chunks, rows in GROUP_SHAPES:
+        for n_groups in GROUP_SIZES:
+            for join in (False, True):
+                gk, kmax = group_keys(n_groups, join, g)
+                k, v, s = group_planes(n_chunks, rows, kmax, g)
+                dense(k, v, s, gk, n_chunks, rows, n_groups, join)
+    # a full 65536-row chunk of 65535s: its sum passes 2^31
+    ones = torch.ones((1, 512, 128), dtype=torch.int32, device="cuda")
+    out = dense(ones * 0, ones * 65535, ones,
+                torch.zeros(1, dtype=torch.int32, device="cuda"), "65535s")
+    big = (int(out[0, 0, 1]) << 16) + int(out[0, 0, 0])
+    if big != 65535 * 65536 or int(out[0, 0, 2]) != 65536:
+        bad.append(("dense sum past 2^31", out.tolist()))
+    del ones
+    # one (1, 2^23, 128) chunk: the plain table's whole column
+    for n_groups, join in ((128, False), (1024, True)):
+        gk, kmax = group_keys(n_groups, join, g)
+        k, v, s = group_planes(1, MAIN_ROWS // 128, kmax, g)
+        dense(k, v, s, gk, 1, MAIN_ROWS // 128, n_groups, join)
+        del k, v, s
+    torch.cuda.empty_cache()
+    for n_chunks in GROUP_RUN_CHUNKS:
+        for n_runs in GROUP_RUNS:
+            values = torch.randint(0, 1100, (n_chunks, n_runs),
+                                   device="cuda", dtype=torch.int32,
+                                   generator=g)
+            lengths = torch.randint(0, 17, (n_chunks, n_runs), device="cuda",
+                                    dtype=torch.int32, generator=g)
+            # ragged run counts: chunk c keeps its first runs only
+            v2, l2 = stack_runs([(values[c, :n_runs - c % 3 * (n_runs // 3)],
+                                  lengths[c, :n_runs - c % 3 * (n_runs // 3)])
+                                 for c in range(n_chunks)])
+            for gk in (torch.arange(128, device="cuda"),
+                       torch.randperm(1100, device="cuda",
+                                      generator=g)[:100].sort().values,
+                       torch.arange(1024, device="cuda")):
+                for pred in RUN_PREDS:
+                    check("rle_group_accumulate_batched",
+                          gops.rle_group_accumulate_stacked(
+                              v2, l2, gk, pred=pred, mode="cuda"),
+                          gops.rle_group_accumulate_stacked(
+                              v2, l2, gk, pred=pred, mode="torch_ref"),
+                          n_chunks, n_runs, len(gk), pred)
+    # one run of 65536 rows of 65535: the reference's int32 sum wraps
+    v = torch.full((1, 1), 65535, dtype=torch.int32, device="cuda")
+    n = torch.full((1, 1), 65536, dtype=torch.int32, device="cuda")
+    for mode in ("cuda", "torch_ref"):
+        got = gops.rle_group_accumulate_stacked(
+            v, n, torch.full((1,), 65535, device="cuda"), mode=mode).tolist()
+        if got != [[[0, -1, 65536]]]:
+            bad.append(("rle wrap", mode, got))
+    cases["rle_group_accumulate_batched"] += 1
+    torch.cuda.synchronize()
+    print(f"grouped parity cases {cases} max_abs_err {err} "
+          f"in {time.perf_counter() - t0:.3f} s", flush=True)
+    if bad:
+        for b in bad[:20]:
+            print("MISMATCH", b, file=sys.stderr)
+        fail(f"{len(bad)} grouped kernel/plain mismatches")
+    return err
+
+
+def build_dim(spec: dict):
+    """A small build side on the card: {column: codes}, all 8-bit."""
+    from repro_torch.db import BitPackedColumn, Table
+    t = Table("dim")
+    for name, codes in spec.items():
+        t.add(BitPackedColumn.from_values(name, np.array(codes), 8,
+                                          device="cuda"))
+    return t
+
+
+def grouped_main_shapes(dim):
+    """Six grouped shapes on the main table: dense (G = 128 and 8),
+    count-only, a join on a non-contiguous domain, the fallback (w spans
+    32768 keys) and an empty selection."""
+    from repro_torch.query import GroupBy, HashJoin, Pred
+    return [
+        ("groupby_dense", GroupBy("a", ("w",))),
+        ("groupby_where", GroupBy("x", ("a", "b"),
+                                  where=Pred("w", "lt", 16384))),
+        ("count_only", GroupBy("x")),
+        ("hash_join", HashJoin(dim, "a", "a", aggs=("b",))),
+        ("fallback_wide_key", GroupBy("w", ("x",))),
+        ("empty_selection", GroupBy("a", ("b",), where=Pred("x", "gt", 7))),
+    ]
+
+
+def grouped_store_shapes(dim):
+    """The seven grouped shapes of tests/test_relational.py:175-262."""
+    from repro_torch.query import GroupBy, HashJoin, Pred
+    return [
+        ("groupby_two_aggs", GroupBy("r", ("u", "f"))),
+        ("for_key_where", GroupBy("f", ("w",), where=Pred("u", "lt", 64))),
+        ("rle_count_only", GroupBy("r")),
+        ("rle_key_pred", GroupBy("r", where=Pred("r", "le", 4))),
+        ("for16_key", GroupBy("w", ("u",))),
+        ("join_plain_key", HashJoin(dim, "u", "u", aggs=("f",),
+                                    where=Pred("r", "lt", 7))),
+        ("join_rle_key", HashJoin(dim, "r", "r", aggs=("u",))),
+    ]
+
+
+def flat_totals(q):
+    """The flat query whose count and sums are a grouped query's totals:
+    its plan, restricted for a join to the build keys (an Or of eq
+    leaves), aggregating its value columns (or the key, count-only)."""
+    from repro_torch.query import And, HashJoin, Or, Pred, Query, relational
+    plan = q.plan()
+    if isinstance(q, HashJoin):
+        leaves = [Pred(q.key, "eq", k)
+                  for k in relational.build_keys(q).tolist()]
+        member = Or.of(*leaves) if len(leaves) > 1 else leaves[0]
+        plan = And.of(q.where, member) if q.where is not None else member
+    return Query(plan, aggregates=q.aggs or (q.key,))
+
+
+def grouped_phase(table, shapes, label: str, rows: int, plain=None,
+                  rounds: int = 1) -> dict:
+    """The grouped shapes through QueryEngine(table, "auto") `rounds`
+    times (cold, then warm), each result against QueryEngine(table,
+    "torch_ref"), the port's oracle on the card (over `plain`, the plain
+    table, for a store table), `plain`'s own engine, and the flat engine's
+    count and sums; kernels 8-9 must have launched."""
+    phase(f"grouped {label}")
+    from repro_torch.kernels.group_aggregate import kernel as gk
+    from repro_torch.query import QueryEngine, relational
+    flat = plain if plain is not None else table
+    gk.LAUNCHES = gk.RLE_LAUNCHES = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    eng = QueryEngine(table, mode="auto")
+    runs = [[] for _ in range(rounds)]
+    for out in runs:
+        for name, q in shapes:
+            eng.submit(q)
+            out.append(eng.run()[0])
+    launches = {"group_sum_count_batched": gk.LAUNCHES,
+                "rle_group_accumulate_batched": gk.RLE_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"kernel launches on the grouped {label} path: {launches}; "
+          f"dispatch counts {eng.metrics.launch_counts()}")
+    print(f"device memory: tables {base_mem / 2**30:.3f} GiB, peak "
+          f"{peak / 2**30:.3f} GiB during the grouped queries")
+    ref = QueryEngine(table, mode="torch_ref")
+    other = QueryEngine(plain, mode="auto") if plain is not None else None
+    totals = QueryEngine(table, mode="auto")
+    bad = []
+    for i, (name, q) in enumerate(shapes):
+        ref.submit(q)
+        want = ref.run()[0]
+        t0 = time.perf_counter()
+        oracle = relational.execute_grouped_oracle(q, flat)
+        torch.cuda.synchronize()
+        oracle_s = time.perf_counter() - t0
+        got = [out[i] for out in runs]
+        same = all(r.aggregates == want.aggregates == oracle for r in got)
+        line = " ".join(f"{r.latency_s * 1e3:9.3f} ms" for r in got)
+        w = got[-1]
+        msg = (f"{name:18s} {line}  phys "
+               f"{w.bytes_scanned / w.latency_s / 1e9:7.1f} GB/s  eff "
+               f"{w.logical_bytes / w.latency_s / 1e9:7.1f} GB/s | "
+               f"torch_ref {want.latency_s * 1e3:9.3f} ms | oracle "
+               f"{oracle_s * 1e3:9.3f} ms")
+        if other is not None:
+            other.submit(q)
+            p = other.run()[0]
+            same = same and p.aggregates == oracle
+            msg += f" | plain {p.latency_s * 1e3:8.3f} ms"
+        totals.submit(flat_totals(q))
+        f = totals.run()[0].aggregates
+        groups = w.aggregates["groups"]
+        agree = f[next(iter(f))]["count"] == w.count and all(
+            f[a]["sum"] == sum(gr["sums"][a] for gr in groups.values())
+            for a in q.aggs)
+        print(f"{msg} | {len(groups)} groups, count {w.count} "
+              f"equal={same} totals={agree}")
+        ok = same and agree and 0 <= w.count <= rows and all(
+            gr["count"] > 0 for gr in groups.values())
+        if not ok:
+            bad.append((name, [r.aggregates for r in got], want.aggregates,
+                        oracle))
+    if bad:
+        for b in bad:
+            print("MISMATCH", str(b)[:2000], file=sys.stderr)
+        fail(f"{len(bad)} grouped {label} results differ")
+    return {"launches": launches, "results": runs[-1], "peak": peak}
+
+
+def group_times_main(table, dev: dict) -> dict:
+    """Kernel 8 at the main path's shape: groupby_dense, a over w, G = 128,
+    one (1, 2^23, 128) chunk; its select plane as the engine builds it."""
+    phase("grouped times (main)")
+    from repro_torch.kernels.group_aggregate import kernel as gk
+    from repro_torch.kernels.group_aggregate import ref as gref
+    from repro_torch.kernels.scan_filter.ref import unpack
+    a, w = table.columns["a"], table.columns["w"]
+    n = table.num_rows
+    keys = unpack(a.words, a.code_bits)[:n].reshape(1, -1, 128)
+    vals = unpack(w.words, w.code_bits)[:n].reshape(1, -1, 128)
+    sel = (keys >= 0).to(torch.int32)
+    dom = torch.arange(128, dtype=torch.int32, device="cuda")
+    print(f"  group_sum_count_batched at {list(keys.shape)}, G = 128: "
+          f"a over w (groupby_dense)")
+    rec = time_kernel(
+        "group_sum_count_batched",
+        lambda: gk.group_sum_count_batched_planes(keys, vals, sel, dom),
+        lambda: gref.group_sum_count_batched_ref(keys, vals, sel, dom),
+        12 * n + 12 * 128, 5 * n, dev)
+    rec["shape"] = list(keys.shape) + [128]
+    del keys, vals, sel
+    torch.cuda.empty_cache()
+    return rec
+
+
+def group_times_store(encoded, dev: dict) -> tuple[dict, dict]:
+    """Kernel 8 at the store's shape (r over u, 4096 x 512 x 128, G = 8),
+    kernel 9 at r's run planes (G = 8) and at 4096 x 4096 random runs
+    (G = 128)."""
+    phase("grouped times (store)")
+    from repro_torch.kernels.group_aggregate import kernel as gk
+    from repro_torch.kernels.group_aggregate import ref as gref
+    from repro_torch.query import GroupBy
+    from repro_torch.store.exec import _grouped_planes, _run_planes_cached
+    n = encoded.n_chunks
+    cids = np.arange(n)
+    logical, payload, sel, _ = _grouped_planes(GroupBy("r", ("u",)),
+                                               encoded, ["r", "u"], cids)
+    keys3 = logical["r"].reshape(n, -1, 128)
+    vals3 = payload["u"].reshape(n, -1, 128)
+    sel3 = sel.to(torch.int32).reshape(n, -1, 128)
+    d8 = torch.arange(8, dtype=torch.int32, device="cuda")
+    rows = keys3.numel()
+    print(f"  group_sum_count_batched at {list(keys3.shape)}, G = 8: r over "
+          f"u (groupby_two_aggs)")
+    dense = time_kernel(
+        "group_sum_count_batched",
+        lambda: gk.group_sum_count_batched_planes(keys3, vals3, sel3, d8),
+        lambda: gref.group_sum_count_batched_ref(keys3, vals3, sel3, d8),
+        12 * rows + 12 * 8 * n, 5 * rows, dev)
+    dense["shape"] = list(keys3.shape) + [8]
+    del logical, payload, sel, keys3, vals3, sel3
+    rv, rl = _run_planes_cached(encoded.columns["r"], cids)
+    print(f"  rle_group_accumulate_batched at {list(rv.shape)}, G = 8: r's "
+          f"run planes (rle_count_only)")
+    rle = time_kernel(
+        "rle_group_accumulate_batched",
+        lambda: gk.rle_group_accumulate_batched_planes(rv, rl, d8),
+        lambda: gref.rle_group_accumulate_batched_ref(rv, rl, d8),
+        8 * rv.numel() + 12 * 8 * n, 6 * rv.numel(), dev)
+    rle["shape"] = list(rv.shape) + [8]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    bv = torch.randint(0, 128, (n, 4096), device="cuda", dtype=torch.int32,
+                       generator=g)
+    bl = torch.randint(0, 17, (n, 4096), device="cuda", dtype=torch.int32,
+                       generator=g)
+    d128 = torch.arange(128, dtype=torch.int32, device="cuda")
+    print(f"  rle_group_accumulate_batched at [{n}, 4096], G = 128: random "
+          f"runs")
+    big = time_kernel(
+        "rle_group_accumulate_batched",
+        lambda: gk.rle_group_accumulate_batched_planes(bv, bl, d128),
+        lambda: gref.rle_group_accumulate_batched_ref(bv, bl, d128),
+        8 * bv.numel() + 12 * 128 * n, 6 * bv.numel(), dev)
+    rle["largest_plane"] = {k: big[k] for k in (
+        "ms", "ms_back_to_back", "plain_ms", "bound_ms", "bound_by",
+        "max_abs_err")}
+    return dense, rle
+
+
+def group_records(main_rec: dict, store_dense: dict, store_rle: dict,
+                  launches: dict, parity_err: dict) -> list:
+    """The {"kernels": ...} entries of kernels 8 and 9: kernel 8 at the
+    main shape (with its store-shape time beside it), kernel 9 at r's run
+    planes (with its largest plane); launches over both grouped phases."""
+    dense = dict(main_rec)
+    dense["store_shape"] = {k: store_dense[k] for k in (
+        "ms", "ms_back_to_back", "plain_ms", "bound_ms", "bound_by",
+        "max_abs_err", "shape")}
+    out = []
+    for rec, name in ((dense, "group_sum_count_batched"),
+                      (dict(store_rle), "rle_group_accumulate_batched")):
+        rec.update({"source": "src/repro_torch/csrc/group_aggregate.cu",
+                    "replaces": GROUP_REPLACES,
+                    "launches": sum(l[name] for l in launches.values()),
+                    "launches_by_path": {p: l[name]
+                                         for p, l in launches.items()},
+                    "max_abs_err": max(rec["max_abs_err"],
+                                       parity_err[name])})
+        out.append(rec)
+    return out
+
+
 def main() -> None:
     dev = device_phase()
     sys.path.insert(0, str(SRC))
@@ -890,11 +1282,16 @@ def main() -> None:
     print(f"build total {time.perf_counter() - t0:.3f} s", flush=True)
     parity_err = parity_phase()
     parity_err.update(batched_parity_phase())
+    parity_err.update(group_parity_phase())
     table = build_table()
     launches = main_phase(table)
     kernels = times_phase(table, dev, launches, parity_err)
     profile_phase(table, plan_shapes(), "main")
-    del table
+    shapes = grouped_main_shapes(build_dim({"a": [1, 3, 5, 99, 127]}))
+    grouped = {"main": grouped_phase(table, shapes, "main", MAIN_ROWS)}
+    profile_phase(table, shapes, "grouped main")
+    group_main = group_times_main(table, dev)
+    del table, shapes
     torch.cuda.empty_cache()
 
     from repro_torch.store import EncodedTable
@@ -906,6 +1303,20 @@ def main() -> None:
     launches = store_phase(table, encoded, encode_s)
     kernels += store_times_phase(encoded, dev, launches, parity_err)
     profile_phase(encoded, store_plan_shapes(), "store")
+    shapes = grouped_store_shapes(build_dim({"r": [1, 3, 5, 99],
+                                             "u": [2, 7, 50, 90]}))
+    grouped["store"] = grouped_phase(encoded, shapes, "store", STORE_ROWS,
+                                     plain=table, rounds=2)
+    profile_phase(encoded, shapes, "grouped store")
+    store_dense, store_rle = group_times_store(encoded, dev)
+    launches = {p: g["launches"] for p, g in grouped.items()}
+    zero = [k for k in ("group_sum_count_batched",
+                        "rle_group_accumulate_batched")
+            if not sum(l[k] for l in launches.values())]
+    if zero:
+        fail(f"kernels never launched on the grouped paths: {zero}")
+    kernels += group_records(group_main, store_dense, store_rle, launches,
+                             parity_err)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,8 @@ repro_torch/csrc) with a plain PyTorch version of each:
 - aggregate:       masked sum/count/min/max over packed codes
 - scan_aggregate:  the two fused; the mask never leaves registers
 - scan_compressed: fused predicate + aggregate on RLE runs
+- group_aggregate: GROUP BY count/sum over key, value and select planes,
+                   and over RLE runs (dense accumulator planes)
 
 aggregate and scan_aggregate also have a batched kernel, one launch over
 every chunk of a compressed-store column group.

@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {"scan_filter": "scan_filter.cu", "aggregate": "aggregate.cu",
            "scan_aggregate": "scan_aggregate.cu",
-           "scan_compressed": "scan_compressed.cu"}
+           "scan_compressed": "scan_compressed.cu",
+           "group_aggregate": "group_aggregate.cu"}
 HEADERS = ("bitweave.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -61,6 +62,14 @@ SIGNATURES = {
         #  stream)
         "rle_scan_aggregate_batched_launch": (_P, _P, _P, _LL, _LL, _I, _I,
                                               _I, _P)},
+    "group_aggregate": {
+        # (keys, vals, sel, group_keys, scratch, out, n_chunks, per_chunk,
+        #  n_groups, stream)
+        "group_sum_count_launch": (_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P),
+        # (values, lengths, group_keys, out, n_chunks, n_runs, n_groups,
+        #  has_pred, prim, constant, invert, stream)
+        "rle_group_accumulate_launch": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I,
+                                        _I, _I, _P)},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -13,13 +13,17 @@ flat-table and compressed-store paths).
   (compressed) traffic, logical_bytes the plain-format coverage beside
   it, so summary()'s effective_gbps exceeds measured_gbps by what
   compression buys;
+- GroupBy/HashJoin run through query.relational on a flat table and
+  store.exec.execute_grouped_encoded on a store table (the
+  group_aggregate kernels); the result is the grouped dict
+  {"groups": ..., "count": total};
 - every query's bytes_scanned and attained wall-clock latency are
   recorded, so measured_bps feeds admission.
 
 The reference engine's tiered, energy, chaos, prefetch, monitoring,
-tracing, relational, sharded and model-feedback paths belong to later
-slices of the port; asking for one raises NotImplementedError naming its
-step in ROADMAP.md ("Modules to port").
+tracing, sharded and model-feedback paths belong to later slices of the
+port; asking for one raises NotImplementedError naming its step in
+ROADMAP.md ("Modules to port").
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from repro_torch.kernels.dispatch import KernelMode
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import NullTracer
 from repro_torch.query import physical
-from repro_torch.query.plan import Query, is_grouped
+from repro_torch.query.plan import HashJoin, Query, is_grouped
 from repro_torch.serve.sla import DeadlineQueue, SLAReport, summarize
 
 
@@ -163,9 +167,13 @@ class QueryEngine:
         the query id, or None if the deadline is already infeasible.
         Malformed queries raise ValueError."""
         if is_grouped(query):
-            raise _later("GroupBy/HashJoin", "step 4 (relational)")
-        physical.bind_check(query.plan(), query.aggregates,
-                            self.table.columns)
+            # the relational bind adds the join-key width and device
+            # checks on top of the column checks
+            from repro_torch.query import relational
+            relational.bind_check(query, self.table.columns)
+        else:
+            physical.bind_check(query.plan(), query.aggregates,
+                                self.table.columns)
         self._qid += 1
         pend = _Pending(self._qid, query, self.bytes_scanned(query),
                         self.clock(), tenant=tenant,
@@ -176,8 +184,17 @@ class QueryEngine:
 
     # --- execution --------------------------------------------------------
     def _execute(self, query: Query) -> dict:
-        """Exact host-int aggregates; both paths copy their rows to the
-        host, which waits for the device."""
+        """Exact host-int aggregates (or the grouped result dict for
+        GroupBy/HashJoin); every path copies its result to the host, which
+        waits for the device."""
+        if is_grouped(query):
+            if hasattr(self.table, "chunk_rows"):    # a store table
+                from repro_torch.store.exec import execute_grouped_encoded
+                return execute_grouped_encoded(query, self.table,
+                                               mode=self.mode)
+            from repro_torch.query import relational
+            return relational.execute_grouped(query, self.table,
+                                              mode=self.mode)
         if hasattr(self.table, "chunk_rows"):        # a store table
             # imported here: repro_torch.store imports this package
             from repro_torch.store.exec import execute_encoded
@@ -205,10 +222,12 @@ class QueryEngine:
 
     def _serve_one(self, pend: _Pending, deadline: float) -> QueryResult:
         t0 = self.clock()
+        shape = ("join" if isinstance(pend.query, HashJoin)
+                 else "grouped" if is_grouped(pend.query) else "scan")
         self.tracer.begin_query(
             pend.qid, tenant=pend.tenant, submitted_at=pend.submitted_at,
             deadline=deadline, bytes_expected=pend.bytes_scanned,
-            shape="scan")
+            shape=shape)
         aggs = self._execute(pend.query)
         # the host copies inside _execute waited for the device, so t1 - t0
         # covers the full scan
@@ -216,7 +235,10 @@ class QueryEngine:
         self.seconds_total += max(t1 - t0, 1e-12)
         self.bytes_total += pend.bytes_scanned
         self.logical_bytes_total += pend.logical_bytes
-        count = next(iter(aggs.values()))["count"] if aggs else 0
+        if "groups" in aggs:
+            count = aggs["count"]           # grouped: total selected rows
+        else:
+            count = next(iter(aggs.values()))["count"] if aggs else 0
         res = QueryResult(
             qid=pend.qid, query=pend.query, aggregates=aggs, count=count,
             selectivity=count / max(self.num_rows, 1),

@@ -1,6 +1,6 @@
 """Query execution over an EncodedTable: scan the compressed bytes
-(counterpart of repro/store/exec.py, flat queries; grouped execution over
-the store is ROADMAP step 4).
+(counterpart of repro/store/exec.py: flat queries, and GroupBy/HashJoin
+through `execute_grouped_encoded`, described at its section below).
 
 Default path (`batched=True`): every chunk of a column group executes in
 one kernel launch per (column group, encoding), not one per chunk.
@@ -36,12 +36,13 @@ import torch
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.aggregate import ops as agg_ops
+from repro_torch.kernels.group_aggregate import ops as gops
 from repro_torch.kernels.scan_aggregate import ops as fused_ops
 from repro_torch.kernels.scan_compressed import ops as rle_ops
 from repro_torch.kernels.scan_filter import ops as scan_ops
 from repro_torch.kernels.scan_filter.ref import (codes_per_word, pack_bits,
                                                  unpack)
-from repro_torch.query import physical
+from repro_torch.query import physical, relational
 from repro_torch.query.physical import ColumnSlice
 from repro_torch.query.plan import And, Or, Plan, Pred, columns_of
 from repro_torch.store.encode import Encoding, EncodedTable, pack_rows
@@ -393,3 +394,166 @@ def execute_encoded(plan: Plan, aggregates, table: EncodedTable,
                               table.columns[a].code_bits)
             _accumulate(out[a], part)
     return out
+
+
+# --------------------------------------------------------------------------
+# grouped execution (GroupBy / HashJoin over compressed chunks)
+# --------------------------------------------------------------------------
+
+def _key_range(col):
+    """(vmin, vmax) of a column's non-empty chunks from their encoding
+    statistics, or None when every chunk is empty (cached on the column,
+    which caches no None: an empty column caches ())."""
+    def build():
+        stats = [ch.stats for ch in col.chunks if ch.n_rows]
+        return (min(s.vmin for s in stats),
+                max(s.vmax for s in stats)) if stats else ()
+    return col.cached(("key_range",), build) or None
+
+
+def _grouped_strategy(query, table, names, domain_ok: bool):
+    """Pick the group_aggregate strategy per chunk from the chunk metadata:
+    the RLE run path when the key chunk is RLE and the query is a
+    count-only shape whose predicate the run kernel evaluates, dense
+    accumulator planes while the group domain stays under
+    DENSE_MAX_GROUPS, the fallback otherwise. Zero-row chunks are skipped
+    (the grouped identity). Returns three int64 arrays of chunk indices
+    and the key-only predicate."""
+    kcol = table.columns[query.key]
+    kp = relational.key_only_pred(query, kcol.code_bits)
+    rle_ok = (not query.aggs) and kp is not False
+    live = np.logical_and.reduce(
+        [table.columns[n].chunk_arrays().n_rows > 0 for n in names])
+    none = np.zeros(0, np.int64)
+    if not domain_ok:
+        return none, none, np.flatnonzero(live), kp
+    rle = live & kcol.chunk_arrays().rle if rle_ok else np.zeros_like(live)
+    return np.flatnonzero(rle), np.flatnonzero(live & ~rle), none, kp
+
+
+def _decode_rows(col, cids: np.ndarray, n_cols: int) -> torch.Tensor:
+    """(len(cids), n_cols) int32 payloads of chunks `cids` of a column on
+    its device, zero past each chunk's rows: RLE runs expanded to codes,
+    PLAIN and FOR planes unpacked at their width (FOR deltas, without the
+    base). Chunks of one kind and size decode together, one unpack or run
+    expansion per kind, not per chunk."""
+    chunks = [col.chunks[ci] for ci in cids]
+    out = torch.zeros((len(chunks), n_cols), dtype=torch.int32,
+                      device=col.device)
+    kinds: dict[tuple, list[int]] = {}
+    for j, ch in enumerate(chunks):
+        key = ((ch.n_rows,) if ch.encoding is Encoding.RLE
+               else (ch.n_rows, ch.width, int(ch.words.numel())))
+        kinds.setdefault(key, []).append(j)
+    for key, js in kinds.items():
+        n_rows = key[0]
+        if len(key) == 1:
+            codes = _rle_rows_batch([chunks[j] for j in js], n_rows)
+        else:
+            src = torch.stack([chunks[j].words for j in js])
+            codes = unpack(src.reshape(-1), key[1]).reshape(
+                len(js), -1)[:, :n_rows]
+        out[torch.tensor(js, device=col.device), :n_rows] = codes
+    return out
+
+
+def _grouped_planes(query, table, names, cids: np.ndarray):
+    """Decode chunks `cids` of every referenced column on the device at
+    once -> (logical codes, payloads, selection, frame bases): (k, R)
+    tensors with R the widest chunk's rows rounded up to a LANES
+    multiple; rows past a chunk's end are unselected (key 0 is a real
+    group). Payloads are FOR deltas where logical = payload + base."""
+    meta = {n: table.columns[n].chunk_arrays() for n in names}
+    dev = table.columns[query.key].device
+    rows = meta[query.key].n_rows[cids]
+    n_cols = -(-int(rows.max()) // gops.LANES) * gops.LANES
+    payload, logical, bases = {}, {}, {}
+    for n in names:
+        payload[n] = _decode_rows(table.columns[n], cids, n_cols)
+        bases[n] = meta[n].base[cids]
+        b = torch.from_numpy(bases[n].astype(np.int32)).to(dev)
+        logical[n] = payload[n] + b[:, None] if bases[n].any() \
+            else payload[n]
+    valid = torch.arange(n_cols, device=dev)[None, :] \
+        < torch.from_numpy(rows).to(dev)[:, None]
+    sel = relational.eval_plan_codes(query.plan(), logical) & valid
+    return logical, payload, sel, bases
+
+
+def execute_grouped_encoded(query, table: EncodedTable, mode=None,
+                            guard=None) -> dict:
+    """GroupBy/HashJoin over the compressed chunks -> the finalized
+    grouped result, bit-identical to relational.execute_grouped_oracle
+    on the plain table.
+
+    Batched: all RLE-strategy chunks share one run-kernel launch, all
+    dense-strategy chunks one accumulator-plane launch per value column
+    (one for a count-only query, over a zero value plane), over key, value
+    and select planes decoded on the device for all chunks at once; the
+    fallback chunks are grouped on the device together. Each (n_chunks,
+    G, 3) result is reduced over its chunks in int64 on the device, each
+    chunk's FOR base fix-up applied (the planes are additive), and folded
+    into the partial once. `guard=` (verify-on-read) belongs to a later
+    slice and raises NotImplementedError."""
+    if guard is not None:
+        raise NotImplementedError(
+            "guard= (verify-on-read, resilience.ChunkGuard) is not ported "
+            "yet: ROADMAP.md, 'Modules to port', step 6 (resilience)")
+    relational.bind_check(query, table.columns)
+    names = sorted(columns_of(query.plan()) | set(query.aggregates))
+    kcol = table.columns[query.key]
+    krange = _key_range(kcol)
+    if krange is None:
+        return relational.empty_result()
+    domain = relational.group_domain(query, *krange, device=kcol.device)
+    domain_ok = relational.dense_ok(domain) and len(domain) > 0
+    rle_cids, dense_cids, fb_cids, kp = _grouped_strategy(
+        query, table, names, domain_ok)
+    part = relational.new_partial()
+
+    if rle_cids.size:
+        values2, lengths2 = _run_planes_cached(kcol, rle_cids)
+        pred = None if kp == ("ge", 0, False) else kp
+        res = gops.rle_group_accumulate_stacked(values2, lengths2, domain,
+                                                pred=pred, mode=mode)
+        dispatch.record_batch("rle_group_accumulate", kcol.code_bits,
+                              len(rle_cids))
+        # normalized [lo, hi, count] planes are additive in int64:
+        # (sum hi << 16) + sum lo == sum((hi << 16) + lo), so all RLE
+        # chunks (base 0, one domain) absorb as one summed plane
+        relational.absorb_plane(part, domain,
+                                res.to(torch.int64).sum(0), None,
+                                count_source=True)
+
+    if dense_cids.size:
+        logical, payload, sel, bases = _grouped_planes(query, table, names,
+                                                       dense_cids)
+        k = sel.shape[0]
+        keys3 = logical[query.key].reshape(k, -1, gops.LANES)
+        sel3 = sel.to(torch.int32).reshape(k, -1, gops.LANES)
+        for i, name in enumerate(query.aggs if query.aggs else (None,)):
+            if name is None:
+                vals3 = torch.zeros_like(keys3)
+                b = torch.zeros(k, dtype=torch.int64, device=sel.device)
+            else:
+                vals3 = payload[name].reshape(k, -1, gops.LANES)
+                b = torch.from_numpy(bases[name]).to(sel.device)
+            res = gops.group_sum_count_batched(keys3, vals3, sel3, domain,
+                                               mode=mode)
+            dispatch.record_batch("group_sum_count", len(domain), k)
+            r = res.to(torch.int64)
+            s = ((r[..., 1] << 16) + r[..., 0]
+                 + b[:, None] * r[..., 2]).sum(0)
+            plane = torch.stack([s & 0xFFFF, s >> 16, r[..., 2].sum(0)], 1)
+            relational.absorb_plane(part, domain, plane, name,
+                                    count_source=(i == 0))
+
+    if fb_cids.size:
+        logical, _, sel, _ = _grouped_planes(query, table, names, fb_cids)
+        key = logical[query.key]
+        if hasattr(query, "build"):
+            sel = sel & torch.isin(key, relational.build_keys(query))
+        dispatch.count_launch("group_aggregate_fallback", len(fb_cids))
+        relational.absorb_fallback(part, key,
+                                   {a: logical[a] for a in query.aggs}, sel)
+    return relational.finalize(part)

@@ -325,8 +325,6 @@ class TestEngine:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tq.QueryEngine(table, device="cpu", tracer=Tracer())
         eng = tq.QueryEngine(table, device="cpu")
-        with pytest.raises(NotImplementedError, match="step 4"):
-            eng.submit(tq.GroupBy(keys=("x",), aggs=("a",)))
         for fn in (eng.model_check, lambda: eng.provision(0.1)):
             with pytest.raises(NotImplementedError, match="step 7"):
                 fn()
