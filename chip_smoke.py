@@ -7,8 +7,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 1. device  — a CUDA device of compute capability 9.0 is required; prints
              the card's name and power limit (nvidia-smi), torch and CUDA
              versions.
-2. build   — compiles the four CUDA sources of src/repro_torch/csrc (one
-             nvcc per source, all started together).
+2. build   — compiles the CUDA sources of src/repro_torch/csrc (one nvcc
+             per source, all started together).
 3. parity  — each kernel against its plain PyTorch version, bit for bit.
              Single-row kernels: code_bits {2, 4, 8, 16} x the six
              predicates x constants {0, 1, vmax//2, vmax-1, vmax} x n_words
@@ -68,8 +68,39 @@ The grouped slice (GroupBy / HashJoin) adds to these phases:
              and 9 timed at the store's shapes (r over u, G = 8; r's run
              planes) and kernel 9 at 4096 x 4096 runs.
 
-The second-to-last line of output is one JSON object {"kernels": [...]};
-the last is {"ok": true, "device": {...}}.
+The LM serving slice (internlm2-1.8b) adds:
+
+3. parity  — the attention kernels (decode_attention, flash_attention)
+             against their plain versions on the card, fp32 and bf16,
+             within ATTN_TOL: the shapes of tests/test_kernels.py, the
+             serving path's (decode q (8, 8, 2, 128) over an (8, 8, 8192,
+             128) ring; prefill (1, 8, 2, 4096, 128)), wrapped rings,
+             windows {64, 512}, empty slots, rows whose every slot is
+             masked, ragged Sq / Skv (100, 1000) and G {1, 2, 8}; then
+             controls (a 2% wrong softmax scale, a dropped tail of 64
+             slots) that the limit must reject.
+9. serve   — after the query phases, with their tables freed: the model
+             at its published widths and depth in bf16, random weights
+             from a seeded generator on the card, attn_impl="flash";
+             ServeEngine(batch_slots=8, max_len=8192) answers 16 requests
+             (prompts of 1024..4096 tokens drawn from seed 0, 64 new
+             tokens each), then SLAScheduler the same prompts at the decode
+             rate the first run measured. Prints prefill ms by request,
+             decode-step p50/p95/p99, tokens/s, the bytes each step had
+             to move (weights, pos planes, K/V of the valid ring slots)
+             over step time, peak memory, the scheduler's summary and a
+             profiled window's device busy share; kernels 10 and 11 must
+             have launched.
+10. serve parity — teacher-forced: one 4096-token prefill and 16 decode
+             steps under attn_impl="flash" and "auto", same weights; the
+             logits within TF_MAX_ABS / TF_MEAN_ABS and the greedy tokens
+             equal wherever "auto"'s top-2 margin exceeds TF_MAX_ABS.
+11. attention times — kernels 10 and 11 at the serving path's shapes,
+             with scaled_dot_product_attention as the library yardstick.
+
+The third-to-last line is one JSON object {"serve": {...}}, the
+second-to-last {"kernels": [...]} (eleven entries); the last is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1267,6 +1298,662 @@ def group_records(main_rec: dict, store_dense: dict, store_rle: dict,
     return out
 
 
+# --------------------------------------------------------------------------
+# the LM serving slice: attention kernels 10 and 11
+# --------------------------------------------------------------------------
+
+# Kernel vs plain version on the card, compared in float32 element by
+# element as |kernel - plain| <= rel * |plain| + row * rms, where rms is the
+# root mean square of the plain output's row (one query head's D values):
+# the scale that an error of the softmax or of the PV sums is measured in,
+# where 1 + |plain| would be some 40 times that scale at the path's shapes.
+# - rel: each version rounds its output once to the output's dtype; two
+#   roundings on either side of a tie differ by one unit in the last place,
+#   at most 2^-7 |x| in bf16 and 2^-23 |x| in fp32. The limit is two such
+#   units in bf16 (2^-6) and eight in fp32 (2^-20).
+# - row: what the float32 computations themselves may differ by. In fp32
+#   the order of the sums: a score near 10 sums D products, each rounded
+#   by 2^-24, so each weight moves by about 1e-5 relatively and in random
+#   directions, and an element by about 1e-5 of its row at the largest;
+#   the limit is 5e-5 of the row. In bf16 the tensor-core flash
+#   path (flash_mma_kernel) rounds P to bf16 before PV, a relative 2^-9 on
+#   each weight in random directions, which moves an element by about
+#   2^-9 * 0.6 of its row at one standard deviation, so about 0.006 of it
+#   at the largest of the 8.4M elements of the path's prefill: 2^-6 of the
+#   row leaves 2.5 times that. The plain versions keep P in fp32.
+# attention_controls holds known-wrong outputs to the same limit, each of
+# which must fail it: a softmax scale 2% off, and a dropped tail of slots.
+ATTN_TOL = {torch.float32: (2.0 ** -20, 5e-5),
+            torch.bfloat16: (2.0 ** -6, 2.0 ** -6)}
+DECODE_REPLACES = "src/repro/kernels/decode_attention/kernel.py:90"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:105"
+BF16_OPS = 989e12       # H100 SXM dense bf16 tensor-core rate (datasheet)
+
+
+def attn_err(got: torch.Tensor, want: torch.Tensor, dtype) -> tuple:
+    """(max abs err, largest err / limit over the elements): within
+    ATTN_TOL when the second is at most 1 and every output is finite."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    rel, row = ATTN_TOL[dtype]
+    rms = w.square().mean(dim=-1, keepdim=True).sqrt()
+    ratio = float((diff / (rel * w.abs() + row * rms).clamp_min(1e-30))
+                  .max())
+    if not bool(torch.isfinite(g).all()):
+        ratio = float("inf")
+    return float(diff.max()), ratio
+
+
+def ring_positions(b: int, s: int, fills, wrap_to=None):
+    """(B, S) int32 stored positions and (B,) query positions: row i holds
+    positions 0 .. fills[i] - 1 at their slots (the rest INF_POS) and
+    queries at fills[i]; with wrap_to[i], the ring holds the S positions
+    ending at wrap_to[i] - 1 (wrapped) and queries at wrap_to[i]."""
+    from repro_torch.models.attention import INF_POS
+    kv = torch.full((b, s), INF_POS, dtype=torch.int32)
+    qp = torch.zeros(b, dtype=torch.int32)
+    for i in range(b):
+        if wrap_to is not None and wrap_to[i] is not None:
+            pos = torch.arange(wrap_to[i] - s, wrap_to[i])
+            kv[i, pos % s] = pos.to(torch.int32)
+            qp[i] = wrap_to[i]
+        else:
+            kv[i, :fills[i]] = torch.arange(fills[i], dtype=torch.int32)
+            qp[i] = fills[i]
+    return kv.cuda(), qp.cuda()
+
+
+def decode_cases():
+    """(label, b, kvh, g, s, d, dtype, fills, wrap_to, window)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for dt in (f32, bf16):                    # tests/test_kernels.py:176-181
+        for b, kvh, g, s, d in ((2, 2, 2, 512, 128), (1, 1, 8, 1024, 64),
+                                (4, 2, 1, 2048, 128)):
+            cases.append(("fill 0.75", b, kvh, g, s, d, dt,
+                          [int(0.75 * s)] * b, None, 0))
+    for w in (64, 512):                       # :199-216, wrapped ring
+        cases.append((f"wrapped ring, window {w}", 1, 1, 2, 256, 64, f32,
+                       [0], [556], w))
+    cases.append(("full ring", 1, 2, 2, 1024, 128, f32, [1024], None, 0))
+    for dt in (f32, bf16):
+        # the path's shape: 8 slots over an 8192-slot ring, one slot empty
+        # (q_pos 0 over INF_POS: every slot masked), the others filled to
+        # various lengths, one wrapped past the ring
+        cases.append(("serve path, ragged fills, empty slot", 8, 8, 2, 8192,
+                      128, dt, [0, 1, 100, 1000, 4096, 8000, 8192, 0],
+                      [None] * 7 + [9000], 0))
+        cases.append(("serve path, window 512", 8, 8, 2, 8192, 128, dt,
+                      [1, 512, 513, 3000, 4096, 6000, 8191, 0],
+                      [None] * 7 + [12000], 512))
+    for g in (1, 2, 8):                       # G, a ragged S, an all-masked
+        cases.append((f"G {g}, S 1000", 3, 2, g, 1000, 128, torch.bfloat16,
+                      [0, 999, 1000], None, 0))
+        cases.append((f"G {g}, S 1000, window 64", 3, 2, g, 1000, 64, f32,
+                      [0, 37, 1000], None, 64))
+    cases.append(("all rows masked", 2, 2, 2, 300, 128, f32, [0, 0], None,
+                  0))
+    for d in (32, 256):
+        cases.append((f"head dim {d}", 2, 2, 4, 700, d, bf16, [0, 500], None,
+                      0))
+    return cases
+
+
+def flash_cases():
+    """(label, b, kvh, g, sq, skv, d, dtype, window)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for dt in (f32, bf16):                    # tests/test_kernels.py:104-109
+        for b, kvh, g, sq, skv, d in ((1, 1, 1, 128, 128, 128),
+                                      (2, 2, 4, 128, 256, 128),
+                                      (1, 2, 1, 256, 256, 64),
+                                      (2, 1, 2, 384, 384, 128)):
+            cases.append(("tests", b, kvh, g, sq, skv, d, dt, 0))
+    for w in (32, 128, 1024):                 # :122-133
+        cases.append((f"window {w}", 1, 2, 2, 256, 256, 64, f32, w))
+    for w in (0, 64, 512):                    # ragged Sq / Skv
+        for g in (1, 2, 8):
+            cases.append((f"ragged, G {g}, window {w}", 1, 2, g, 100, 1000,
+                          128, torch.bfloat16, w))
+        cases.append((f"ragged 1000, window {w}", 2, 1, 2, 1000, 1000, 64,
+                      f32, w))
+    for d in (32, 256):                       # bf16 D 256: CUDA cores
+        cases.append((f"head dim {d}", 1, 2, 2, 200, 333, d, bf16, 0))
+        cases.append((f"head dim {d}, fp32", 1, 1, 2, 130, 130, d, f32, 50))
+    for dt in (f32, bf16):                    # the path's prefill shape
+        cases.append(("serve path", 1, 8, 2, 4096, 4096, 128, dt, 0))
+    cases.append(("serve path, window 512", 1, 8, 2, 4096, 4096, 128, bf16,
+                  512))
+    return cases
+
+
+def attention_parity_phase() -> dict:
+    """Kernels 10 and 11 (mode="cuda") against their plain versions
+    (mode="torch_ref") on the card, fp32 and bf16, at the kernel tests'
+    shapes and the serving path's; then the controls, which must fail."""
+    phase("parity (attention kernels)")
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    err = {"decode_attention": 0.0, "flash_attention": 0.0}
+    worst = {}                      # (kernel, dtype) -> largest err / limit
+    cases = {"decode_attention": 0, "flash_attention": 0}
+    bad = []
+
+    def check(name, label, shape, dt, got, want):
+        e, ratio = attn_err(got, want, dt)
+        err[name] = max(err[name], e)
+        key = f"{name} {str(dt).split('.')[-1]}"
+        worst[key] = max(worst.get(key, 0.0), ratio)
+        cases[name] += 1
+        if not ratio <= 1.0:
+            bad.append((name, label, shape, str(dt), e, ratio))
+
+    t0 = time.perf_counter()
+    for label, b, kvh, gq, s, d, dt, fills, wrap, window in decode_cases():
+        q = torch.randn((b, kvh, gq, d), generator=g, device="cuda").to(dt)
+        k = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(dt)
+        v = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(dt)
+        kv_pos, q_pos = ring_positions(b, s, fills, wrap)
+        got = dec_ops.decode_attention(q, k, v, q_pos, kv_pos,
+                                       window=window, mode="cuda")
+        want = dec_ops.decode_attention(q, k, v, q_pos, kv_pos,
+                                        window=window, mode="torch_ref")
+        check("decode_attention", label, (b, kvh, gq, s, d), dt, got, want)
+    for label, b, kvh, gq, sq, skv, d, dt, window in flash_cases():
+        q = torch.randn((b, kvh, gq, sq, d), generator=g,
+                        device="cuda").to(dt)
+        k = torch.randn((b, kvh, skv, d), generator=g, device="cuda").to(dt)
+        v = torch.randn((b, kvh, skv, d), generator=g, device="cuda").to(dt)
+        got = flash_ops.flash5(q, k, v, window, "cuda")
+        want = flash_ops.flash5(q, k, v, window, "torch_ref")
+        check("flash_attention", label, (b, kvh, gq, sq, skv, d), dt, got,
+              want)
+    torch.cuda.synchronize()
+    print(f"attention parity cases {cases} max_abs_err {err}; largest "
+          f"error / limit {json.dumps(worst)} (limit rel * |plain| + row * "
+          f"row rms, (rel, row) {ATTN_TOL[torch.float32]} fp32, "
+          f"{ATTN_TOL[torch.bfloat16]} bf16) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if bad:
+        for b_ in bad:
+            print("MISMATCH", b_, file=sys.stderr)
+        fail(f"{len(bad)} attention parity cases out of tolerance")
+    controls = attention_controls(g)
+    return err, {"largest_err_over_limit": worst, "controls": controls}
+
+
+def attention_controls(g) -> dict:
+    """What the limit reads on outputs known to be wrong, at the path's
+    bf16 shapes: the plain version with its softmax scale 2% off (q scaled
+    by 1.02 in fp32) for both kernels, and in decode the plain version over
+    a ring whose last 64 valid slots are dropped. Each must exceed the
+    limit (err / limit > 1), or the parity check could not see it."""
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.models.attention import INF_POS
+    bf16 = torch.bfloat16
+    b, kvh, gq, s, d = SERVE_SLOTS, 8, 2, SERVE_MAX_LEN, 128
+    q = torch.randn((b, kvh, gq, d), generator=g, device="cuda").to(bf16)
+    k = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(bf16)
+    v = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(bf16)
+    fill = SERVE_PROMPTS[1] + SERVE_NEW - 1
+    kv_pos, q_pos = ring_positions(b, s, [fill] * b)
+    want = dref.decode_ref(q, k, v, q_pos, kv_pos)
+    out = {"decode_scale_2pct": attn_err(
+        dref.decode_ref(q.float() * 1.02, k, v, q_pos, kv_pos), want,
+        bf16)[1]}
+    dropped = kv_pos.clone()
+    dropped[:, fill - 64:fill] = INF_POS
+    out["decode_drop_64"] = attn_err(
+        dref.decode_ref(q, k, v, q_pos, dropped), want, bf16)[1]
+    del q, k, v, kv_pos, dropped
+    q5 = torch.randn((1, kvh, gq, TF_PROMPT, d), generator=g,
+                     device="cuda").to(bf16)
+    k4 = torch.randn((1, kvh, TF_PROMPT, d), generator=g,
+                     device="cuda").to(bf16)
+    v4 = torch.randn((1, kvh, TF_PROMPT, d), generator=g,
+                     device="cuda").to(bf16)
+    want = fref.attention_ref(q5, k4, v4)
+    out["flash_scale_2pct"] = attn_err(
+        fref.attention_ref(q5.float() * 1.02, k4, v4), want, bf16)[1]
+    del q5, k4, v4, want
+    torch.cuda.empty_cache()
+    print(f"attention controls (err / limit, each must exceed 1): "
+          f"{json.dumps(out)}", flush=True)
+    caught = [n for n, r in out.items() if not r > 1.0]
+    if caught:
+        fail(f"the attention limit does not see the controls {caught}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# the LM serving slice: internlm2-1.8b at full width through ServeEngine
+# --------------------------------------------------------------------------
+
+SERVE_ARCH = "internlm2-1.8b"     # 24 layers, d_model 2048, 16 / 8 heads
+SERVE_SLOTS, SERVE_MAX_LEN = 8, 8192
+SERVE_REQUESTS, SERVE_NEW = 16, 64
+SERVE_PROMPTS = (1024, 4096)      # prompt lengths, inclusive
+TF_PROMPT, TF_STEPS = 4096, 16    # teacher-forced flash vs auto
+# Teacher-forced logits of attn_impl="flash" against "auto" (same bf16
+# weights): the paths round differently — "auto" (blockwise at 4096, naive
+# in decode) casts the probabilities to bf16 and rounds each block's PV
+# product to bf16, the kernels keep both in fp32 and round the output
+# once — and the difference is carried through 24 residual layers. Logits
+# have a standard deviation near 1 here (random weights, RMS-normed final
+# state), so the bound is a quarter of that at any element and 0.05 on
+# average: 16 bf16 steps at |logit| in [2, 4).
+TF_MAX_ABS, TF_MEAN_ABS = 0.25, 0.05
+
+
+def serve_config():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(SERVE_ARCH), attn_impl="flash")
+
+
+def serve_requests(vocab: int) -> list:
+    """SERVE_REQUESTS requests, prompt lengths and tokens drawn with numpy
+    from SEED; lengths in SERVE_PROMPTS, so buckets are 2048 or 4096."""
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1,
+                        SERVE_REQUESTS)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, n).astype(np.int32),
+                    max_new_tokens=SERVE_NEW) for i, n in enumerate(lens)]
+
+
+def drive(engine, requests, bytes_of) -> dict:
+    """ServeEngine.run's loop (submit while a slot is free, then step) with
+    each submit (one prefill; it ends in the host read of the first token)
+    and each decode step (it ends in the host read of the tokens) timed on
+    the host clock; bytes_of(q_pos) counts, after each decode step and
+    outside its time, the bytes that step had to move."""
+    from collections import deque
+    queue, done, prefill, steps, moved = deque(requests), [], [], [], []
+    t0 = time.perf_counter()
+    while queue or any(s is not None for s in engine.slots):
+        while queue:
+            t = time.perf_counter()
+            if not engine.submit(queue[0]):
+                break
+            prefill.append((len(queue[0].prompt),
+                            (time.perf_counter() - t) * 1e3))
+            queue.popleft()
+        before = engine.cache_len.copy()     # the step's query positions
+        t = time.perf_counter()
+        done.extend(engine.step())
+        if (engine.cache_len != before).any():
+            steps.append((time.perf_counter() - t) * 1e3)
+            moved.append(bytes_of(before))
+    return {"done": done, "prefill": prefill, "steps": steps,
+            "step_bytes": moved, "wall_s": time.perf_counter() - t0}
+
+
+def ring_bytes(pos, q_pos, kvh: int, d: int, elt: int,
+               window: int = 0) -> int:
+    """Bytes decode attention must read from one layer's ring for queries
+    at q_pos (B,): q_pos and the whole pos plane (B, S), then K and V of
+    the slots the plane leaves valid. Once a row holds a valid slot, a
+    masked slot's weight exp(-1e30 - m) is exactly 0, so its K and V are
+    not needed; a row with no valid slot averages V over the whole ring,
+    which needs V but not K."""
+    dp = q_pos.to(pos.device)[:, None] - pos
+    ok = dp >= 0
+    if window:
+        ok &= dp < window
+    valid = ok.sum(dim=1)
+    rows = int(torch.where(valid > 0, 2 * valid, pos.shape[1]).sum())
+    return rows * kvh * d * elt + pos.numel() * 4 + q_pos.numel() * 4
+
+
+def step_counter(model, engine, cfg):
+    """bytes_of(q_pos) for drive: the bytes one decode step had to move.
+    Every weight but the embedding table, of which it reads one row a
+    slot; in every layer the ring as ring_bytes counts it (every layer of
+    this model attends globally and writes the same positions, so layer
+    0's pos plane stands for all) and the new token's K, V and position
+    written. Activations (under 2 MB a step) are not counted."""
+    elt = engine.caches[0]["k"].element_size()
+    kvh, d = cfg.num_kv_heads, cfg.resolved_head_dim
+    if any(k != "attn" for k in cfg.block_pattern):
+        fail(f"step_counter counts global attention layers only, not "
+             f"{cfg.block_pattern}")
+    weights = sum(p.numel() * p.element_size()
+                  for n, p in model.named_parameters() if n != "embed")
+    weights += engine.B * cfg.d_model * elt
+    writes = engine.B * (2 * kvh * d * elt + 4)
+
+    def bytes_of(q_pos) -> int:
+        ring = ring_bytes(engine.caches[0]["pos"], torch.from_numpy(q_pos),
+                          kvh, d, elt)
+        return weights + cfg.num_layers * (ring + writes)
+    return bytes_of
+
+
+def pct(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def report_serve(label: str, got: dict, vocab: int, dev: dict) -> dict:
+    done = got["done"]
+    if sorted(r.rid for r in done) != list(range(SERVE_REQUESTS)):
+        fail(f"serve {label}: finished {sorted(r.rid for r in done)}")
+    for r in done:
+        if len(r.generated) != SERVE_NEW or not all(
+                0 <= t < vocab for t in r.generated):
+            fail(f"serve {label}: request {r.rid} generated "
+                 f"{len(r.generated)} tokens, range "
+                 f"[{min(r.generated)}, {max(r.generated)}]")
+    steps, pre, moved = got["steps"], got["prefill"], got["step_bytes"]
+    tokens = sum(len(r.generated) for r in done)
+    rec = {"requests": len(done), "tokens": tokens,
+           "wall_s": got["wall_s"], "tokens_per_s": tokens / got["wall_s"],
+           "prefill_ms": {"n": len(pre),
+                          "mean": float(np.mean([p[1] for p in pre])),
+                          "by_len": [[n, ms] for n, ms in pre]},
+           "decode_steps": len(steps),
+           "step_ms": {"p50": pct(steps, 50), "p95": pct(steps, 95),
+                       "p99": pct(steps, 99), "mean": float(np.mean(steps))},
+           "step_bytes": {"mean": float(np.mean(moved)), "min": min(moved),
+                          "max": max(moved)},
+           # bytes over time across all steps, and the mean step's bytes
+           # over the median step's time; the bound is those bytes at
+           # MEM_BPS
+           "step_gbps": sum(moved) / sum(steps) / 1e6,
+           "step_gbps_p50": float(np.mean(moved)) / pct(steps, 50) / 1e6,
+           "step_bound_ms_mean": float(np.mean(moved)) / MEM_BPS * 1e3}
+    print(f"serve {label}: {len(done)} requests, {tokens} tokens in "
+          f"{got['wall_s']:.3f} s ({rec['tokens_per_s']:.1f} tokens/s); "
+          f"{len(pre)} prefills, mean {rec['prefill_ms']['mean']:.2f} ms; "
+          f"{len(steps)} decode steps p50 {rec['step_ms']['p50']:.3f} ms "
+          f"p95 {rec['step_ms']['p95']:.3f} p99 {rec['step_ms']['p99']:.3f}; "
+          f"weights + valid ring slots {rec['step_bytes']['mean'] / 1e9:.4f} "
+          f"GB a step on average ({min(moved) / 1e9:.4f}.."
+          f"{max(moved) / 1e9:.4f}; bound "
+          f"{rec['step_bound_ms_mean']:.4f} ms): {rec['step_gbps']:.1f} GB/s "
+          f"over all steps, {rec['step_gbps_p50']:.1f} GB/s at p50  "
+          f"[{dev['smi']}]", flush=True)
+    for n, ms in pre:
+        print(f"  prefill {n:5d} tokens (bucket "
+              f"{min(1 << (n - 1).bit_length(), SERVE_MAX_LEN)}) "
+              f"{ms:9.3f} ms")
+    return rec
+
+
+def serve_phase(dev: dict) -> tuple:
+    """internlm2-1.8b at its published widths and depth, bf16, random
+    weights from a seeded generator on the card, attn_impl="flash":
+    SERVE_REQUESTS requests through ServeEngine, then the same prompts
+    through SLAScheduler at the decode rate the first run measured. The
+    kernels' launch counters are read over both runs."""
+    phase("serve")
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import SLAScheduler
+    cfg = serve_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv, head_dim "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}; {n_params} parameters "
+          f"(analytic {cfg.param_count()}) drawn in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if n_params != cfg.param_count():
+        fail("parameter count differs from the config's analytic count")
+    engine = ServeEngine(cfg, model, batch_slots=SERVE_SLOTS,
+                         max_len=SERVE_MAX_LEN, seed=SEED)
+    bytes_of = step_counter(model, engine, cfg)
+    dk.LAUNCHES = fk.LAUNCHES = 0
+    first = drive(engine, serve_requests(cfg.vocab_size), bytes_of)
+    torch.cuda.synchronize()
+    rec = {"engine": report_serve("engine", first, cfg.vocab_size, dev)}
+    rate = 1e3 / rec["engine"]["step_ms"]["p50"]   # tokens/s a slot
+    clock = time.monotonic
+    sched = SLAScheduler(engine, decode_rate_tps=rate, clock=clock)
+    reqs = serve_requests(cfg.vocab_size)
+    t0 = clock()
+    for i, r in enumerate(reqs):
+        # EDF over staggered deadlines, each loose enough to be admitted
+        sched.submit(r, deadline=t0 + 120.0 + i)
+    t1 = time.perf_counter()
+    reports = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {"decode_attention": dk.LAUNCHES,
+                "flash_attention": fk.LAUNCHES}
+    summary = sched.summary()
+    print(f"serve scheduler: decode_rate_tps {rate:.2f} (1 / p50 step), "
+          f"{len(reports)} reports in {wall:.3f} s; summary "
+          f"{json.dumps(summary)}", flush=True)
+    same = sum(a.generated == b.generated for a, b in zip(
+        sorted(first["done"], key=lambda r: r.rid),
+        sorted(reqs, key=lambda r: r.rid)))
+    print(f"serve scheduler: {same} of {SERVE_REQUESTS} requests generated "
+          f"the same tokens as the engine run (another slot order)")
+    if summary["served"] != SERVE_REQUESTS or summary["rejected"]:
+        fail(f"scheduler served {summary['served']}, rejected "
+             f"{summary['rejected']}")
+    rec["scheduler"] = {"summary": summary, "wall_s": wall,
+                        "decode_rate_tps": rate, "same_tokens": same}
+    peak = torch.cuda.max_memory_allocated()
+    rec["peak_gib"] = peak / 2**30
+    rec["launches"] = launches
+    print(f"kernel launches on the serve path (engine + scheduler): "
+          f"{launches}; peak device memory {peak / 2**30:.3f} GiB",
+          flush=True)
+    zero = [k for k, n in launches.items() if n == 0]
+    if zero:
+        fail(f"kernels never launched on the serve path: {zero}")
+    serve_profile(engine, cfg)
+    return model, engine, rec
+
+
+SERVE_KERNELS = ("flash_mma_kernel", "flash_fwd_kernel",
+                 "decode_partial_kernel", "decode_combine_kernel")
+
+
+def serve_profile(engine, cfg) -> None:
+    """Four requests (prompts of 2048 tokens, 16 new tokens each) through
+    the warm engine under torch.profiler: the device's busy share and the
+    device time by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(SEED + 1)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, 2048)
+                    .astype(np.int32), max_new_tokens=16) for i in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.run(reqs)
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.self_cpu_time_total == 0 and e.self_device_time_total > 0]
+    busy_us = sum(r[0] for r in rows)
+    ours_us = sum(r[0] for r in rows
+                  if any(k in r[2] for k in SERVE_KERNELS))
+    print(f"profiled serve (4 prompts of 2048, 16 new tokens each): wall "
+          f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
+          f"busy share {busy_us / wall_us:.4f}; attention kernels "
+          f"{ours_us / 1e3:.3f} ms, other device work "
+          f"{(busy_us - ours_us) / 1e3:.3f} ms")
+    for us, count, key in sorted(rows, reverse=True)[:12]:
+        print(f"  device {us / 1e3:10.3f} ms  x{count:5d}  {key[:100]}")
+    # where the host's time goes: operators by their own (self) CPU time
+    host = sorted(((e.self_cpu_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0), reverse=True)
+    host_us = sum(h[0] for h in host)
+    print(f"host operators: {host_us / 1e3:.3f} ms of self CPU time in "
+          f"{sum(h[1] for h in host)} calls")
+    for us, count, key in host[:12]:
+        print(f"  host   {us / 1e3:10.3f} ms  x{count:5d}  {key[:100]}")
+
+
+def serve_parity_phase(model) -> dict:
+    """Teacher-forced: one prefill of TF_PROMPT tokens and TF_STEPS decode
+    steps on one token stream, under attn_impl="flash" (the kernels) and
+    "auto" (blockwise prefill, naive decode: plain torch), same weights."""
+    phase("serve parity")
+    import dataclasses
+
+    from repro_torch.models import lm
+    cfg = serve_config()
+    rng = np.random.default_rng(SEED + 2)
+    stream = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, TF_PROMPT + TF_STEPS).astype(np.int32)).cuda()
+    out = {}
+    with torch.no_grad():
+        for impl in ("flash", "auto"):
+            c = dataclasses.replace(cfg, attn_impl=impl)
+            caches = lm.init_caches(c, 1, SERVE_MAX_LEN)
+            hidden, caches, _ = lm.prefill(model, c, stream[None, :TF_PROMPT],
+                                           caches, return_hidden=True)
+            logits = [lm.head_logits(model, c, hidden[:, -1:])[:, 0].float()]
+            for t in range(TF_PROMPT, TF_PROMPT + TF_STEPS):
+                lg, caches, _ = lm.decode_step(
+                    model, c, stream[None, t:t + 1],
+                    torch.tensor([t], device="cuda"), caches)
+                logits.append(lg[:, 0].float())
+            out[impl] = torch.cat(logits)             # (1 + steps, vocab)
+            del caches, hidden
+    torch.cuda.empty_cache()
+    d = (out["flash"] - out["auto"]).abs()
+    top2 = out["auto"].topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    clear = margin > TF_MAX_ABS
+    agree = out["flash"].argmax(-1) == out["auto"].argmax(-1)
+    rec = {"max_abs": float(d.max()), "mean_abs": float(d.mean()),
+           "logit_std": float(out["auto"].std()),
+           "positions": int(d.shape[0]), "clear": int(clear.sum()),
+           "argmax_equal": int(agree.sum()),
+           "finite": bool(torch.isfinite(out["flash"]).all())}
+    print(f"teacher-forced {TF_PROMPT} + {TF_STEPS}: |flash - auto| max "
+          f"{rec['max_abs']:.5f} (tol {TF_MAX_ABS}), mean "
+          f"{rec['mean_abs']:.5f} (tol {TF_MEAN_ABS}); logit std "
+          f"{rec['logit_std']:.4f}; argmax equal at {rec['argmax_equal']} "
+          f"of {rec['positions']}, {rec['clear']} with a top-2 margin above "
+          f"the tolerance", flush=True)
+    if not rec["finite"] or rec["max_abs"] > TF_MAX_ABS or \
+            rec["mean_abs"] > TF_MEAN_ABS or not bool(agree[clear].all()):
+        fail("teacher-forced flash logits differ from the auto path's")
+    return rec
+
+
+def attention_times(dev: dict, launches: dict, parity_err: dict) -> list:
+    """Kernels 10 and 11 at the serving path's shapes, bf16: decode q
+    (8, 8, 2, 128) over an (8, 8, 8192, 128) ring filled as after the serve
+    run's longest request (4096 + 63 slots; the rest INF_POS) and one
+    causal 4096-token prefill (1, 8, 2, 4096, 128). The bound counts each
+    input that the function needs read once (for decode, K and V of the
+    valid slots only, as ring_bytes counts them) and the output written
+    once, and the flops these inputs need (4 * D a (query, reachable key)
+    pair) at the bf16 rate; the
+    library yardstick is one scaled_dot_product_attention call (an explicit
+    boolean mask for decode, is_causal for prefill)."""
+    phase("attention times")
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fref
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    b, kvh, gq, s, d = 8, 8, 2, SERVE_MAX_LEN, 128
+    q = torch.randn((b, kvh, gq, d), generator=g, device="cuda").to(bf16)
+    k = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(bf16)
+    v = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(bf16)
+    fill = SERVE_PROMPTS[1] + SERVE_NEW - 1
+    kv_pos, q_pos = ring_positions(b, s, [fill] * b)
+    mask = ((q_pos[:, None] - kv_pos) >= 0)[:, None, None, :]
+    valid = int(mask.sum())
+    out = []
+    dec = time_attention(
+        "decode_attention",
+        lambda: dk.decode_attention_fwd(q, k, v, q_pos, kv_pos),
+        lambda: dref.decode_ref(q, k, v, q_pos, kv_pos),
+        lambda: F.scaled_dot_product_attention(
+            q.reshape(b, kvh * gq, 1, d), k, v, attn_mask=mask,
+            enable_gqa=True),
+        nbytes=ring_bytes(kv_pos, q_pos, kvh, d, 2) + 2 * q.numel() * 2,
+        flops=4 * d * gq * kvh * valid, dtype=bf16, dev=dev)
+    dec.update({"shape": [b, kvh, gq, s, d], "filled_slots": fill,
+                "source": "src/repro_torch/csrc/decode_attention.cu",
+                "replaces": DECODE_REPLACES})
+    out.append(dec)
+    del q, k, v, kv_pos, q_pos, mask
+    sq = TF_PROMPT
+    q5 = torch.randn((1, kvh, gq, sq, d), generator=g,
+                     device="cuda").to(bf16)
+    k4 = torch.randn((1, kvh, sq, d), generator=g, device="cuda").to(bf16)
+    v4 = torch.randn((1, kvh, sq, d), generator=g, device="cuda").to(bf16)
+    pairs = kvh * gq * sq * (sq + 1) // 2
+    fl = time_attention(
+        "flash_attention",
+        lambda: fk.flash_attention_fwd(q5, k4, v4),
+        lambda: fref.attention_ref(q5, k4, v4),
+        lambda: F.scaled_dot_product_attention(
+            q5.reshape(1, kvh * gq, sq, d), k4, v4, is_causal=True,
+            enable_gqa=True),
+        nbytes=2 * q5.numel() * 2 + 2 * k4.numel() * 2,
+        flops=4 * d * pairs, dtype=bf16, dev=dev)
+    fl.update({"shape": [1, kvh, gq, sq, sq, d],
+               "source": "src/repro_torch/csrc/flash_attention.cu",
+               "replaces": FLASH_REPLACES})
+    out.append(fl)
+    del q5, k4, v4
+    torch.cuda.empty_cache()
+    for rec in out:
+        rec["launches"] = launches[rec["name"]]
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 parity_err[rec["name"]])
+    return out
+
+
+def time_attention(name, kern, plain, library, *, nbytes: int, flops: int,
+                   dtype, dev: dict) -> dict:
+    """Check an attention kernel against its plain version once (ATTN_TOL),
+    then time it (one call; back to back), the plain version and the
+    library call, as time_kernel does."""
+    e, ratio = attn_err(kern(), plain(), dtype)
+    if not ratio <= 1.0:
+        fail(f"{name} differs from its plain version at the path's shape "
+             f"(max abs err {e}, {ratio} of the limit)")
+    ms = time_ms(kern)
+    b2b_ms = time_ms(kern, KERNEL_REPS)
+    plain_ms = time_ms(plain)
+    lib_ms = time_ms(library)
+    bytes_ms = nbytes / MEM_BPS * 1e3
+    ops_ms = flops / BF16_OPS * 1e3
+    rec = {"name": name, "route": "cuda", "launches": 0, "max_abs_err": e,
+           "ms": ms, "ms_back_to_back": b2b_ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": lib_ms, "bytes": nbytes, "ops": flops}
+    print(f"{name:26s} kernel {ms:.4f} ms one call ({b2b_ms:.4f} ms back "
+          f"to back)  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)  "
+          f"{rec['bound_ms'] / b2b_ms:.3f} of the bound back to back  "
+          f"[{dev['smi']}]", flush=True)
+    return rec
+
+
 def main() -> None:
     dev = device_phase()
     sys.path.insert(0, str(SRC))
@@ -1283,6 +1970,8 @@ def main() -> None:
     parity_err = parity_phase()
     parity_err.update(batched_parity_phase())
     parity_err.update(group_parity_phase())
+    attn_errs, attn_check = attention_parity_phase()
+    parity_err.update(attn_errs)
     table = build_table()
     launches = main_phase(table)
     kernels = times_phase(table, dev, launches, parity_err)
@@ -1317,6 +2006,18 @@ def main() -> None:
         fail(f"kernels never launched on the grouped paths: {zero}")
     kernels += group_records(group_main, store_dense, store_rle, launches,
                              parity_err)
+    # the LM slice needs the card's memory: drop the query tables first
+    del table, encoded, shapes
+    torch.cuda.empty_cache()
+    model, engine, serve = serve_phase(dev)
+    del engine
+    torch.cuda.empty_cache()
+    serve["parity"] = serve_parity_phase(model)
+    del model
+    torch.cuda.empty_cache()
+    kernels += attention_times(dev, serve["launches"], parity_err)
+    serve["attention_parity"] = attn_check
+    print(json.dumps({"serve": serve}, default=str))
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

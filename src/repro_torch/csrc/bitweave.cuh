@@ -11,6 +11,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "error.cuh"
+
 namespace bitweave {
 
 constexpr int kThreads = 256;
@@ -177,8 +179,3 @@ inline int grid_blocks(long long items) {
 }
 
 }  // namespace bitweave
-
-// One definition per shared library: each .cu is built into its own .so.
-extern "C" const char* bitweave_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}

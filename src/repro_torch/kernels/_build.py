@@ -28,8 +28,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {"scan_filter": "scan_filter.cu", "aggregate": "aggregate.cu",
            "scan_aggregate": "scan_aggregate.cu",
            "scan_compressed": "scan_compressed.cu",
-           "group_aggregate": "group_aggregate.cu"}
-HEADERS = ("bitweave.cuh",)
+           "group_aggregate": "group_aggregate.cu",
+           "flash_attention": "flash_attention.cu",
+           "decode_attention": "decode_attention.cu"}
+HEADERS = ("bitweave.cuh", "error.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -70,7 +72,18 @@ SIGNATURES = {
         #  has_pred, prim, constant, invert, stream)
         "rle_group_accumulate_launch": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I,
                                         _I, _I, _P)},
+    "flash_attention": {
+        # (q, k, v, out, dtype, b, kvh, g, sq, skv, d, window, stream)
+        "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL,
+                                   _I, _I, _P)},
+    "decode_attention": {
+        # (q, k, v, q_pos, kv_pos, part_ml, part_acc, out, dtype, b, kvh, g,
+        #  s, d, n_splits, window, stream)
+        "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _LL, _I, _I, _I, _P)},
 }
+# kernel operand dtypes -> the `dtype` code the float kernels take
+FLOAT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -143,8 +156,8 @@ def load(name: str) -> ctypes.CDLL:
         fn = getattr(lib, fn_name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    lib.bitweave_error_string.argtypes = [ctypes.c_int]
-    lib.bitweave_error_string.restype = ctypes.c_char_p
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
     _LIBS[name] = lib
     return lib
 
@@ -152,7 +165,7 @@ def load(name: str) -> ctypes.CDLL:
 def check(lib: ctypes.CDLL, err: int, name: str) -> None:
     """Raise if a launch entry point returned a CUDA error."""
     if err != 0:
-        msg = lib.bitweave_error_string(err).decode()
+        msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"({msg})")
 
@@ -169,28 +182,34 @@ def require_hopper(device: torch.device) -> None:
 
 
 def check_operand(t: torch.Tensor, what: str, like: torch.Tensor | None = None,
-                  ndim: int = 1) -> None:
-    """Kernel operands are contiguous int32 CUDA tensors of `ndim`
-    dimensions: 1-D packed words or per-chunk constants/flags, 2-D
-    (n_chunks, n_words) batched planes (bit views of the packed uint32
-    words) or (n_chunks, n_runs) run planes. With `like`, the same shape on
-    the same device."""
+                  ndim: int = 1, dtypes=(torch.int32,)) -> None:
+    """Kernel operands are contiguous CUDA tensors of `ndim` dimensions
+    and one of `dtypes`: by default int32 — 1-D packed words or per-chunk
+    constants/flags, 2-D (n_chunks, n_words) batched planes (bit views of
+    the packed uint32 words) or (n_chunks, n_runs) run planes; the
+    attention kernels' q/k/v are float32 or bfloat16 (FLOAT_DTYPES) and 16-
+    byte aligned. With `like`, the same shape (and dtype) on the same
+    device."""
     if not t.is_cuda:
         raise ValueError(f"{what}: the CUDA kernel needs a CUDA tensor, got "
                          f"one on {t.device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{what}: dtype {t.dtype}; packed words are "
-                         f"torch.int32 bit views of uint32")
+    if t.dtype not in dtypes:
+        kind = ("packed words are torch.int32 bit views of uint32"
+                if dtypes == (torch.int32,) else f"expected one of {dtypes}")
+        raise ValueError(f"{what}: dtype {t.dtype}; {kind}")
     if t.dim() != ndim:
         raise ValueError(f"{what}: shape {tuple(t.shape)}; expected a "
                          f"{ndim}-D operand")
     if not t.is_contiguous():
         raise ValueError(f"{what}: not contiguous")
-    if like is not None and (t.shape != like.shape
+    if like is not None and (t.shape != like.shape or t.dtype != like.dtype
                              or t.device != like.device):
-        raise ValueError(f"{what}: shape {tuple(t.shape)} on {t.device} "
-                         f"does not match {tuple(like.shape)} on "
-                         f"{like.device}")
+        raise ValueError(f"{what}: {t.dtype} {tuple(t.shape)} on {t.device} "
+                         f"does not match {like.dtype} {tuple(like.shape)} "
+                         f"on {like.device}")
+    if t.dtype in FLOAT_DTYPES and t.data_ptr() % 16:
+        raise ValueError(f"{what}: not 16-byte aligned (the kernels load 16 "
+                         f"bytes at a time)")
 
 
 def stream_of(t: torch.Tensor) -> int:

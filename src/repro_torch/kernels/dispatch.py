@@ -71,7 +71,8 @@ _REGISTRY: dict[str, KernelOp] = {}
 # the reference's family names (repro/kernels/dispatch.py::_OP_MODULES);
 # later slices append the rest in its order as they are ported
 _OP_MODULES = ("scan_filter", "aggregate", "scan_aggregate",
-               "scan_compressed", "group_aggregate")
+               "scan_compressed", "group_aggregate", "flash_attention",
+               "decode_attention")
 
 
 def register(name: str, *, fn, ref, example=None) -> KernelOp:

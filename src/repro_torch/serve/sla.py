@@ -2,7 +2,7 @@
 
 The paper provisions clusters against a response-time SLA; two runtime
 subsystems enforce that contract at serving time — the LM request scheduler
-(repro.serve.scheduler, not ported yet) and the analytic query engine
+(repro_torch.serve.scheduler) and the analytic query engine
 (repro_torch.query.engine).
 Both share this module:
 

@@ -67,18 +67,29 @@ def test_each_package_imports_first(package):
 
 def test_default_device_constructors_need_cuda():
     """With no CUDA device the defaults raise; with one they land on it."""
+    from repro_torch.configs import get_config
     from repro_torch.db import BitPackedColumn, Table, table_from_arrays
+    from repro_torch.models import lm
     from repro_torch.query import QueryEngine
+    from repro_torch.serve.engine import ServeEngine
     cpu_table = Table.synthetic("t", 10, {"a": 8}, device="cpu")
     state = {"a": (np.zeros(3, np.uint32), 8, 10, None)}
+    cfg = get_config("internlm2-1.8b").reduced(num_layers=1)
+    cpu_model = lm.init(cfg, device="cpu")
     calls = [lambda: Table.synthetic("t", 10, {"a": 8}),
              lambda: BitPackedColumn.from_values("a", [1, 2], 8),
              lambda: table_from_arrays(state),
-             lambda: QueryEngine(cpu_table)]
+             lambda: QueryEngine(cpu_table),
+             lambda: lm.init(cfg),
+             lambda: lm.init_caches(cfg, 1, 8),
+             lambda: ServeEngine(cfg, cpu_model)]
     if torch.cuda.is_available():
         assert Table.synthetic("t", 10, {"a": 8}).device.type == "cuda"
+        assert lm.init_caches(cfg, 1, 8)[0]["k"].device.type == "cuda"
         with pytest.raises(ValueError, match="lives on"):
             QueryEngine(cpu_table)
+        with pytest.raises(ValueError, match="lives on"):
+            ServeEngine(cfg, cpu_model)
     else:
         for call in calls:
             with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -94,7 +105,7 @@ def test_build_paths_are_keyed_by_source_hash():
         assert p.name.startswith(f"{name}-") and p.suffix == ".so"
         assert p == _build.library_path(name)
     assert _build.BUILD_DIR == ROOT / "build" / "repro_torch"
-    assert (_build.CSRC / "bitweave.cuh").is_file()
+    assert all((_build.CSRC / h).is_file() for h in _build.HEADERS)
 
 
 def test_cuda_sources_name_the_kernel_they_replace():

@@ -1,0 +1,321 @@
+"""Parity of the port's model stack (repro_torch.models) with the
+reference's (repro.models), on the CPU.
+
+Weights are drawn by the reference (jax.random) and carried across with
+repro_torch.models.convert.params_from_reference; inputs come from numpy
+seeds. The model tolerance is tests/test_kernel_model_parity.py's, 2e-4,
+on internlm2-1.8b reduced to two layers of head_dim 64 in float32.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.models import attention as jattention
+from repro.models import blocks as jblocks
+from repro.models import common as jcommon
+from repro.models import lm as jlm
+from repro.models import mlp as jmlp
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.models import attention, blocks, common, convert, lm, mlp
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+IMPLS = ("naive", "blockwise", "flash")
+
+
+def reduced(get, **over):
+    return get("internlm2-1.8b").reduced(
+        **{"dtype": "float32", "num_layers": 2, "head_dim": 64, **over})
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(reference cfg, its params, port cfg, the converted module)."""
+    jcfg, cfg = reduced(jget_config), reduced(get_config)
+    params = reference_init(0, jcfg)
+    model = convert.params_from_reference(
+        jax.tree.map(np.asarray, params), cfg, device="cpu")
+    return jcfg, params, cfg, model
+
+
+def reference_init(key, jcfg):
+    """The reference's params, jitted: the same numbers as eager
+    jlm.init, compiled once instead of op by op."""
+    return jax.jit(lambda k: jlm.init(k, jcfg)[0])(jax.random.PRNGKey(key))
+
+
+def tokens(cfg, b, s, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def hidden(b, s, d, seed=1):
+    return np.random.default_rng(seed).standard_normal(
+        (b, s, d), dtype=np.float32)
+
+
+def close(got, want, **tol):
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want, np.float32),
+                               **(tol or TOL))
+
+
+# --------------------------------------------------------------------------
+# configs and common
+# --------------------------------------------------------------------------
+
+def test_configs_are_the_reference_configs():
+    from repro.configs import ARCH_IDS as JARCH_IDS
+    assert ARCH_IDS == JARCH_IDS
+    for arch in ARCH_IDS:
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jget_config(arch))
+        assert get_config(arch).param_count() == \
+            jget_config(arch).param_count()
+
+
+def test_rms_norm_matches_reference():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 64), dtype=np.float32) * 3
+    w = rng.standard_normal(64, dtype=np.float32) * 0.1
+    want = jcommon.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-5)
+    close(common.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-5),
+          want, rtol=1e-6, atol=1e-6)
+    # bf16 activations, fp32 weight: one bf16 rounding of the output
+    got = common.rms_norm(torch.from_numpy(x).bfloat16(),
+                          torch.from_numpy(w), 1e-5)
+    want = jcommon.rms_norm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w),
+                            1e-5)
+    assert got.dtype == torch.bfloat16
+    close(got, want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+def test_apply_rope_rotates_halves_as_the_reference(theta):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 7, 3, 16), dtype=np.float32)
+    pos = rng.integers(0, 5000, (2, 7)).astype(np.int32)
+    want = jcommon.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    got = common.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                            theta)
+    close(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(common.rope_frequencies(16, theta),
+                                  jcommon.rope_frequencies(16, theta))
+
+
+def test_dense_init_is_seeded_truncated_and_scaled():
+    g = torch.Generator().manual_seed(0)
+    w = common.dense_init((256, 64), torch.bfloat16, g)
+    assert w.dtype == torch.bfloat16 and not w.requires_grad
+    std = 1 / 16
+    assert float(w.float().abs().max()) <= 2 * std * 1.01
+    assert abs(float(w.float().std()) - 0.88 * std) < 0.05 * std
+    again = common.dense_init((256, 64), torch.bfloat16,
+                              torch.Generator().manual_seed(0))
+    assert torch.equal(w, again)
+
+
+# --------------------------------------------------------------------------
+# attention, MLP, block
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_attend_prefill_matches_reference(pair, impl):
+    """Sliding-window prefill (the causal mask and the window both bite;
+    the LM tests below cover window 0)."""
+    window = 24
+    jcfg, params, cfg, model = pair
+    jp = jax.tree.map(lambda a: a[0], params["groups"][0])["mixer"]
+    x = hidden(2, 64, cfg.d_model)
+    pos = np.broadcast_to(np.arange(64, dtype=np.int32), (2, 64)).copy()
+    want, (jk, jv) = jattention.attend(jp, jnp.asarray(x), jnp.asarray(pos),
+                                       jcfg, window=window, impl=impl)
+    got, (k, v) = attention.attend(model.blocks[0].mixer, torch.from_numpy(x),
+                                   torch.from_numpy(pos), cfg, window=window,
+                                   impl=impl)
+    close(got, want)
+    close(k, jk)
+    close(v, jv)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("window,size", [(0, 64), (16, 16)])
+def test_attend_decode_on_a_ring_matches_reference(pair, impl, window, size):
+    """Prefill 40 positions into a ring (of 64, or a 16-slot sliding-window
+    ring that wraps), then two one-token decode steps."""
+    jcfg, params, cfg, model = pair
+    jp = jax.tree.map(lambda a: a[0], params["groups"][0])["mixer"]
+    mixer = model.blocks[0].mixer
+    x = hidden(2, 42, cfg.d_model, seed=2)
+    pos = np.broadcast_to(np.arange(42, dtype=np.int32), (2, 42)).copy()
+    jc = jattention.init_cache(jcfg, 2, size, jnp.float32)
+    tc = attention.init_cache(cfg, 2, size, torch.float32, "cpu")
+    _, jc = jattention.attend(jp, jnp.asarray(x[:, :40]),
+                              jnp.asarray(pos[:, :40]), jcfg, window=window,
+                              impl=impl, kv_cache=jc)
+    _, tc = attention.attend(mixer, torch.from_numpy(x[:, :40]),
+                             torch.from_numpy(pos[:, :40]), cfg,
+                             window=window, impl=impl, kv_cache=tc)
+    for t in range(40, 42):
+        want, jc = jattention.attend(jp, jnp.asarray(x[:, t:t + 1]),
+                                     jnp.asarray(pos[:, t:t + 1]), jcfg,
+                                     window=window, impl=impl, kv_cache=jc)
+        got, tc = attention.attend(mixer, torch.from_numpy(x[:, t:t + 1]),
+                                   torch.from_numpy(pos[:, t:t + 1]), cfg,
+                                   window=window, impl=impl, kv_cache=tc)
+        close(got, want)
+    for name in ("k", "v"):
+        close(tc[name], jc[name])
+    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+
+
+def test_fill_cache_writes_the_ring_in_place_as_the_reference():
+    cfg = reduced(get_config)
+    jcfg = reduced(jget_config)
+    rng = np.random.default_rng(3)
+    k = rng.standard_normal((2, 20, 2, 64), dtype=np.float32)
+    v = rng.standard_normal((2, 20, 2, 64), dtype=np.float32)
+    pos = np.stack([np.arange(20), np.arange(7, 27)]).astype(np.int32)
+    want = jattention.fill_cache(jattention.init_cache(jcfg, 2, 8,
+                                                       jnp.float32),
+                                 jnp.asarray(k), jnp.asarray(v),
+                                 jnp.asarray(pos))
+    cache = attention.init_cache(cfg, 2, 8, torch.float32, "cpu")
+    ring_k = cache["k"]
+    got = attention.fill_cache(cache, torch.from_numpy(k),
+                               torch.from_numpy(v), torch.from_numpy(pos))
+    assert got is cache and got["k"] is ring_k       # in place
+    for name in ("k", "v", "pos"):
+        np.testing.assert_array_equal(got[name].numpy(),
+                                      np.asarray(want[name]))
+
+
+def test_mlp_matches_reference(pair):
+    jcfg, params, cfg, model = pair
+    jp = jax.tree.map(lambda a: a[1], params["groups"][0])["ffn"]
+    x = hidden(2, 9, cfg.d_model, seed=4)
+    close(mlp.apply(model.blocks[1].ffn, torch.from_numpy(x)),
+          jmlp.apply(jp, jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("kind", ["attn", "swa"])
+def test_block_matches_reference(pair, kind):
+    jcfg, params, cfg, model = pair
+    jcfg, cfg = (dataclasses.replace(c, window=16) for c in (jcfg, cfg))
+    jp = jax.tree.map(lambda a: a[0], params["groups"][0])
+    x = hidden(1, 48, cfg.d_model, seed=5)
+    pos = np.arange(48, dtype=np.int32)[None]
+    want, _, jaux = jblocks.block_apply(jp, jnp.asarray(x), jnp.asarray(pos),
+                                        jcfg, kind)
+    got, _, aux = blocks.block_apply(model.blocks[0], torch.from_numpy(x),
+                                     torch.from_numpy(pos), cfg, kind)
+    close(got, want)
+    assert float(aux) == float(jaux) == 0.0
+
+
+def test_unported_block_kinds_name_step_9():
+    for arch in ("mamba2-1.3b", "recurrentgemma-2b", "mixtral-8x22b"):
+        cfg = get_config(arch).reduced()
+        with pytest.raises(NotImplementedError, match="step 9"):
+            lm.init(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="step 9"):
+        blocks.block_cache_init(get_config("mamba2-1.3b").reduced(), "ssd",
+                                1, 8, torch.float32, "cpu")
+
+
+# --------------------------------------------------------------------------
+# the LM
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_prefill_then_decode_matches_reference(pair, impl):
+    """lm.prefill into caches, then lm.decode_step twice (the reference's
+    tests/test_kernel_model_parity.py flow), per attn_impl."""
+    jcfg, params, cfg, model = pair
+    jcfg, cfg = (dataclasses.replace(c, attn_impl=impl) for c in (jcfg, cfg))
+    b, s = 2, 64
+    inputs = tokens(cfg, b, s)
+    jc, _ = jlm.init_caches(jcfg, b, s, jnp.float32)
+    tc = lm.init_caches(cfg, b, s, device="cpu")
+    want, jc, _ = jlm.prefill(params, jcfg, jnp.asarray(inputs[:, :s // 2]),
+                              jc)
+    got, tc, _ = lm.prefill(model, cfg, torch.from_numpy(inputs[:, :s // 2]),
+                            tc)
+    close(got, want)
+    for t in range(s // 2, s // 2 + 2):
+        lens = np.full((b,), t, np.int32)
+        want, jc, _ = jlm.decode_step(params, jcfg,
+                                      jnp.asarray(inputs[:, t:t + 1]),
+                                      jnp.asarray(lens), jc)
+        got, tc, _ = lm.decode_step(model, cfg,
+                                    torch.from_numpy(inputs[:, t:t + 1]),
+                                    torch.from_numpy(lens), tc)
+        close(got, want)
+
+
+def test_apply_without_caches_and_hidden_output_match_reference(pair):
+    jcfg, params, cfg, model = pair
+    inputs = tokens(cfg, 1, 128, seed=6)
+    pos = np.arange(128, dtype=np.int32)[None]
+    want, jcaches, _ = jlm.apply(params, jcfg, jnp.asarray(inputs),
+                                 jnp.asarray(pos), return_hidden=True)
+    got, caches, _ = lm.apply(model, cfg, torch.from_numpy(inputs),
+                              torch.from_numpy(pos), return_hidden=True)
+    assert jcaches is None and caches is None
+    close(got, want)
+    close(lm.head_logits(model, cfg, got), jlm.head_logits(params, jcfg,
+                                                           want))
+    close(lm.head_weight(model, cfg), jlm.head_weight(params, jcfg))
+
+
+def test_converted_layers_keep_the_reference_order():
+    """A pattern of two kinds over three layers: the reference stacks pattern
+    slot i of group g at params["groups"][i][g] and keeps a one-block tail;
+    the port's blocks run in execution order (group 0's pattern, then the
+    tail), each with its own weights."""
+    over = dict(block_pattern=("attn", "swa"), num_layers=3, window=16)
+    jcfg = jget_config("internlm2-1.8b").reduced(dtype="float32", **over)
+    cfg = get_config("internlm2-1.8b").reduced(dtype="float32", **over)
+    params = reference_init(1, jcfg)
+    model = convert.params_from_reference(jax.tree.map(np.asarray, params),
+                                          cfg, device="cpu")
+    assert [blk.kind for blk in model.blocks] == ["attn", "swa", "attn"]
+    want = [params["groups"][0]["mixer"]["wq"][0],
+            params["groups"][1]["mixer"]["wq"][0],
+            params["tail"][0]["mixer"]["wq"]]
+    for blk, w in zip(model.blocks, want):
+        np.testing.assert_array_equal(blk.mixer.wq.numpy(), np.asarray(w))
+    np.testing.assert_array_equal(
+        model.blocks[1].ffn.w_down.numpy(),
+        np.asarray(params["groups"][1]["ffn"]["w_down"][0]))
+
+
+def test_bf16_reference_weights_convert_exactly():
+    jcfg = jget_config("internlm2-1.8b").reduced(num_layers=1)
+    cfg = get_config("internlm2-1.8b").reduced(num_layers=1)
+    params = reference_init(2, jcfg)
+    model = convert.params_from_reference(jax.tree.map(np.asarray, params),
+                                          cfg, device="cpu")
+    assert model.embed.dtype == torch.bfloat16
+    assert model.final_norm.dtype == torch.float32
+    np.testing.assert_array_equal(
+        model.blocks[0].ffn.w_up.float().numpy(),
+        np.asarray(params["groups"][0]["ffn"]["w_up"][0], np.float32))
+
+
+def test_init_counts_parameters_and_caches_like_the_config():
+    cfg = reduced(get_config)
+    model = lm.init(cfg, seed=3, device="cpu")
+    assert sum(p.numel() for p in model.parameters()) == cfg.param_count()
+    assert all(not p.requires_grad for p in model.parameters())
+    again = lm.init(cfg, seed=3, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                 again.parameters()))
+    caches = lm.init_caches(cfg, 3, 32, device="cpu")
+    assert len(caches) == cfg.num_layers
+    assert caches[0]["k"].shape == (3, cfg.num_kv_heads, 32, 64)
+    assert bool((caches[0]["pos"] == attention.INF_POS).all())

@@ -176,7 +176,8 @@ def test_dispatch_resolve_and_launch_counts():
 def test_registry_examples_match_refs():
     ops = dispatch.registered()
     assert set(ops) == {"scan_filter", "aggregate", "scan_aggregate",
-                        "scan_compressed", "group_aggregate"}
+                        "scan_compressed", "group_aggregate",
+                        "flash_attention", "decode_attention"}
     for name, op in ops.items():
         args, kwargs = op.example(np.random.default_rng(0))
         got, want = op.fn(*args, **kwargs), op.ref(*args, **kwargs)
