@@ -98,9 +98,36 @@ The LM serving slice (internlm2-1.8b) adds:
 11. attention times — kernels 10 and 11 at the serving path's shapes,
              with scaled_dot_product_attention as the library yardstick.
 
-The third-to-last line is one JSON object {"serve": {...}}, the
-second-to-last {"kernels": [...]} (eleven entries); the last is
-{"ok": true, "device": {...}}.
+The Mamba-2 serving slice (mamba2-1.3b) adds:
+
+3. parity  — the SSD chunk-scan kernel (kernel 12) against its plain
+             version on the card, y and the final state, fp32 and bf16,
+             within SSD_TOL: the shapes of tests/test_kernels_ssd.py, the
+             serving path's (one 4096-token row, 64 heads of 64, state
+             128, chunks of 256), ragged chunks (100, 255, a one-step
+             chunk), inbound states, P {16 .. 128}, N {7 .. 128}; then
+             controls (the decay rate A 2% off, the state dropped at one
+             chunk boundary) that the limit must reject.
+12. serve mamba2 — the model at its published widths and depth in bf16,
+             random weights from a seeded generator on the card;
+             ServeEngine(batch_slots=8) answers 16 requests (prompts of
+             1024..4096 tokens in multiples of the 256-step chunk, drawn
+             from seed 0; 64 new tokens each). Prints prefill ms by
+             request, decode-step p50/p95/p99, tokens/s, the bytes a step
+             must move (weights, SSM and conv states read and written) over
+             step time, peak memory and a profiled window's busy share;
+             kernel 12 must have launched 48 times a prefill.
+13. serve mamba2 parity — teacher-forced: one 4096-token prefill through
+             the kernel, through the plain scan (ssm.apply's mode=) and
+             through the plain scan at chunk 128 (the same function's own
+             spread), then 16 decode steps from each; every block's output
+             and the logits within SSD_FLOOR_X times the spread, greedy
+             tokens equal where the margin is clear.
+14. ssd times — kernel 12 at the serving path's shape; no library call.
+
+The third-to-last line is one JSON object {"serve": {...}} (the mamba2
+records under "mamba2"), the second-to-last {"kernels": [...]} (twelve
+entries); the last is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -135,6 +162,16 @@ KERNEL_REPS = 20        # back-to-back launches per timed sample of a kernel
 CARD = "H100 80GB HBM3"
 MEM_BPS = 3.35e12
 CORE_OPS = 67e12
+
+
+def release() -> None:
+    """Free what the last phase dropped: collect reference cycles (an
+    SLAScheduler's queue holds a bound method of it, and so the engine,
+    its rings and its model, until the cycle collector runs), then return
+    the cached blocks to the card."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def fail(msg: str) -> None:
@@ -1330,12 +1367,14 @@ FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:105"
 BF16_OPS = 989e12       # H100 SXM dense bf16 tensor-core rate (datasheet)
 
 
-def attn_err(got: torch.Tensor, want: torch.Tensor, dtype) -> tuple:
+def float_err(got: torch.Tensor, want: torch.Tensor, dtype,
+             tol=ATTN_TOL) -> tuple:
     """(max abs err, largest err / limit over the elements): within
-    ATTN_TOL when the second is at most 1 and every output is finite."""
+    `tol` (ATTN_TOL; SSD_TOL for kernel 12) when the second is at most 1
+    and every output is finite."""
     g, w = got.float(), want.float()
     diff = (g - w).abs()
-    rel, row = ATTN_TOL[dtype]
+    rel, row = tol[dtype]
     rms = w.square().mean(dim=-1, keepdim=True).sqrt()
     ratio = float((diff / (rel * w.abs() + row * rms).clamp_min(1e-30))
                   .max())
@@ -1443,7 +1482,7 @@ def attention_parity_phase() -> dict:
     bad = []
 
     def check(name, label, shape, dt, got, want):
-        e, ratio = attn_err(got, want, dt)
+        e, ratio = float_err(got, want, dt)
         err[name] = max(err[name], e)
         key = f"{name} {str(dt).split('.')[-1]}"
         worst[key] = max(worst.get(key, 0.0), ratio)
@@ -1502,12 +1541,12 @@ def attention_controls(g) -> dict:
     fill = SERVE_PROMPTS[1] + SERVE_NEW - 1
     kv_pos, q_pos = ring_positions(b, s, [fill] * b)
     want = dref.decode_ref(q, k, v, q_pos, kv_pos)
-    out = {"decode_scale_2pct": attn_err(
+    out = {"decode_scale_2pct": float_err(
         dref.decode_ref(q.float() * 1.02, k, v, q_pos, kv_pos), want,
         bf16)[1]}
     dropped = kv_pos.clone()
     dropped[:, fill - 64:fill] = INF_POS
-    out["decode_drop_64"] = attn_err(
+    out["decode_drop_64"] = float_err(
         dref.decode_ref(q, k, v, q_pos, dropped), want, bf16)[1]
     del q, k, v, kv_pos, dropped
     q5 = torch.randn((1, kvh, gq, TF_PROMPT, d), generator=g,
@@ -1517,7 +1556,7 @@ def attention_controls(g) -> dict:
     v4 = torch.randn((1, kvh, TF_PROMPT, d), generator=g,
                      device="cuda").to(bf16)
     want = fref.attention_ref(q5, k4, v4)
-    out["flash_scale_2pct"] = attn_err(
+    out["flash_scale_2pct"] = float_err(
         fref.attention_ref(q5.float() * 1.02, k4, v4), want, bf16)[1]
     del q5, k4, v4, want
     torch.cuda.empty_cache()
@@ -1556,13 +1595,15 @@ def serve_config():
     return dataclasses.replace(get_config(SERVE_ARCH), attn_impl="flash")
 
 
-def serve_requests(vocab: int) -> list:
+def serve_requests(vocab: int, multiple: int = 1) -> list:
     """SERVE_REQUESTS requests, prompt lengths and tokens drawn with numpy
-    from SEED; lengths in SERVE_PROMPTS, so buckets are 2048 or 4096."""
+    from SEED; lengths in SERVE_PROMPTS (so buckets are 2048 or 4096), and
+    multiples of `multiple`."""
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(SEED)
-    lens = rng.integers(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1,
-                        SERVE_REQUESTS)
+    lens = rng.integers(SERVE_PROMPTS[0] // multiple,
+                        SERVE_PROMPTS[1] // multiple + 1,
+                        SERVE_REQUESTS) * multiple
     return [Request(rid=i, prompt=rng.integers(0, vocab, n).astype(np.int32),
                     max_new_tokens=SERVE_NEW) for i, n in enumerate(lens)]
 
@@ -1639,7 +1680,9 @@ def pct(xs, q):
     return float(np.percentile(np.asarray(xs, np.float64), q))
 
 
-def report_serve(label: str, got: dict, vocab: int, dev: dict) -> dict:
+def report_serve(label: str, got: dict, vocab: int, dev: dict,
+                 what: str = "weights + valid ring slots",
+                 bucketed: bool = True) -> dict:
     done = got["done"]
     if sorted(r.rid for r in done) != list(range(SERVE_REQUESTS)):
         fail(f"serve {label}: finished {sorted(r.rid for r in done)}")
@@ -1672,16 +1715,16 @@ def report_serve(label: str, got: dict, vocab: int, dev: dict) -> dict:
           f"{len(pre)} prefills, mean {rec['prefill_ms']['mean']:.2f} ms; "
           f"{len(steps)} decode steps p50 {rec['step_ms']['p50']:.3f} ms "
           f"p95 {rec['step_ms']['p95']:.3f} p99 {rec['step_ms']['p99']:.3f}; "
-          f"weights + valid ring slots {rec['step_bytes']['mean'] / 1e9:.4f} "
+          f"{what} {rec['step_bytes']['mean'] / 1e9:.4f} "
           f"GB a step on average ({min(moved) / 1e9:.4f}.."
           f"{max(moved) / 1e9:.4f}; bound "
           f"{rec['step_bound_ms_mean']:.4f} ms): {rec['step_gbps']:.1f} GB/s "
           f"over all steps, {rec['step_gbps_p50']:.1f} GB/s at p50  "
           f"[{dev['smi']}]", flush=True)
     for n, ms in pre:
-        print(f"  prefill {n:5d} tokens (bucket "
-              f"{min(1 << (n - 1).bit_length(), SERVE_MAX_LEN)}) "
-              f"{ms:9.3f} ms")
+        bucket = (min(1 << (n - 1).bit_length(), SERVE_MAX_LEN) if bucketed
+                  else "none")
+        print(f"  prefill {n:5d} tokens (bucket {bucket}) {ms:9.3f} ms")
     return rec
 
 
@@ -1755,7 +1798,7 @@ def serve_phase(dev: dict) -> tuple:
     zero = [k for k, n in launches.items() if n == 0]
     if zero:
         fail(f"kernels never launched on the serve path: {zero}")
-    serve_profile(engine, cfg)
+    rec["profile"] = serve_profile(engine, cfg)
     return model, engine, rec
 
 
@@ -1763,10 +1806,11 @@ SERVE_KERNELS = ("flash_mma_kernel", "flash_fwd_kernel",
                  "decode_partial_kernel", "decode_combine_kernel")
 
 
-def serve_profile(engine, cfg) -> None:
+def serve_profile(engine, cfg, kernels=SERVE_KERNELS,
+                  what: str = "attention kernels") -> dict:
     """Four requests (prompts of 2048 tokens, 16 new tokens each) through
     the warm engine under torch.profiler: the device's busy share and the
-    device time by kernel name."""
+    device time by kernel name (`kernels`: the port's, by name)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import Request
@@ -1785,10 +1829,10 @@ def serve_profile(engine, cfg) -> None:
             if e.self_cpu_time_total == 0 and e.self_device_time_total > 0]
     busy_us = sum(r[0] for r in rows)
     ours_us = sum(r[0] for r in rows
-                  if any(k in r[2] for k in SERVE_KERNELS))
+                  if any(k in r[2] for k in kernels))
     print(f"profiled serve (4 prompts of 2048, 16 new tokens each): wall "
           f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
-          f"busy share {busy_us / wall_us:.4f}; attention kernels "
+          f"busy share {busy_us / wall_us:.4f}; {what} "
           f"{ours_us / 1e3:.3f} ms, other device work "
           f"{(busy_us - ours_us) / 1e3:.3f} ms")
     for us, count, key in sorted(rows, reverse=True)[:12]:
@@ -1802,6 +1846,9 @@ def serve_profile(engine, cfg) -> None:
           f"{sum(h[1] for h in host)} calls")
     for us, count, key in host[:12]:
         print(f"  host   {us / 1e3:10.3f} ms  x{count:5d}  {key[:100]}")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / wall_us, "kernels_ms": ours_us / 1e3,
+            "host_ms": host_us / 1e3}
 
 
 def serve_parity_phase(model) -> dict:
@@ -1883,7 +1930,7 @@ def attention_times(dev: dict, launches: dict, parity_err: dict) -> list:
     mask = ((q_pos[:, None] - kv_pos) >= 0)[:, None, None, :]
     valid = int(mask.sum())
     out = []
-    dec = time_attention(
+    dec = time_float_kernel(
         "decode_attention",
         lambda: dk.decode_attention_fwd(q, k, v, q_pos, kv_pos),
         lambda: dref.decode_ref(q, k, v, q_pos, kv_pos),
@@ -1903,7 +1950,7 @@ def attention_times(dev: dict, launches: dict, parity_err: dict) -> list:
     k4 = torch.randn((1, kvh, sq, d), generator=g, device="cuda").to(bf16)
     v4 = torch.randn((1, kvh, sq, d), generator=g, device="cuda").to(bf16)
     pairs = kvh * gq * sq * (sq + 1) // 2
-    fl = time_attention(
+    fl = time_float_kernel(
         "flash_attention",
         lambda: fk.flash_attention_fwd(q5, k4, v4),
         lambda: fref.attention_ref(q5, k4, v4),
@@ -1925,33 +1972,440 @@ def attention_times(dev: dict, launches: dict, parity_err: dict) -> list:
     return out
 
 
-def time_attention(name, kern, plain, library, *, nbytes: int, flops: int,
-                   dtype, dev: dict) -> dict:
-    """Check an attention kernel against its plain version once (ATTN_TOL),
-    then time it (one call; back to back), the plain version and the
-    library call, as time_kernel does."""
-    e, ratio = attn_err(kern(), plain(), dtype)
+def time_float_kernel(name, kern, plain, library, *, nbytes: int,
+                      flops: int, dtype, dev: dict, rate: float = BF16_OPS,
+                      tol=ATTN_TOL) -> dict:
+    """Check a float kernel against its plain version once (`tol`), then
+    time it (one call; back to back), the plain version and the library
+    call (None: PyTorch has no call for the function), as time_kernel
+    does; the bound counts `flops` at `rate`."""
+    e, ratio = float_err(kern(), plain(), dtype, tol)
     if not ratio <= 1.0:
         fail(f"{name} differs from its plain version at the path's shape "
              f"(max abs err {e}, {ratio} of the limit)")
     ms = time_ms(kern)
     b2b_ms = time_ms(kern, KERNEL_REPS)
     plain_ms = time_ms(plain)
-    lib_ms = time_ms(library)
+    lib_ms = time_ms(library) if library is not None else None
     bytes_ms = nbytes / MEM_BPS * 1e3
-    ops_ms = flops / BF16_OPS * 1e3
+    ops_ms = flops / rate * 1e3
     rec = {"name": name, "route": "cuda", "launches": 0, "max_abs_err": e,
            "ms": ms, "ms_back_to_back": b2b_ms, "plain_ms": plain_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "library_ms": lib_ms, "bytes": nbytes, "ops": flops}
+    lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
     print(f"{name:26s} kernel {ms:.4f} ms one call ({b2b_ms:.4f} ms back "
-          f"to back)  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  "
+          f"to back)  plain {plain_ms:.4f} ms  library {lib}  "
           f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
           f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)  "
           f"{rec['bound_ms'] / b2b_ms:.3f} of the bound back to back  "
           f"[{dev['smi']}]", flush=True)
     return rec
+
+# --------------------------------------------------------------------------
+# the Mamba-2 serving slice: kernel 12 (SSD chunk scan)
+# --------------------------------------------------------------------------
+
+# Kernel 12 vs its plain version on the card, in float32 element by element
+# as float_err measures: |kernel - plain| <= rel * |plain| + row * rms, rms
+# the plain output's row (one (step, head)'s P values; for the final state
+# one (head, state) row of P).
+# - rel: each version rounds y once to x's dtype, as in ATTN_TOL: two
+#   units in the last place in bf16 (2^-6), eight in fp32 (2^-20).
+# - row: what the float32 computations may differ by. A weight is
+#   exp(cum_i - cum_j), cum a running sum of up to 256 log-decays dt * A
+#   (|A| up to 16 at the path's heads), so |cum| reaches a few thousand
+#   and one ulp of it is up to 2.4e-4; the kernel sums the chunk in
+#   another order (8 steps a lane, then a warp scan) than torch.cumsum, so
+#   the exponents differ by a few such ulps and a weight by up to ~1e-3
+#   relatively, in random directions over the row. 2^-8 of the row leaves
+#   about 4 times that.
+# ssd_controls holds known-wrong outputs to the same limit, each of which
+# must fail it: the decay rate A 2% off (a_log + ln 1.02), and the state
+# carried into one chunk boundary dropped.
+SSD_TOL = {torch.float32: (2.0 ** -20, 2.0 ** -8),
+           torch.bfloat16: (2.0 ** -6, 2.0 ** -8)}
+SSD_REPLACES = "src/repro/kernels/ssd_chunk/kernel.py:81"
+SSD_ARCH = "mamba2-1.3b"         # 48 SSD layers, d_model 2048, 64 heads
+# (B, S, H, P, N, Q) of one prefill row of 4096 tokens at mamba2-1.3b's
+# widths: what every layer of the serve phase's longest prefill hands the
+# kernel
+SSD_PATH = (1, 4096, 64, 64, 128, 256)
+# An SSD stack prefills the raw prompt (no buckets: a recurrent state
+# would carry the pad tokens), and the chunked scan takes a prompt longer
+# than a chunk only as a whole number of chunks (src/repro/models/ssm.py:71
+# asserts it; the port matches). The serve phase therefore draws its
+# prompt lengths in SERVE_PROMPTS as multiples of the 256-step chunk.
+SSD_PROMPT_MULTIPLE = 256
+SSD_KERNELS = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
+               "ssd_scan_kernel")
+
+
+def ssd_inputs(g, b: int, s: int, h: int, p: int, n: int, dtype,
+               init: bool) -> tuple:
+    """(x, dt, a_log, b, c), h_in on the card: x and B / C in `dtype`
+    (B / C scaled by N^-1/2 as tests/test_kernels_ssd.py scales them), dt
+    = softplus(normal), a_log the model's init log(linspace(1, 16, H)),
+    h_in normal or None."""
+    x = torch.randn((b, s, h, p), generator=g, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=g, device="cuda"))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+    bm = (torch.randn((b, s, n), generator=g, device="cuda")
+          / n ** 0.5).to(dtype)
+    cm = (torch.randn((b, s, n), generator=g, device="cuda")
+          / n ** 0.5).to(dtype)
+    h_in = (torch.randn((b, h, n, p), generator=g, device="cuda")
+            if init else None)
+    return (x, dt, a_log, bm, cm), h_in
+
+
+def ssd_cases():
+    """(label, b, s, h, p, n, q, dtype, init)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for dt in (f32, bf16):                    # tests/test_kernels_ssd.py:22
+        for b, s, h, p, n, q in ((1, 64, 2, 64, 32, 32),
+                                 (2, 128, 4, 64, 128, 64),
+                                 (1, 256, 2, 128, 64, 128)):
+            cases.append(("tests", b, s, h, p, n, q, dt, False))
+    cases.append(("serve path", *SSD_PATH, bf16, False))
+    cases.append(("serve path, fp32, inbound state", *SSD_PATH, f32, True))
+    cases.append(("ragged: a 100-token prompt, one chunk", 1, 100, 64, 64,
+                  128, 100, bf16, True))
+    cases.append(("ragged: three chunks of 100, inbound state", 2, 300, 4,
+                  32, 16, 100, f32, True))
+    cases.append(("reduced mamba2 (P 16, N 16, Q 32)", 2, 128, 8, 16, 16,
+                  32, f32, True))
+    cases.append(("registry example (N 8)", 2, 64, 2, 16, 8, 16, f32,
+                  False))
+    cases.append(("P 128, N 128, Q 256, inbound state", 1, 512, 2, 128, 128,
+                  256, bf16, True))
+    cases.append(("P 48, a one-step chunk", 1, 16, 3, 48, 64, 1, f32, True))
+    cases.append(("P 100, N 7, Q 45", 1, 90, 2, 100, 7, 45, f32, True))
+    cases.append(("Q 255", 1, 510, 2, 64, 128, 255, bf16, False))
+    return cases
+
+
+def ssd_parity_phase() -> tuple:
+    """Kernel 12 (mode="cuda") against its plain version (mode="torch_ref")
+    on the card, fp32 and bf16, y and the final state, at the kernel
+    tests' shapes, the serving path's, ragged chunks and inbound states;
+    then the controls, which must fail."""
+    phase("parity (ssd kernel)")
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    err, worst, bad, n_cases = 0.0, {}, [], 0
+    t0 = time.perf_counter()
+    for label, b, s, h, p, n, q, dt, init in ssd_cases():
+        args, h_in = ssd_inputs(g, b, s, h, p, n, dt, init)
+        got = ssd_ops.ssd(*args, q, init_state=h_in, mode="cuda")
+        want = ssd_ops.ssd(*args, q, init_state=h_in, mode="torch_ref")
+        for what, gt, wt, d in (("y", got[0], want[0], dt),
+                                ("state", got[1], want[1], torch.float32)):
+            e, ratio = float_err(gt, wt, d, SSD_TOL)
+            err = max(err, e)
+            key = f"{what} {str(dt).split('.')[-1]}"
+            worst[key] = max(worst.get(key, 0.0), ratio)
+            if not ratio <= 1.0:
+                bad.append((label, what, (b, s, h, p, n, q), str(dt), e,
+                            ratio))
+        n_cases += 1
+        del args, h_in, got, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"ssd parity cases {n_cases} max_abs_err {err}; largest error / "
+          f"limit {json.dumps(worst)} (limit rel * |plain| + row * row "
+          f"rms, (rel, row) {SSD_TOL[torch.float32]} fp32, "
+          f"{SSD_TOL[torch.bfloat16]} bf16) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if bad:
+        for b_ in bad:
+            print("MISMATCH", b_, file=sys.stderr)
+        fail(f"{len(bad)} ssd parity cases out of tolerance")
+    controls = ssd_controls(g)
+    return {"ssd_chunk": err}, {"cases": n_cases,
+                                "largest_err_over_limit": worst,
+                                "controls": controls}
+
+
+def ssd_controls(g) -> dict:
+    """What the limit reads on outputs known to be wrong, at the path's
+    bf16 shape: the plain version with the decay rate A 2% off, and with
+    the state carried into the middle chunk boundary dropped (the two
+    halves scanned apart). Each must exceed the limit."""
+    import math
+
+    from repro_torch.kernels.ssd_chunk import ref
+    bf16 = torch.bfloat16
+    b, s, h, p, n, q = SSD_PATH
+    (x, dt, a_log, bm, cm), _ = ssd_inputs(g, b, s, h, p, n, bf16, False)
+    want, _ = ref.ssd_chunked_ref(x, dt, a_log, bm, cm, q)
+    out = {"a_2pct": float_err(ref.ssd_chunked_ref(
+        x, dt, a_log + math.log(1.02), bm, cm, q)[0], want, bf16,
+        SSD_TOL)[1]}
+    k = s // q // 2 * q
+    halves = [ref.ssd_chunked_ref(x[:, sl], dt[:, sl], a_log, bm[:, sl],
+                                  cm[:, sl], q)[0]
+              for sl in (slice(0, k), slice(k, s))]
+    out["state_dropped_at_one_boundary"] = float_err(
+        torch.cat(halves, dim=1), want, bf16, SSD_TOL)[1]
+    del x, dt, bm, cm, want, halves
+    torch.cuda.empty_cache()
+    print(f"ssd controls (err / limit, each must exceed 1): "
+          f"{json.dumps(out)}", flush=True)
+    caught = [c for c, r in out.items() if not r > 1.0]
+    if caught:
+        fail(f"the ssd limit does not see the controls {caught}")
+    return out
+
+
+def ssd_config():
+    from repro_torch.configs import get_config
+    return get_config(SSD_ARCH)
+
+
+def ssd_step_counter(model, engine, cfg):
+    """bytes_of(q_pos) for drive: the bytes one decode step of an SSD
+    stack had to move, the same at every step: every weight (the tied head
+    reads the whole embedding table, which also serves the slots' token
+    rows), and in every layer each slot's SSM state (fp32) and conv tail
+    read and written. Activations (under 2 MB a step) are not counted."""
+    if any(k != "ssd" for k in cfg.block_pattern) or not cfg.tie_embeddings:
+        fail(f"ssd_step_counter counts tied SSD stacks only, not "
+             f"{cfg.block_pattern}")
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    states = sum(2 * t.numel() * t.element_size()
+                 for c in engine.caches for t in c.values())
+
+    def bytes_of(q_pos) -> int:
+        return weights + states
+    return bytes_of, weights, states
+
+
+def ssd_serve_phase(dev: dict) -> tuple:
+    """mamba2-1.3b at its published widths and depth, bf16, random weights
+    from a seeded generator on the card: SERVE_REQUESTS requests (prompts
+    of 1024..4096 tokens in multiples of 256, SERVE_NEW new tokens each)
+    through ServeEngine(SERVE_SLOTS slots). Every prefill layer runs
+    kernel 12: its LAUNCHES must equal 48 x the prefills."""
+    phase("serve mamba2")
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    cfg = ssd_config()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{cfg.name}: {cfg.num_layers} layers {cfg.block_pattern}, "
+          f"d_model {cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} "
+          f"SSM heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+          f"{cfg.ssm_chunk}, conv {cfg.ssm_conv}, vocab {cfg.vocab_size}, "
+          f"tied {cfg.tie_embeddings}, {cfg.dtype}; {n_params} parameters "
+          f"(analytic {cfg.param_count()}) drawn in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if n_params != cfg.param_count():
+        fail("parameter count differs from the config's analytic count")
+    engine = ServeEngine(cfg, model, batch_slots=SERVE_SLOTS,
+                         max_len=SERVE_MAX_LEN, seed=SEED)
+    bytes_of, weights, states = ssd_step_counter(model, engine, cfg)
+    print(f"a decode step must move {weights / 1e9:.4f} GB of weights and "
+          f"{states / 1e9:.4f} GB of SSM and conv states (read and written, "
+          f"{SERVE_SLOTS} slots)", flush=True)
+    requests = serve_requests(cfg.vocab_size, SSD_PROMPT_MULTIPLE)
+    sk.LAUNCHES = 0
+    got = drive(engine, requests, bytes_of)
+    torch.cuda.synchronize()
+    launches = sk.LAUNCHES
+    rec = {"engine": report_serve("mamba2", got, cfg.vocab_size, dev,
+                                  what="weights + SSM and conv states",
+                                  bucketed=False)}
+    rec["weights_bytes"], rec["state_bytes"] = weights, states
+    n_prefill = len(got["prefill"])
+    peak = torch.cuda.max_memory_allocated()
+    rec["peak_gib"] = peak / 2**30
+    rec["allocated_before_gib"] = before / 2**30
+    rec["launches"] = {"ssd_chunk": launches}
+    print(f"kernel 12 launches on the serve path: {launches} for "
+          f"{n_prefill} prefills x {cfg.num_layers} layers; peak device "
+          f"memory {peak / 2**30:.3f} GiB ({before / 2**30:.3f} GiB held "
+          f"before the phase)", flush=True)
+    if launches == 0 or launches != cfg.num_layers * n_prefill:
+        fail(f"ssd_chunk launched {launches} times on the serve path, not "
+             f"{cfg.num_layers} x {n_prefill} prefills")
+    rec["profile"] = serve_profile(engine, cfg, SSD_KERNELS, "kernel 12")
+    return model, rec
+
+
+# Teacher-forced logits of the mamba2 serve path against the plain scan
+# cannot be held to TF_MAX_ABS: with random bf16 weights the 48-layer stack
+# carries any float32 rounding of the scan, ~3e-4 of a layer's output,
+# into bf16 rounding flips of the residual stream that grow layer by layer
+# to logit differences near 1 (measured on the card: the plain scan with
+# its log-decays summed in float64 instead of float32 moves the logits as
+# far as the kernel does). The bound is therefore the same function's own
+# spread, measured in the same run: the plain scan at chunk 128 instead of
+# 256, which sums every exponent and state in another order. The kernel
+# may differ from the plain scan by at most SSD_FLOOR_X times that, layer
+# by layer (each block's output on the plain path's own input, relative
+# Frobenius norm) and in the end-to-end logits (max and mean), and its
+# greedy tokens must equal the plain scan's where the top-2 margin exceeds
+# SSD_FLOOR_X times the spread's largest logit difference.
+SSD_FLOOR_X = 2.0
+SSD_FLOOR_CHUNK = 128
+
+
+def ssd_prefill_with(model, cfg, tokens, caches, mode, probe=None):
+    """lm.prefill's hidden state for an all-SSD stack, the scan dispatched
+    by `mode` (ssm.apply's mode=): embedding, each block's norm -> mixer
+    -> residual, final norm. With `probe` (a list of (cfg, mode)), every
+    block also runs each probe on the same normed input, and the relative
+    Frobenius difference of each probe's output from this path's is
+    recorded. Returns (hidden, new caches, [per-layer differences])."""
+    from repro_torch.models import ssm
+    from repro_torch.models.common import rms_norm
+    x = model.embed[tokens.long()]
+    new, diffs = [], []
+    for blk, c in zip(model.blocks, caches):
+        h = rms_norm(x, blk.norm1, cfg.norm_eps)
+        out, state = ssm.apply(blk.mixer, h, cfg, c, mode=mode)
+        if probe:
+            want = out.float()
+            diffs.append([float((ssm.apply(blk.mixer, h, pc, c, mode=pm)[0]
+                                 .float() - want).norm() / want.norm())
+                          for pc, pm in probe])
+        x = x + out
+        new.append(state)
+    return rms_norm(x, model.final_norm, cfg.norm_eps), new, diffs
+
+
+def ssd_serve_parity_phase(model) -> dict:
+    """Teacher-forced: one prefill of TF_PROMPT tokens and TF_STEPS decode
+    steps on one token stream, the prefill through lm.prefill (kernel 12
+    in every layer), through the same stack with the scan's plain version
+    (mode="torch_ref"), and through the plain version at chunk
+    SSD_FLOOR_CHUNK (the spread); the decode steps (plain tensor work in
+    all three) continue from each prefill's states. Layer by layer, on the
+    plain path's input, the kernel's and the spread's block outputs
+    against the plain one's. Bounds: SSD_FLOOR_X times the spread."""
+    phase("serve mamba2 parity")
+    import dataclasses
+
+    from repro_torch.models import lm
+    cfg = ssd_config()
+    floor_cfg = dataclasses.replace(cfg, ssm_chunk=SSD_FLOOR_CHUNK)
+    rng = np.random.default_rng(SEED + 3)
+    stream = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, TF_PROMPT + TF_STEPS).astype(np.int32)).cuda()
+    out, layers = {}, []
+    with torch.no_grad():
+        for path, c in (("kernel", cfg), ("plain", cfg),
+                        ("spread", floor_cfg)):
+            caches = lm.init_caches(c, 1, SERVE_MAX_LEN)
+            if path == "kernel":
+                hidden, caches, _ = lm.prefill(
+                    model, c, stream[None, :TF_PROMPT], caches,
+                    return_hidden=True)
+            else:
+                probe = ([(cfg, "cuda"), (floor_cfg, "torch_ref")]
+                         if path == "plain" else None)
+                hidden, caches, d = ssd_prefill_with(
+                    model, c, stream[None, :TF_PROMPT], caches, "torch_ref",
+                    probe)
+                layers = layers or d
+            logits = [lm.head_logits(model, c,
+                                     hidden[:, -1:])[:, 0].float()]
+            for t in range(TF_PROMPT, TF_PROMPT + TF_STEPS):
+                lg, caches, _ = lm.decode_step(
+                    model, c, stream[None, t:t + 1],
+                    torch.tensor([t], device="cuda"), caches)
+                logits.append(lg[:, 0].float())
+            out[path] = torch.cat(logits)             # (1 + steps, vocab)
+            del caches, hidden
+    torch.cuda.empty_cache()
+    d = (out["kernel"] - out["plain"]).abs()
+    spread = (out["spread"] - out["plain"]).abs()
+    top2 = out["plain"].topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > SSD_FLOOR_X * float(spread.max())
+    agree = out["kernel"].argmax(-1) == out["plain"].argmax(-1)
+    layer_k = [k for k, _ in layers]
+    layer_s = [f for _, f in layers]
+    worst_layer = max(k / max(f, 1e-30) for k, f in layers)
+    rec = {"max_abs": float(d.max()), "mean_abs": float(d.mean()),
+           "spread_max_abs": float(spread.max()),
+           "spread_mean_abs": float(spread.mean()),
+           "logit_std": float(out["plain"].std()),
+           "positions": int(d.shape[0]), "clear": int(clear.sum()),
+           "argmax_equal": int(agree.sum()),
+           "layer_rel_diff": {"kernel_max": max(layer_k),
+                              "kernel_first": layer_k[0],
+                              "spread_max": max(layer_s),
+                              "spread_first": layer_s[0],
+                              "largest_ratio": worst_layer},
+           "finite": bool(torch.isfinite(out["kernel"]).all())}
+    print(f"layer by layer (block output on the plain path's input, "
+          f"relative): kernel vs plain {layer_k[0]:.3e} at layer 0, at most "
+          f"{max(layer_k):.3e}; spread (chunk {SSD_FLOOR_CHUNK}) "
+          f"{layer_s[0]:.3e}, at most {max(layer_s):.3e}; largest kernel / "
+          f"spread {worst_layer:.3f} (bound {SSD_FLOOR_X})", flush=True)
+    print(f"teacher-forced {TF_PROMPT} + {TF_STEPS}: |kernel - plain| max "
+          f"{rec['max_abs']:.5f}, mean {rec['mean_abs']:.5f}; spread max "
+          f"{rec['spread_max_abs']:.5f}, mean {rec['spread_mean_abs']:.5f} "
+          f"(bound {SSD_FLOOR_X} x the spread); logit std "
+          f"{rec['logit_std']:.4f}; argmax equal at {rec['argmax_equal']} "
+          f"of {rec['positions']}, {rec['clear']} with a top-2 margin above "
+          f"{SSD_FLOOR_X} x the spread's max", flush=True)
+    if not rec["finite"] or worst_layer > SSD_FLOOR_X or \
+            rec["max_abs"] > SSD_FLOOR_X * rec["spread_max_abs"] or \
+            rec["mean_abs"] > SSD_FLOOR_X * rec["spread_mean_abs"] or \
+            not bool(agree[clear].all()):
+        fail("teacher-forced kernel-12 logits differ from the plain scan's "
+             "by more than the plain scan's own spread allows")
+    return rec
+
+
+def ssd_times(dev: dict, launches: dict, parity_err: dict) -> list:
+    """Kernel 12 at the serving path's shape SSD_PATH in bf16, with the
+    zero inbound state the model hands it at a fresh prefill. The bound
+    counts each input read once and each output written once (x, dt,
+    a_log, B, C, h_in; y, h_out) and the flops the function needs on the
+    causal pairs j <= i: C . B^T once a chunk for every head (2 N a pair),
+    and a head and chunk the decayed products with x (2 P a pair) and the
+    two state products (2 Q N P each), at the CUDA cores' float32 rate the
+    kernel computes in. PyTorch has no call for this function: library
+    none."""
+    phase("ssd times")
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.kernels.ssd_chunk import ref
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    b, s, h, p, n, q = SSD_PATH
+    (x, dt, a_log, bm, cm), _ = ssd_inputs(g, b, s, h, p, n, bf16, False)
+    h_in = torch.zeros((b, h, n, p), dtype=torch.float32, device="cuda")
+    nc = s // q
+    pairs = q * (q + 1) // 2
+    flops = b * nc * (2 * n * pairs + h * (2 * p * pairs + 4 * q * n * p))
+    nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4
+              + a_log.numel() * 4 + 2 * bm.numel() * bm.element_size()
+              + 2 * h_in.numel() * 4)
+    rec = time_float_kernel(
+        "ssd_chunk", lambda: sk.ssd_scan(x, dt, a_log, bm, cm, q, h_in)[0],
+        lambda: ref.ssd_chunked_ref(x, dt, a_log, bm, cm, q, h_in)[0], None,
+        nbytes=nbytes, flops=flops, dtype=bf16, dev=dev, rate=CORE_OPS,
+        tol=SSD_TOL)
+    rec.update({"shape": list(SSD_PATH), "ops_rate": "fp32 CUDA cores",
+                "source": "src/repro_torch/csrc/ssd_chunk.cu",
+                "replaces": SSD_REPLACES,
+                "launches": launches["ssd_chunk"],
+                "max_abs_err": max(rec["max_abs_err"],
+                                   parity_err["ssd_chunk"])})
+    del x, dt, bm, cm, h_in
+    torch.cuda.empty_cache()
+    return [rec]
 
 
 def main() -> None:
@@ -1972,6 +2426,8 @@ def main() -> None:
     parity_err.update(group_parity_phase())
     attn_errs, attn_check = attention_parity_phase()
     parity_err.update(attn_errs)
+    ssd_errs, ssd_check = ssd_parity_phase()
+    parity_err.update(ssd_errs)
     table = build_table()
     launches = main_phase(table)
     kernels = times_phase(table, dev, launches, parity_err)
@@ -2011,12 +2467,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     model, engine, serve = serve_phase(dev)
     del engine
-    torch.cuda.empty_cache()
+    release()
     serve["parity"] = serve_parity_phase(model)
     del model
-    torch.cuda.empty_cache()
+    release()
     kernels += attention_times(dev, serve["launches"], parity_err)
     serve["attention_parity"] = attn_check
+    model, mamba = ssd_serve_phase(dev)
+    mamba["parity"] = ssd_serve_parity_phase(model)
+    del model
+    release()
+    kernels += ssd_times(dev, mamba["launches"], parity_err)
+    mamba["ssd_parity"] = ssd_check
+    serve["mamba2"] = mamba
     print(json.dumps({"serve": serve}, default=str))
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))

@@ -30,7 +30,8 @@ SOURCES = {"scan_filter": "scan_filter.cu", "aggregate": "aggregate.cu",
            "scan_compressed": "scan_compressed.cu",
            "group_aggregate": "group_aggregate.cu",
            "flash_attention": "flash_attention.cu",
-           "decode_attention": "decode_attention.cu"}
+           "decode_attention": "decode_attention.cu",
+           "ssd_chunk": "ssd_chunk.cu"}
 HEADERS = ("bitweave.cuh", "error.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -81,6 +82,11 @@ SIGNATURES = {
         #  s, d, n_splits, window, stream)
         "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                     _I, _I, _LL, _I, _I, _I, _P)},
+    "ssd_chunk": {
+        # (x, dt, a_log, b, c, h_in, cb, states, total, y, h_out, dtype, b,
+        #  s, h, p, n, q, stream)
+        "ssd_chunk_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _I, _I, _I, _I, _P)},
 }
 # kernel operand dtypes -> the `dtype` code the float kernels take
 FLOAT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -186,10 +192,10 @@ def check_operand(t: torch.Tensor, what: str, like: torch.Tensor | None = None,
     """Kernel operands are contiguous CUDA tensors of `ndim` dimensions
     and one of `dtypes`: by default int32 — 1-D packed words or per-chunk
     constants/flags, 2-D (n_chunks, n_words) batched planes (bit views of
-    the packed uint32 words) or (n_chunks, n_runs) run planes; the
-    attention kernels' q/k/v are float32 or bfloat16 (FLOAT_DTYPES) and 16-
-    byte aligned. With `like`, the same shape (and dtype) on the same
-    device."""
+    the packed uint32 words) or (n_chunks, n_runs) run planes; the float
+    kernels' operands (attention q/k/v, the SSD scan's) are float32 or
+    bfloat16 (FLOAT_DTYPES) and 16-byte aligned. With `like`, the same
+    shape (and dtype) on the same device."""
     if not t.is_cuda:
         raise ValueError(f"{what}: the CUDA kernel needs a CUDA tensor, got "
                          f"one on {t.device}")

@@ -68,11 +68,11 @@ class KernelOp:
 
 _REGISTRY: dict[str, KernelOp] = {}
 
-# the reference's family names (repro/kernels/dispatch.py::_OP_MODULES);
-# later slices append the rest in its order as they are ported
+# the reference's family names, all of them, in its order
+# (repro/kernels/dispatch.py::_OP_MODULES)
 _OP_MODULES = ("scan_filter", "aggregate", "scan_aggregate",
                "scan_compressed", "group_aggregate", "flash_attention",
-               "decode_attention")
+               "decode_attention", "ssd_chunk")
 
 
 def register(name: str, *, fn, ref, example=None) -> KernelOp:
@@ -82,7 +82,7 @@ def register(name: str, *, fn, ref, example=None) -> KernelOp:
 
 
 def ensure_registered() -> None:
-    """Import every ported family so module-level register() calls ran."""
+    """Import every family so module-level register() calls ran."""
     for mod in _OP_MODULES:
         importlib.import_module(f"repro_torch.kernels.{mod}.ops")
 

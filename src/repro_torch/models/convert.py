@@ -4,10 +4,12 @@ as numpy arrays) -> the port's LM module.
 The reference stacks same-kind blocks over layers (`params["groups"][i]`
 holds pattern slot i of every pattern group, leading axis = group) and
 keeps a tail of unstacked blocks; the port's blocks are a list in
-execution order: group 0's pattern, group 1's, ..., then the tail. bf16
-arrays (ml_dtypes.bfloat16, which torch.from_numpy rejects) go through
-float32, which holds them exactly. This module imports no JAX: the caller
-hands it numpy arrays (`jax.tree.map(np.asarray, params)`).
+execution order: group 0's pattern, group 1's, ..., then the tail. An
+"ssd" block carries its mixer's seven leaves and no ffn; a tied config
+has no "lm_head". bf16 arrays (ml_dtypes.bfloat16, which
+torch.from_numpy rejects) go through float32, which holds them exactly.
+This module imports no JAX: the caller hands it numpy arrays
+(`jax.tree.map(np.asarray, params)`).
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, blocks, lm, mlp
+from repro_torch.models import attention, blocks, lm, mlp, ssm
 
 
 def _tensor(a, device) -> torch.nn.Parameter:
@@ -34,6 +36,9 @@ def _block(tree, g, kind: str, cfg, device) -> blocks.Block:
         return _tensor(a if g is None else np.asarray(a)[g], device)
 
     mix = tree["mixer"]
+    if kind == "ssd":
+        return blocks.Block(kind, take(tree["norm1"]),
+                            ssm.SSM(*(take(mix[n]) for n in ssm.LEAVES)))
     mixer = attention.Attention(*(take(mix[n])
                                   for n in ("wq", "wk", "wv", "wo")))
     if "ffn" not in tree:

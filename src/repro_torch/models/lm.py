@@ -7,8 +7,11 @@ blocks over layers for lax.scan (`params["groups"]`); here the stack is a
 Python loop, and repro_torch.models.convert unstacks a reference pytree.
 The functions keep the reference's names and arguments, with the module in
 place of the params pytree, so the tests compare call for call. Caches are
-a list of per-layer {"k", "v", "pos"} rings in the kernel-native
-(B, KVH, S, D) layout, written in place.
+a list with one dict per layer, of the layer's kind: attention layers'
+{"k", "v", "pos"} rings in the kernel-native (B, KVH, S, D) layout,
+written in place, and SSD layers' {"ssm", "conv"} states, which each call
+returns anew as the reference does. The head is the embedding's transpose
+when the config ties them (mamba2-1.3b).
 """
 from __future__ import annotations
 

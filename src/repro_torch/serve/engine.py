@@ -2,11 +2,13 @@
 continuous-batching engine (counterpart of repro/serve/engine.py).
 
 The decode step is the paper's workload reborn: one token streams every
-weight of the stack and each slot's whole KV ring — about one flop a byte,
-the bandwidth-bound regime the analytical model provisions for. With
-attn_impl="flash" the attention runs on the hand-written kernels (flash
-prefill, split-K decode over the ring); the projections, the MLP and the
-head are plain matrix products.
+weight of the stack and each slot's whole KV ring (or, in an SSD stack,
+its recurrent state) — about one flop a byte, the bandwidth-bound regime
+the analytical model provisions for. With attn_impl="flash" the attention
+runs on the hand-written kernels (flash prefill, split-K decode over the
+ring); an SSD stack's prefill runs the SSD chunk-scan kernel in every
+layer, and its decode step is plain tensor work; the projections, the MLP
+and the head are plain matrix products.
 """
 from __future__ import annotations
 
@@ -80,11 +82,14 @@ class ServeEngine:
 
     Fixed B decode slots with per-slot cache_len; a finished slot is
     refilled by prefilling the new request's prompt in a 1-row cache and
-    copying that row, pos plane included, over the slot's row of the batch
-    cache. Slot and length bookkeeping lives in a host-side numpy mirror,
-    so the only device sync of a decode step is the sampled tokens.
-    Prompts are padded to power-of-two buckets (attention-only stacks:
-    padded ring slots are re-marked never-written via the pos plane).
+    copying that row, every tensor of it (pos planes, SSM and conv states)
+    over the slot's row of the batch cache. Slot and length bookkeeping
+    lives in a host-side numpy mirror, so the only device sync of a decode
+    step is the sampled tokens. Prompts are padded to power-of-two
+    buckets (attention-only stacks: padded ring slots are re-marked
+    never-written via the pos plane); a stack with SSD blocks prefills the
+    raw prompt, which must be shorter than a chunk or a whole number of
+    chunks (models.ssm._ssd_chunked asserts it, as the reference does).
 
     `params` is an LM module; the engine runs on its device, which must be
     `device` (the card unless device="cpu").
@@ -125,23 +130,24 @@ class ServeEngine:
             # padded bucket: ring slots written by pad tokens revert to
             # never-written
             for c in caches1:
-                c["pos"][:, length:] = INF_POS
+                if "pos" in c:
+                    c["pos"][:, length:] = INF_POS
         last = lm.head_logits(self.params, self.cfg,
                               hidden[:, length - 1:length])[0, 0]
         return last, caches1
 
     def _insert_row(self, row_caches, slot: int) -> None:
-        # the whole row, pos plane included: a refilled slot must not see
-        # the previous request's positions
+        # the whole row, pos planes and recurrent states included: a
+        # refilled slot must not see the previous request's positions or
+        # state
         for c, r in zip(self.caches, row_caches):
-            for name in ("k", "v", "pos"):
-                c[name][slot] = r[name][0]
+            for name, t in r.items():
+                c[name][slot] = t[0]
 
     @torch.no_grad()
     def submit(self, req: Request) -> bool:
         for i, s in enumerate(self.slots):
             if s is None:
-                self.slots[i] = req
                 n = len(req.prompt)
                 # never pad past the ring: pad positions would wrap and
                 # evict real prompt K/V that the pos reset (slot-indexed)
@@ -152,6 +158,9 @@ class ServeEngine:
                 prompt[:n] = np.asarray(req.prompt, np.int32)
                 logits, row = self._prefill_row(
                     torch.from_numpy(prompt).to(self.device), n)
+                # the slot is taken once the prefill went through: a
+                # prompt the model refuses leaves it free
+                self.slots[i] = req
                 self._insert_row(row, i)
                 self.cache_len[i] = n
                 req.generated.append(int(torch.argmax(logits)))

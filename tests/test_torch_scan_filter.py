@@ -177,13 +177,15 @@ def test_registry_examples_match_refs():
     ops = dispatch.registered()
     assert set(ops) == {"scan_filter", "aggregate", "scan_aggregate",
                         "scan_compressed", "group_aggregate",
-                        "flash_attention", "decode_attention"}
+                        "flash_attention", "decode_attention", "ssd_chunk"}
     for name, op in ops.items():
         args, kwargs = op.example(np.random.default_rng(0))
         got, want = op.fn(*args, **kwargs), op.ref(*args, **kwargs)
         if isinstance(want, dict):
             assert {k: int(v) for k, v in got.items()} == \
                 {k: int(v) for k, v in want.items()}, name
+        elif isinstance(want, tuple):           # ssd_chunk: (y, state)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), name
         else:
             assert torch.equal(got, want), name
 

@@ -250,3 +250,103 @@ class TestSLAScheduler:
                             deadline=float("inf"))
         assert [r.rid for r in sched.run()] == [1]
         assert sched.rejected == [0]
+
+
+# --------------------------------------------------------------------------
+# Mamba-2 (SSD blocks): raw prompts, recurrent states
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mamba_setup():
+    """mamba2-1.3b reduced (two SSD layers, chunk 32) in float32, weights
+    from jax.random.PRNGKey(0)."""
+    jcfg = jget_config("mamba2-1.3b").reduced(dtype="float32")
+    cfg = get_config("mamba2-1.3b").reduced(dtype="float32")
+    params = jax.jit(lambda k: jlm.init(k, jcfg)[0])(jax.random.PRNGKey(0))
+    model = convert.params_from_reference(jax.tree.map(np.asarray, params),
+                                          cfg, device="cpu")
+    return jcfg, params, cfg, model
+
+
+def recurrent_greedy(cfg, model, prompt, n_new):
+    """One request alone: a 1-row prefill, then one-token decode steps on
+    its own state (a full re-prefill of each longer sequence would pass
+    through lengths the chunked scan refuses)."""
+    with torch.no_grad():
+        caches = lm.init_caches(cfg, 1, 256, device="cpu")
+        logits, caches, _ = lm.prefill(
+            model, cfg, torch.from_numpy(np.asarray(prompt, np.int32))[None],
+            caches)
+        toks = [int(torch.argmax(logits[0, -1]))]
+        for t in range(len(prompt), len(prompt) + n_new - 1):
+            logits, caches, _ = lm.decode_step(
+                model, cfg, torch.tensor([[toks[-1]]], dtype=torch.int32),
+                torch.tensor([t]), caches)
+            toks.append(int(torch.argmax(logits[0, -1])))
+    return toks
+
+
+@pytest.mark.parametrize("n", [20, 64])
+def test_mamba_single_request_matches_reference(mamba_setup, n):
+    """A prompt shorter than a chunk, and one of two chunks."""
+    _, _, cfg, model = mamba_setup
+    prompt = (np.arange(n, dtype=np.int32) * 7 + 3) % cfg.vocab_size
+    got = run_both(mamba_setup, lambda R: [R(rid=0, prompt=prompt,
+                                             max_new_tokens=6)], 2, 128)
+    port, ref, _ = got[0]
+    assert port == ref == recurrent_greedy(cfg, model, prompt, 6)
+
+
+def test_mamba_continuous_batching_matches_reference(mamba_setup):
+    _, _, cfg, model = mamba_setup
+
+    def requests(R):
+        rng = np.random.default_rng(5)
+        lens = (5, 32, 17, 64, 1, 9)
+        return [R(rid=i, prompt=rng.integers(0, cfg.vocab_size, n),
+                  max_new_tokens=3 + (i % 3)) for i, n in enumerate(lens)]
+
+    got = run_both(mamba_setup, requests, 2, 128)
+    assert sorted(got) == list(range(6))
+    for rid, (port, ref, r) in got.items():
+        assert port == ref, rid
+        assert port == recurrent_greedy(cfg, model, r.prompt,
+                                        r.max_new_tokens)
+
+
+def test_mamba_refilled_slot_does_not_see_the_previous_state(mamba_setup):
+    """A 64-token request then a 3-token one through one slot: the refill
+    replaces the row's SSM and conv states, so the second request's
+    tokens and states equal its own from a fresh engine."""
+    _, _, cfg, model = mamba_setup
+    long_prompt = np.arange(3, 67, dtype=np.int32)
+    short_prompt = np.array([11, 4, 9], np.int32)
+    eng = ServeEngine(cfg, model, batch_slots=1, max_len=128, device="cpu")
+    done = eng.run([Request(rid=0, prompt=long_prompt, max_new_tokens=4),
+                    Request(rid=1, prompt=short_prompt, max_new_tokens=4)])
+    fresh = ServeEngine(cfg, model, batch_slots=1, max_len=128,
+                        device="cpu")
+    alone = fresh.run([Request(rid=1, prompt=short_prompt,
+                               max_new_tokens=4)])
+    assert done[1].generated == alone[0].generated == recurrent_greedy(
+        cfg, model, short_prompt, 4)
+    for c, f in zip(eng.caches, fresh.caches):
+        for name in ("ssm", "conv"):
+            torch.testing.assert_close(c[name], f[name], rtol=0, atol=0)
+
+
+def test_mamba_prompt_of_no_whole_chunk_is_refused(mamba_setup):
+    """40 tokens at chunk 32: the chunked scan asserts in both packages
+    (models/ssm.py:71); the port's slot stays free and the engine serves
+    the next request."""
+    jcfg, params, cfg, model = mamba_setup
+    prompt = np.arange(1, 41, dtype=np.int32)
+    with pytest.raises(AssertionError, match="40, 32"):
+        JServeEngine(jcfg, params, batch_slots=1, max_len=128).submit(
+            JRequest(rid=0, prompt=prompt, max_new_tokens=2))
+    eng = ServeEngine(cfg, model, batch_slots=1, max_len=128, device="cpu")
+    with pytest.raises(AssertionError, match="40, 32"):
+        eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=2))
+    assert eng.slots == [None]
+    done = eng.run([Request(rid=1, prompt=prompt[:32], max_new_tokens=2)])
+    assert [r.rid for r in done] == [1] and len(done[0].generated) == 2
