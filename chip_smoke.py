@@ -76,9 +76,18 @@ The LM serving slice (internlm2-1.8b) adds:
              serving path's (decode q (8, 8, 2, 128) over an (8, 8, 8192,
              128) ring; prefill (1, 8, 2, 4096, 128)), wrapped rings,
              windows {64, 512}, empty slots, rows whose every slot is
-             masked, ragged Sq / Skv (100, 1000) and G {1, 2, 8}; then
-             controls (a 2% wrong softmax scale, a dropped tail of 64
-             slots) that the limit must reject.
+             masked, ragged Sq / Skv (100, 1000) and G {1, 2, 8}; for the
+             redesigned kernels, flash at Sq = Skv = 1000 (D 64, 128), Sq
+             130 over Skv 4100, windows {100, 129} and G {1, 4, 8}, and
+             decode rings whose valid slots lie only in the last tile, one
+             in each of five scattered tiles, in a window band across the
+             wrap, or inside one split's run; then controls (a 2% wrong
+             softmax scale, a dropped tail of 64 slots) that the limit must
+             reject.
+3b. graph replay — each attention kernel's call captured once in a CUDA
+             graph at the serving path's shapes and replayed twice over
+             new inputs; each replay equal to an eager call bit for bit,
+             and kernel 10's split tickets back at zero.
 9. serve   — after the query phases, with their tables freed: the model
              at its published widths and depth in bf16, random weights
              from a seeded generator on the card, attn_impl="flash";
@@ -96,7 +105,9 @@ The LM serving slice (internlm2-1.8b) adds:
              logits within TF_MAX_ABS / TF_MEAN_ABS and the greedy tokens
              equal wherever "auto"'s top-2 margin exceeds TF_MAX_ABS.
 11. attention times — kernels 10 and 11 at the serving path's shapes,
-             with scaled_dot_product_attention as the library yardstick.
+             with scaled_dot_product_attention as the library yardstick
+             (one call and back to back), and the bytes kernel 10's plan
+             reads there.
 
 The Mamba-2 serving slice (mamba2-1.3b) adds:
 
@@ -706,7 +717,8 @@ def time_kernel(name, kern, plain, nbytes: int, ops: int, dev: dict) -> dict:
            "plain_ms": plain_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": None, "bytes": nbytes, "ops": ops}
+           "library_ms": None, "library_ms_back_to_back": None,
+           "bytes": nbytes, "ops": ops}
     print(f"{name:26s} kernel {ms:.4f} ms one call ({b2b_ms:.4f} ms back "
           f"to back)  plain {plain_ms:.4f} ms  "
           f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})  "
@@ -1463,7 +1475,96 @@ def flash_cases():
         cases.append(("serve path", 1, 8, 2, 4096, 4096, 128, dt, 0))
     cases.append(("serve path, window 512", 1, 8, 2, 4096, 4096, 128, bf16,
                   512))
+    # the wgmma kernel's edges: ragged 128-row query and key tiles, Sq < Skv
+    # by a tile's fraction, window edges inside a tile, G 1 / 4 / 8 (units
+    # of two heads, or of two query tiles of one head)
+    for d in (64, 128):
+        cases.append((f"wgmma, Sq = Skv = 1000, D {d}", 1, 2, 2, 1000, 1000,
+                      d, bf16, 0))
+    cases.append(("wgmma, Sq 130 over Skv 4100", 1, 2, 2, 130, 4100, 128,
+                  bf16, 0))
+    for w in (100, 129):
+        cases.append((f"wgmma, window {w}", 1, 2, 2, 1000, 1000, 128, bf16,
+                      w))
+    for g in (1, 4, 8):
+        cases.append((f"wgmma, G {g}", 2, 1, g, 333, 777, 128, bf16, 0))
     return cases
+
+
+def decode_plane_cases():
+    """Rings the split plan must read selectively: (label, b, kvh, g, s, d,
+    dtype, kv_pos, q_pos, window), the planes as numpy int32."""
+    from repro_torch.models.attention import INF_POS
+    bf16 = torch.bfloat16
+    s = SERVE_MAX_LEN
+    cases = []
+    # valid slots only in the ring's last tile (and a row with one there)
+    kv = np.full((2, s), INF_POS, np.int32)
+    kv[0, s - 5:] = np.arange(5)
+    kv[1, s - 1] = 0
+    cases.append(("valid slots only in the last tile", 2, 8, 2, s, 128,
+                  bf16, kv, np.array([5, 0], np.int32), 0))
+    # one valid slot in each of five scattered tiles; then window 3, which
+    # keeps the newest two
+    kv = np.full((2, s), INF_POS, np.int32)
+    kv[:, [17, 1000, 4099, 6000, 8190]] = np.arange(5)
+    cases.append(("one valid slot in each of five scattered tiles", 2, 8, 2,
+                  s, 128, bf16, kv, np.array([5, 5], np.int32), 0))
+    cases.append(("scattered slots, window 3", 2, 8, 2, s, 128, bf16, kv,
+                  np.array([5, 5], np.int32), 3))
+    # a window band across the ring's wrap: positions 808 .. 8999 stored
+    # at slot pos % s, the band 7000 .. 8999 straddles slot 0
+    pos = np.arange(9000 - s, 9000)
+    kv = np.full((2, s), INF_POS, np.int32)
+    kv[:, pos % s] = pos
+    for dt in (torch.float32, bf16):
+        cases.append(("window band across the wrap", 2, 8, 2, s, 128, dt,
+                      kv, np.array([9000, 9000], np.int32), 2000))
+    # each row's valid slots within one split's run of tiles, at different
+    # places in the ring; the last row empty
+    kv = np.full((8, s), INF_POS, np.int32)
+    for i in range(7):
+        a = 1000 * i + 37
+        kv[i, a:a + 20] = np.arange(20)
+    q = np.array([20] * 7 + [0], np.int32)
+    cases.append(("each row's slots inside one split", 8, 8, 2, s, 128,
+                  bf16, kv, q, 0))
+    # an odd ring length: plane rows not 16-byte aligned (the scan's scalar
+    # path) and a last tile of a few slots; empty, part-filled, wrapped
+    s = 1001
+    kv = np.full((3, s), INF_POS, np.int32)
+    kv[1, :700] = np.arange(700)
+    pos = np.arange(1500 - s, 1500)
+    kv[2, pos % s] = pos
+    for dt, window in ((bf16, 0), (torch.float32, 64)):
+        cases.append((f"odd ring length 1001, window {window}", 3, 2, 2, s,
+                      128, dt, kv, np.array([0, 700, 1500], np.int32),
+                      window))
+    return cases
+
+
+def decode_copies(q, k, v, q_pos, kv_pos, window: int) -> tuple:
+    """(the K/V bytes one kernel call's copies moved, counted on the card
+    by the kernel; the bytes its plan copies; splits; tile slots). The
+    plan: kernel.tile_plan with the library's splits and tile size, whole
+    tiles (the ring's last one ragged), K and V for a batch row with a
+    valid slot and V alone for one without, for every (kv head, group of
+    query heads) of the row."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as dk
+    counter = torch.zeros(1, dtype=torch.int64, device=q.device)
+    dk.decode_attention_fwd(q, k, v, q_pos, kv_pos, window=window,
+                            copied_bytes=counter)
+    b, kvh, gq, d = q.shape
+    s = k.shape[2]
+    key = (q.get_device(), _build.FLOAT_DTYPES[q.dtype], b, kvh, gq, s, d)
+    splits, tile, rows, _ = dk.plan(_build.load("decode_attention"), key)
+    reads, any_ = dk.tile_plan(kv_pos, q_pos, window, tile, splits)
+    starts = torch.arange(reads.shape[2], device=reads.device) * tile
+    slots = (s - starts).clamp(max=tile)
+    per_row = (reads.sum(dim=1) * slots).sum(dim=1) * (1 + any_.long())
+    planned = int(per_row.sum()) * (rows // b) * d * q.element_size()
+    return int(counter), planned, splits, tile
 
 
 def attention_parity_phase() -> dict:
@@ -1480,6 +1581,18 @@ def attention_parity_phase() -> dict:
     worst = {}                      # (kernel, dtype) -> largest err / limit
     cases = {"decode_attention": 0, "flash_attention": 0}
     bad = []
+    copies = {"cases": 0, "equal_to_plan": 0, "copied_bytes": 0,
+              "planned_bytes": 0}
+
+    def count_copies(label, q, k, v, q_pos, kv_pos, window):
+        copied, planned, _, _ = decode_copies(q, k, v, q_pos, kv_pos,
+                                              window)
+        copies["cases"] += 1
+        copies["equal_to_plan"] += copied == planned
+        copies["copied_bytes"] += copied
+        copies["planned_bytes"] += planned
+        if copied != planned:
+            bad.append(("decode_attention copies", label, copied, planned))
 
     def check(name, label, shape, dt, got, want):
         e, ratio = float_err(got, want, dt)
@@ -1501,6 +1614,19 @@ def attention_parity_phase() -> dict:
         want = dec_ops.decode_attention(q, k, v, q_pos, kv_pos,
                                         window=window, mode="torch_ref")
         check("decode_attention", label, (b, kvh, gq, s, d), dt, got, want)
+        count_copies(label, q, k, v, q_pos, kv_pos, window)
+    for label, b, kvh, gq, s, d, dt, kv, qp, window in decode_plane_cases():
+        q = torch.randn((b, kvh, gq, d), generator=g, device="cuda").to(dt)
+        k = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(dt)
+        v = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(dt)
+        kv_pos = torch.from_numpy(kv).cuda()
+        q_pos = torch.from_numpy(qp).cuda()
+        got = dec_ops.decode_attention(q, k, v, q_pos, kv_pos,
+                                       window=window, mode="cuda")
+        want = dec_ops.decode_attention(q, k, v, q_pos, kv_pos,
+                                        window=window, mode="torch_ref")
+        check("decode_attention", label, (b, kvh, gq, s, d), dt, got, want)
+        count_copies(label, q, k, v, q_pos, kv_pos, window)
     for label, b, kvh, gq, sq, skv, d, dt, window in flash_cases():
         q = torch.randn((b, kvh, gq, sq, d), generator=g,
                         device="cuda").to(dt)
@@ -1516,12 +1642,108 @@ def attention_parity_phase() -> dict:
           f"row rms, (rel, row) {ATTN_TOL[torch.float32]} fp32, "
           f"{ATTN_TOL[torch.bfloat16]} bf16) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"decode K/V copies counted on the card by the kernel against "
+          f"its plan (tiles holding a valid slot; V alone for a row with "
+          f"none): {json.dumps(copies)}", flush=True)
     if bad:
         for b_ in bad:
             print("MISMATCH", b_, file=sys.stderr)
-        fail(f"{len(bad)} attention parity cases out of tolerance")
+        fail(f"{len(bad)} attention parity cases out of tolerance, or "
+             f"decode copies off the plan")
     controls = attention_controls(g)
-    return err, {"largest_err_over_limit": worst, "controls": controls}
+    return err, {"largest_err_over_limit": worst, "controls": controls,
+                 "decode_copies": copies}
+
+
+def attention_graph_phase() -> dict:
+    """Each attention kernel's call captured once in a torch.cuda.CUDAGraph
+    on a side stream at the serving path's bf16 shapes (decode over the
+    8192-slot ring, prefill of 4096), then replayed twice on the current
+    stream over new inputs copied into the captured tensors (other values,
+    other fills, an empty row); each replay must equal an eager call on the
+    same inputs bit for bit. Beside each replay, with no synchronisation
+    between them, an eager call of the same shape runs on the capture
+    stream over another input set, and must equal the same call made
+    alone. The decode call is captured without a call before it on that
+    stream (its scratch is made under capture), the flash call after one;
+    the eager decode scratches' tickets must be zero at the end."""
+    phase("graph replay (attention kernels)")
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    b, kvh, gq, s, d = SERVE_SLOTS, 8, 2, SERVE_MAX_LEN, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(bf16)
+
+    def decode_inputs(fills, wrap):
+        kv_pos, q_pos = ring_positions(b, s, fills, wrap)
+        return (randn(b, kvh, gq, d), randn(b, kvh, s, d),
+                randn(b, kvh, s, d), q_pos, kv_pos)
+
+    def prefill_inputs():
+        return (randn(1, kvh, gq, TF_PROMPT, d), randn(1, kvh, TF_PROMPT, d),
+                randn(1, kvh, TF_PROMPT, d))
+
+    runs = {
+        "decode_attention": (
+            lambda *a: dk.decode_attention_fwd(*a), False,
+            [decode_inputs([4159] * b, None),
+             decode_inputs([0, 1, 100, 1000, 4096, 8000, 8192, 0],
+                           [None] * 7 + [9000]),
+             decode_inputs([7, 0, 3000, 5000, 33, 8192, 64, 2],
+                           [12000] + [None] * 7)]),
+        "flash_attention": (
+            lambda *a: fk.flash_attention_fwd(*a), True,
+            [prefill_inputs() for _ in range(3)]),
+    }
+    out = {}
+    for name, (fn, warm, inputs) in runs.items():
+        side = torch.cuda.Stream()
+        static = inputs[0]
+        side.wait_stream(torch.cuda.current_stream())
+        if warm:
+            with torch.cuda.stream(side):
+                fn(*static)
+            torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            captured = fn(*static)
+        equal, beside_equal = [], []
+        for i, new in enumerate(inputs[1:]):
+            other = inputs[2 - i]
+            for t, n in zip(static, new):
+                t.copy_(n)
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                beside = fn(*other)        # on the capture stream ...
+            graph.replay()                 # ... while this replays
+            torch.cuda.synchronize()
+            eager = fn(*new)
+            alone = fn(*other)
+            torch.cuda.synchronize()
+            equal.append(bool(torch.equal(captured, eager)))
+            beside_equal.append(bool(torch.equal(beside, alone)))
+        out[name] = equal
+        out[f"{name} beside a replay"] = beside_equal
+        del graph, captured, static, inputs, beside, eager, alone
+    # every eager scratch the decode kernel was given: its tickets (the
+    # last `rows` words) are back at zero
+    tickets = 0
+    for (_, _, key), buf in dk._SCRATCH.items():
+        rows = dk._PLANS[key][2]
+        tickets += int(buf[-rows:].view(torch.int32).ne(0).sum())
+    out["tickets_left_set"] = tickets
+    torch.cuda.empty_cache()
+    print(f"graph replay equal to eager, bit for bit (two replays each, "
+          f"an eager call of the same shape on the capture stream beside "
+          f"each): {json.dumps(out)}", flush=True)
+    if not all(x for k, v in out.items() if k != "tickets_left_set"
+               for x in v) or tickets:
+        fail("a graph replay, or an eager call beside one, differs from "
+             "the eager call alone, or a decode ticket was left set")
+    return out
 
 
 def attention_controls(g) -> dict:
@@ -1802,8 +2024,8 @@ def serve_phase(dev: dict) -> tuple:
     return model, engine, rec
 
 
-SERVE_KERNELS = ("flash_mma_kernel", "flash_fwd_kernel",
-                 "decode_partial_kernel", "decode_combine_kernel")
+SERVE_KERNELS = ("flash_wgmma_kernel", "flash_fwd_kernel",
+                 "decode_attention_kernel")
 
 
 def serve_profile(engine, cfg, kernels=SERVE_KERNELS,
@@ -1939,7 +2161,18 @@ def attention_times(dev: dict, launches: dict, parity_err: dict) -> list:
             enable_gqa=True),
         nbytes=ring_bytes(kv_pos, q_pos, kvh, d, 2) + 2 * q.numel() * 2,
         flops=4 * d * gq * kvh * valid, dtype=bf16, dev=dev)
+    # the K/V bytes one call copies, counted on the card by the kernel
+    copied, planned, splits, tile = decode_copies(q, k, v, q_pos, kv_pos, 0)
+    print(f"decode_attention: {splits} splits of tiles of {tile} slots; "
+          f"one call's K/V copies moved {copied} bytes, counted on the card "
+          f"(its plan: {planned}; the bound counts {dec['bytes']} bytes in "
+          f"all, K/V of the valid slots and the position planes)",
+          flush=True)
+    if copied != planned:
+        fail(f"decode_attention copied {copied} K/V bytes, its plan "
+             f"{planned}")
     dec.update({"shape": [b, kvh, gq, s, d], "filled_slots": fill,
+                "copied_bytes": copied,
                 "source": "src/repro_torch/csrc/decode_attention.cu",
                 "replaces": DECODE_REPLACES})
     out.append(dec)
@@ -1977,8 +2210,8 @@ def time_float_kernel(name, kern, plain, library, *, nbytes: int,
                       tol=ATTN_TOL) -> dict:
     """Check a float kernel against its plain version once (`tol`), then
     time it (one call; back to back), the plain version and the library
-    call (None: PyTorch has no call for the function), as time_kernel
-    does; the bound counts `flops` at `rate`."""
+    call (one call; back to back; None: PyTorch has no call for the
+    function), as time_kernel does; the bound counts `flops` at `rate`."""
     e, ratio = float_err(kern(), plain(), dtype, tol)
     if not ratio <= 1.0:
         fail(f"{name} differs from its plain version at the path's shape "
@@ -1987,14 +2220,18 @@ def time_float_kernel(name, kern, plain, library, *, nbytes: int,
     b2b_ms = time_ms(kern, KERNEL_REPS)
     plain_ms = time_ms(plain)
     lib_ms = time_ms(library) if library is not None else None
+    lib_b2b = (time_ms(library, KERNEL_REPS) if library is not None
+               else None)
     bytes_ms = nbytes / MEM_BPS * 1e3
     ops_ms = flops / rate * 1e3
     rec = {"name": name, "route": "cuda", "launches": 0, "max_abs_err": e,
            "ms": ms, "ms_back_to_back": b2b_ms, "plain_ms": plain_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": lib_ms, "bytes": nbytes, "ops": flops}
-    lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+           "library_ms": lib_ms, "library_ms_back_to_back": lib_b2b,
+           "bytes": nbytes, "ops": flops}
+    lib = (f"{lib_ms:.4f} ms ({lib_b2b:.4f} ms back to back)"
+           if lib_ms is not None else "none")
     print(f"{name:26s} kernel {ms:.4f} ms one call ({b2b_ms:.4f} ms back "
           f"to back)  plain {plain_ms:.4f} ms  library {lib}  "
           f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
@@ -2426,6 +2663,7 @@ def main() -> None:
     parity_err.update(group_parity_phase())
     attn_errs, attn_check = attention_parity_phase()
     parity_err.update(attn_errs)
+    attn_check["graph_replay"] = attention_graph_phase()
     ssd_errs, ssd_check = ssd_parity_phase()
     parity_err.update(ssd_errs)
     table = build_table()

@@ -13,43 +13,62 @@
 //
 // Bound: operations. A causal prefill of S tokens does ~2 * S^2 * D flops a
 // head for 4 * S * D * sizeof(T) bytes; at S = 4096 that is ~1000 flops a
-// byte, far above the card's ~295. Design: one block per (b, kv head,
-// query head, tile of kBQ query rows), heavy (late) query tiles first. The
-// block keeps its Q tile (pre-scaled, fp32) in shared memory and walks only
-// the key tiles a row of it can reach: causal, and for a window the tiles
-// not wholly evicted (the reference's block skip). Each key tile goes
-// through shared memory once; 256 threads each own a 4 x 4 block of the
-// kBQ x kBK scores (float4 loads along D) and the matching 4 rows x D/16
-// columns of the output accumulator, with the online softmax (m, l) of its
-// four rows in registers, reduced over the 16 lanes that share a row. The
-// probabilities stay in fp32 (the reference kernel rounds them to V's
-// dtype; its plain version does not). Masked scores are the reference's
-// finite -1e30, so a first tile that is masked for some rows is washed out
-// by alpha = exp(-1e30 - m) = 0 when a real score arrives. That kernel
-// runs on the CUDA cores and serves float32 (whose tolerance the tensor
-// cores' bf16 or TF32 inputs would not meet) and head dim 256.
+// byte, far above the card's ~295. Two kernels:
 //
-// bf16 with head dims up to 128 runs on the tensor cores instead
-// (flash_mma_kernel): mma.sync m16n8k16 with bf16 inputs and fp32
-// accumulation, FlashAttention-2 style. Four warps own 16 query rows
-// each; a warp keeps its Q fragments, its 16 x 64 scores and its 16 x D
-// output accumulator in registers, and its probabilities go from the
-// score accumulator straight into the A fragments of the PV product
-// (rounded to bf16 there, as the reference kernel rounds them to V's
-// dtype). K and V tiles are staged in shared memory at a padded row
-// stride so that ldmatrix (transposed for V) reads them without bank
-// conflicts. Scores are kept in log2 units (exp2), masked with the same
-// finite -1e30. wgmma, TMA and a pipelined (multi-stage) tile ring are
-// later work.
+// flash_wgmma_kernel, bf16 at head dims 32, 64 and 128 (the serving
+// path's route), is built for the tensor cores' full rate, which only
+// wgmma reaches. A block is three warpgroups. The first is the producer:
+// it gives up registers (setmaxnreg) and one of its threads issues TMA
+// loads (cp.async.bulk.tensor through a CUtensorMap, 128-byte swizzle, or
+// 64-byte at head dim 32) of the Q tiles and of each 128-key K and V tile
+// into a three-stage ring guarded by full and empty mbarriers, so loads
+// run ahead of the products. The other two are consumers with 240
+// registers a thread; each owns 64 query rows: S = Q K^T by wgmma
+// m64n128k16 with both operands in shared memory, then P, rounded to bf16
+// and packed from the score accumulator straight into A fragments, times V
+// by wgmma with A from registers and V read as an MN-major (transposed)
+// operand. Tile j's S product is issued together with tile j - 1's P V,
+// and tile j's softmax runs while that P V does (FlashAttention-3's
+// intra-warpgroup overlap); the other consumer's products fill the tensor
+// cores meanwhile. The softmax takes exp2 on the special-function unit
+// (ex2.approx.ftz) of the raw score scaled to log2 units by one FFMA.
+// GQA: the 64-row units (query head g, query tile t) are numbered t * G +
+// g and a work item is two neighbours, so at even G both consumers hold
+// two heads of one kv head at the same positions and every K/V tile
+// loaded serves both. Only tiles that some row of the item can see are
+// loaded (the reference's block skip); a consumer skips a tile none of its
+// rows can see, and masks only a tile that crosses the diagonal, a window
+// edge or the end of the keys. Masked scores take a finite value (-2^100
+// raw, kMaskRaw), so a row whose scores so far are all masked weighs them
+// uniformly and the first real score washes them out (alpha = 0), as the
+// reference's finite -1e30 does; keys past Skv, which TMA fills with
+// zeros, take -inf (weight exactly 0). The grid is persistent, one block
+// an SM; work items go out heaviest (latest query tiles) first, in a
+// snake order over the blocks, and the producer loads the next item's Q
+// and keys while the consumers write the last item's output.
+//
+// flash_fwd_kernel, float32 (whose tolerance the tensor cores' bf16 or TF32
+// inputs would not meet) and bf16 at head dim 256, runs on the CUDA cores:
+// one block per (b, kv head, query head, tile of kBQ query rows), heavy
+// (late) query tiles first. The block keeps its Q tile (pre-scaled, fp32)
+// in shared memory and walks only the key tiles a row of it can reach;
+// 256 threads each own a 4 x 4 block of the kBQ x kBK scores (float4 loads
+// along D) and the matching 4 rows x D/16 columns of the output
+// accumulator, with the online softmax (m, l) of its four rows in
+// registers, reduced over the 16 lanes that share a row. Its probabilities
+// stay in fp32.
 #include <cmath>
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <type_traits>
 
 #include "error.cuh"
+#include "hopper.cuh"
 
 namespace {
+
 
 constexpr float kNegInf = -1e30f;  // the reference's finite mask value
 constexpr int kThreads = 256;
@@ -258,41 +277,79 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- tensor-core path: bf16, D in {32, 64, 128} -------------------------
+// ---- Hopper path: bf16, D in {32, 64, 128}: TMA + wgmma -----------------
 
-constexpr int kMmaWarps = 4;                 // 16 query rows each
-constexpr int kMmaThreads = kMmaWarps * 32;
+namespace hop {
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1,
-                                            uint32_t& r2, uint32_t& r3,
-                                            const void* smem_ptr) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(smem_ptr);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(a));
+constexpr int kWG = 128;                 // threads a warpgroup
+constexpr int kThreads = 3 * kWG;        // the producer and two consumers
+constexpr int kRows = 64;                // query rows a consumer
+constexpr int kBN = 128;                 // keys a tile
+constexpr int kStages = 3;               // K/V tiles in the ring
+
+// Shared memory: each consumer's Q tile, then kStages (K, V) tiles. A tile
+// is stored in column panels of SW bytes a row (the TMA box's width, the
+// swizzle span), each panel rows x SW bytes.
+template <int D>
+struct Layout {
+  static constexpr int SW = D * 2 < 128 ? D * 2 : 128;
+  static constexpr int COLS = SW / 2;            // bf16 columns a panel
+  static constexpr int KPP = SW / 32;            // k16 steps a panel
+  static constexpr int Q_PANEL = kRows * SW;
+  static constexpr int Q_BYTES = kRows * D * 2;
+  static constexpr int KV_PANEL = kBN * SW;
+  static constexpr int KV_BYTES = kBN * D * 2;
+  static constexpr int KV_OFF = 2 * Q_BYTES;
+  static constexpr int SMEM = KV_OFF + kStages * 2 * KV_BYTES;
+  static constexpr uint64_t MODE = SW == 128 ? 1 : 2;   // descriptor swizzle
+};
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle mode
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t mode) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3,
-                                                  const void* smem_ptr) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(smem_ptr);
+// box (COLS, rows, 1) at (c0, c1, c2) of a 3-D tensor map -> shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(a));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2) : "memory");
 }
 
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 2^x on the special-function unit, subnormal results flushed to zero (a
+// probability under 2^-126 of the row's largest, 0 in bf16's P V anyway)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// returns once at most N committed groups are still running
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// orders a register that an asynchronous wgmma reads or writes after the
+// wait that completes it
+__device__ __forceinline__ void reg_fence(float& r) {
+  asm volatile("" : "+f"(r) :: "memory");
+}
+__device__ __forceinline__ void reg_fence_u(uint32_t& r) {
+  asm volatile("" : "+r"(r) :: "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -300,206 +357,551 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// rows [row0, row0 + ROWS) of a (rows, D) bf16 matrix -> shared memory at
-// row stride LD (elements); rows past the matrix are zeros
-template <int D, int LD, int ROWS>
-__device__ __forceinline__ void stage_tile(const __nv_bfloat16* src,
-                                           long long row0, long long rows,
-                                           __nv_bfloat16* dst) {
-  constexpr int NV = D / 8;                  // 16-byte vectors a row
-  for (int i = threadIdx.x; i < ROWS * NV; i += kMmaThreads) {
-    const int r = i / NV, c = i % NV;
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (row0 + r < rows)
-      u = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D
-                                               + c * 8));
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = u;
+// wgmma m64nNk16, bf16 in, fp32 accumulate in d[N / 2] (the m16n8
+// accumulator fragment of each of the warpgroup's four warps, repeated
+// over N / 8 column tiles). ss (N = kBN, the S product): A and B from
+// shared memory, both K-major, d = A B (+ d when scale_d). rs (N = D, the
+// P V product): A from registers (four bf16x2 a thread), B an MN-major
+// (transposed) operand, d += A B.
+template <int N>
+struct Wgmma {
+  __device__ static void ss(float* d, uint64_t a, uint64_t b, int scale_d);
+  __device__ static void rs(float* d, const uint32_t* a, uint64_t b);
+};
+
+template <>
+__device__ __forceinline__ void Wgmma<32>::rs(float* d, const uint32_t* a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void Wgmma<64>::rs(float* d, const uint32_t* a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void Wgmma<128>::ss(float* d, uint64_t a,
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void Wgmma<128>::rs(float* d, const uint32_t* a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+struct Params {
+  __nv_bfloat16* out;
+  int g;          // query heads a kv head
+  int sq, skv;
+  int window;
+  int n_units;    // units of a (b, kv head): ceil(Sq / kRows) * G
+  int n_pairs;    // ceil(n_units / 2)
+  int bh;         // B * KVH
+  int n_items;    // n_pairs * bh
+  float scale_log2;
+};
+
+// One consumer's 64 query rows: unit u = query tile * G + query head.
+struct Unit {
+  bool ok;        // u < n_units
+  int g, q0;      // query head, first query row
+  int lo, hi;     // positions of its first and last real row
+  __device__ Unit(const Params& p, int u) {
+    ok = u < p.n_units;
+    g = u % p.g;
+    q0 = (u / p.g) * kRows;
+    lo = q0 + p.skv - p.sq;
+    hi = min(q0 + kRows, p.sq) - 1 + p.skv - p.sq;
+  }
+  // keys [begin, end) that some row of the unit can see
+  __device__ int begin(const Params& p) const {
+    return p.window ? max(0, lo - p.window + 1) : 0;
+  }
+  __device__ int end(const Params& p) const { return min(p.skv, hi + 1); }
+};
+
+// The masked score, in raw (unscaled) units: a power of two, so that its
+// product with the scale is exact and a row whose every score so far is
+// masked gets exp2(mask * scale - mask * scale) = 1 for each, the uniform
+// weights of the reference's finite -1e30; against any real score its
+// weight is exp2(-2^100 * scale - m) = 0, as -1e30's is.
+constexpr float kMaskRaw = -0x1p100f;
+
+// mask the tile's raw scores where it crosses the diagonal, a window edge
+// or the end of the keys (a fully visible tile is left as it is)
+template <int NS>
+__device__ __forceinline__ void mask_scores(float* s, const Params& p,
+                                            const Unit& u, int k0, int pos_a,
+                                            int tig) {
+  const bool visible = k0 + kBN <= p.skv && k0 + kBN - 1 <= u.lo &&
+                       (p.window == 0 || u.hi - k0 < p.window);
+  if (visible) return;
+#pragma unroll
+  for (int e = 0; e < NS; ++e) {
+    const int kpos = k0 + (e >> 2) * 8 + tig * 2 + (e & 1);
+    const int dp = pos_a + (e & 2) * 4 - kpos;     // rows gid, gid + 8
+    const bool ok = dp >= 0 && (p.window == 0 || dp < p.window);
+    s[e] = kpos >= p.skv ? -INFINITY : (ok ? s[e] : kMaskRaw);
   }
 }
 
-template <int D>
-__host__ __device__ constexpr int mma_smem_bytes() {
-  return 3 * kBQ * (D + 8) * 2;              // Q, K, V tiles of bf16
+// the online softmax's step over one tile of raw scores: the new row
+// maxima (m, raw units), the rescale of the running sums (alpha), and the
+// tile's probabilities exp2(s * scale - m * scale) (one FFMA and one ex2
+// an element) in place of its scores, with their row sums (rs); rows gid
+// and gid + 8
+template <int NS>
+__device__ __forceinline__ void softmax_step(float* s, float* m, float* alpha,
+                                             float* rs, float scale) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int e = 0; e < NS; ++e)
+    mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+  float neg[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h]);
+    alpha[h] = ex2((m[h] - m_new) * scale);
+    m[h] = m_new;
+    neg[h] = -m_new * scale;
+    rs[h] = 0.f;
+  }
+#pragma unroll
+  for (int e = 0; e < NS; ++e) {
+    s[e] = ex2(fmaf(s[e], scale, neg[(e >> 1) & 1]));
+    rs[(e >> 1) & 1] += s[e];
+  }
 }
 
-// grid (B*KVH*G, ceil(Sq / kBQ)); Sq <= Skv; kBQ == kBK == 64
+// P (rounded to bf16) as the A fragments of P V: 16 keys a k-step
+template <int NS>
+__device__ __forceinline__ void pack_p(const float* s, uint32_t (*pf)[4]) {
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+    pf[j >> 1][(j & 1) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
+    pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+  }
+}
+
+// S = Q K^T over one key tile: Q (64 x D) at qa, K (kBN x D) at kb, both
+// K-major in swizzled panels
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ out, int g_len,
-                     long long sq, long long skv, int window,
-                     float scale_log2) {
-  constexpr int LD = D + 8;          // +16 bytes: ldmatrix rows on 8 banks
-  constexpr int KS = D / 16;         // k-steps of QK^T; d-tile pairs of PV
-  constexpr int NT = kBK / 8;        // score n-tiles (8 keys each)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBQ * LD;
-  __nv_bfloat16* vs = ks + kBK * LD;
+__device__ __forceinline__ void issue_s(float* s, uint32_t qa, uint32_t kb) {
+  using L = Layout<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    Wgmma<kBN>::ss(
+        s,
+        make_desc(qa + (kk / L::KPP) * L::Q_PANEL + (kk % L::KPP) * 32, 16,
+                  8 * L::SW, L::MODE),
+        make_desc(kb + (kk / L::KPP) * L::KV_PANEL + (kk % L::KPP) * 32, 16,
+                  8 * L::SW, L::MODE),
+        kk);
+  wg_commit();
+}
 
-  const int bhg = blockIdx.x;
-  const long long bh = bhg / g_len;
-  const long long q0 =
-      ((long long)gridDim.y - 1 - blockIdx.y) * kBQ;   // late tiles first
-  const long long off = skv - sq;
-  const __nv_bfloat16* qb = q + (size_t)bhg * sq * D;
-  const __nv_bfloat16* kb = k + (size_t)bh * skv * D;
-  const __nv_bfloat16* vb = v + (size_t)bh * skv * D;
+// O += P V over one key tile: P in registers, V (kBN x D) at vb read as an
+// MN-major operand, 16 keys a k-step
+template <int D>
+__device__ __forceinline__ void issue_pv(float* o, uint32_t (*pf)[4],
+                                         uint32_t vb) {
+  using L = Layout<D>;
+#pragma unroll
+  for (int kt = 0; kt < kBN / 16; ++kt)
+    Wgmma<D>::rs(o, pf[kt],
+                 make_desc(vb + kt * 16 * L::SW, L::KV_PANEL, 8 * L::SW,
+                           L::MODE));
+  wg_commit();
+}
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int gid = lane >> 2;         // fragment row (and row + 8)
-  const int tig = lane & 3;          // fragment column pair
-  const int lm = lane >> 3;          // which 8x8 matrix this lane addresses
-  const int lr = lane & 7;           // and which row of it
+// A work item: the pair of units n_pairs - 1 - j / BH (late query tiles
+// first) of the (b, kv head) j % BH, and the key tiles some row of it can
+// see, [t_lo, t_lo + n_tiles).
+struct Item {
+  int bh;
+  Unit u0, u1;
+  int t_lo, n_tiles;
+  __device__ Item(const Params& p, int j)
+      : bh(j % p.bh),
+        u0(p, 2 * (p.n_pairs - 1 - j / p.bh)),
+        u1(p, 2 * (p.n_pairs - 1 - j / p.bh) + 1) {
+    const int begin = u1.ok ? min(u0.begin(p), u1.begin(p)) : u0.begin(p);
+    const int end = u1.ok ? max(u0.end(p), u1.end(p)) : u0.end(p);
+    t_lo = begin / kBN;
+    n_tiles = (end + kBN - 1) / kBN - t_lo;
+  }
+};
 
-  stage_tile<D, LD, kBQ>(qb, q0, sq, qs);
+// Persistent: grid (min(items, SMs)), each block taking one item a round
+// (item_of). Sq <= Skv; kThreads threads.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const Params p) {
+  using L = Layout<D>;
+  constexpr int NS = kBN / 2;        // score registers a thread
+  constexpr int NO = D / 2;          // output registers a thread
+  extern __shared__ unsigned char smem_raw[];
+  // q full, q empty, then full and empty of each ring stage
+  __shared__ __align__(8) uint64_t bars[2 + 2 * kStages];
+  // 128-byte swizzled tiles need 1024-byte aligned bases
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = smem_u32(&bars[0]), bar_q_empty = bar_q + 8;
+  const uint32_t bar_full = bar_q + 16;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+
+  // round k's item: blocks take the items in a snake order (k even: block
+  // b the b-th of the round, k odd: the b-th from its end), which levels
+  // the rounds' decreasing work across blocks
+  auto item_of = [](int k) {
+    return k * (int)gridDim.x +
+           (k & 1 ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_q_empty, 2 * kWG);          // every consumer thread
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * kWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    ldmatrix_x4(qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3],
-                qs + (warp * 16 + (lm & 1) * 8 + lr) * LD + kk * 16
-                    + (lm >> 1) * 8);
 
-  float m[2] = {kNegInf, kNegInf};   // rows gid, gid + 8 (log2 units)
-  float l[2] = {0.f, 0.f};           // this lane's share of the row sums
-  float o[D / 8][4];
+  const int wg = threadIdx.x / kWG;
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;                    // ring tiles so far
+      for (int k = 0, j; (j = item_of(k)) < p.n_items; ++k) {
+        const Item item(p, j);
+        mbar_wait(bar_q_empty, (k & 1) ^ 1);  // the last item's Q is read
+        mbar_expect_tx(bar_q, (item.u1.ok ? 2 : 1) * L::Q_BYTES);
 #pragma unroll
-  for (int e = 0; e < D / 8; ++e)
-    o[e][0] = o[e][1] = o[e][2] = o[e][3] = 0.f;
-
-  const long long row_a = q0 + warp * 16 + gid;      // query rows
-  const long long pos_a = row_a + off, pos_b = pos_a + 8;
-  const long long q_lo = q0 + off;
-  const long long q_hi = min(q0 + kBQ, sq) - 1 + off;
-  const long long kv_end = min(skv, q_hi + 1);
-  const long long kv_begin = window ? max(0LL, q_lo - window + 1) : 0LL;
-  for (long long k0 = (kv_begin / kBK) * kBK; k0 < kv_end; k0 += kBK) {
-    __syncthreads();                 // the last tile's K and V are read
-    stage_tile<D, LD, kBK>(kb, k0, skv, ks);
-    stage_tile<D, LD, kBK>(vb, k0, skv, vs);
-    __syncthreads();
-
-    float s[NT][4];
+        for (int c = 0; c < D / L::COLS; ++c) {
+          tma_load(base + c * L::Q_PANEL, &tq, bar_q, c * L::COLS,
+                   item.u0.q0, item.bh * p.g + item.u0.g);
+          if (item.u1.ok)
+            tma_load(base + L::Q_BYTES + c * L::Q_PANEL, &tq, bar_q,
+                     c * L::COLS, item.u1.q0, item.bh * p.g + item.u1.g);
+        }
+        for (int i = 0; i < item.n_tiles; ++i, ++it) {
+          const int st = it % kStages;
+          mbar_wait(bar_empty + 8 * st, ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(bar_full + 8 * st, 2 * L::KV_BYTES);
+          const uint32_t kb = base + L::KV_OFF + st * 2 * L::KV_BYTES;
+          const int k0 = (item.t_lo + i) * kBN;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b0, b1, b2, b3;     // n-tiles j and j + 1
-        ldmatrix_x4(b0, b1, b2, b3,
-                    ks + ((j + (lm >> 1)) * 8 + lr) * LD + kk * 16
-                        + (lm & 1) * 8);
-        mma_bf16(s[j], qf[kk], b0, b1);
-        mma_bf16(s[j + 1], qf[kk], b2, b3);
+          for (int c = 0; c < D / L::COLS; ++c) {
+            tma_load(kb + c * L::KV_PANEL, &tk, bar_full + 8 * st,
+                     c * L::COLS, k0, item.bh);
+            tma_load(kb + L::KV_BYTES + c * L::KV_PANEL, &tv,
+                     bar_full + 8 * st, c * L::COLS, k0, item.bh);
+          }
+        }
       }
     }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int w = wg - 1;
+    const int t = threadIdx.x - wg * kWG;
+    const int warp = t >> 5, lane = t & 31;
+    const int gid = lane >> 2, tig = lane & 3;
+    const uint32_t qa = base + w * L::Q_BYTES;
+    int it = 0;                      // ring tiles before this item's
+    auto wait_full = [&](int i) {
+      mbar_wait(bar_full + 8 * ((it + i) % kStages),
+                ((it + i) / kStages) & 1);
+    };
+    auto release = [&](int i) {
+      mbar_arrive(bar_empty + 8 * ((it + i) % kStages));
+    };
+    auto kv_base = [&](int i) {
+      return base + L::KV_OFF + ((it + i) % kStages) * 2 * L::KV_BYTES;
+    };
 
-    // scale, mask, online softmax (log2 units) over this tile's 64 keys
-    float mx[2] = {-INFINITY, -INFINITY};
+    for (int k = 0, j; (j = item_of(k)) < p.n_items; ++k) {
+      const Item item(p, j);
+      const Unit u = w ? item.u1 : item.u0;
+      const int row_a = u.q0 + warp * 16 + gid;   // rows of o[4j + 0, 1];
+      const int pos_a = row_a + p.skv - p.sq;     // row_a + 8: o[4j + 2, 3]
+      // the item's tiles this unit sees: [first, last]; others skipped
+      const int n_tiles = item.n_tiles;
+      const int first = u.ok ? u.begin(p) / kBN - item.t_lo : n_tiles;
+      const int last = u.ok ? (u.end(p) - 1) / kBN - item.t_lo : n_tiles - 1;
+
+      mbar_wait(bar_q, k & 1);
+      for (int i = 0; i < first; ++i) {   // before the window: skipped
+        wait_full(i);
+        release(i);
+      }
+      float o[NO];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
+      for (int e = 0; e < NO; ++e) o[e] = 0.f;
+      float m[2] = {kMaskRaw, kMaskRaw};   // raw units
+      float l[2] = {0.f, 0.f};           // this lane's share of row sums
+      if (first <= last) {
+        float s[NS], alpha[2], rs[2];
+        uint32_t pf[kBN / 16][4];
+        wait_full(first);
+        wg_fence();
+        issue_s<D>(s, qa, kv_base(first));
+        wg_wait<0>();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const long long kpos = k0 + j * 8 + tig * 2 + (e & 1);
-        const long long dp = (e < 2 ? pos_a : pos_b) - kpos;
-        const bool ok = dp >= 0 && (window == 0 || dp < window);
-        s[j][e] = kpos >= skv ? -INFINITY
-                              : (ok ? s[j][e] * scale_log2 : kNegInf);
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        for (int e = 0; e < NS; ++e) reg_fence(s[e]);
+        mask_scores<NS>(s, p, u, (item.t_lo + first) * kBN, pos_a, tig);
+        softmax_step<NS>(s, m, alpha, rs, p.scale_log2);
+        l[0] = rs[0];
+        l[1] = rs[1];
+        pack_p<NS>(s, pf);
+        // tile i's scores are formed while tile i - 1's P V runs; its
+        // softmax runs under that product too
+        for (int i = first + 1; i <= last; ++i) {
+          wait_full(i);
+          wg_fence();
+          issue_s<D>(s, qa, kv_base(i));
+          issue_pv<D>(o, pf, kv_base(i - 1) + L::KV_BYTES);
+          wg_wait<1>();
+#pragma unroll
+          for (int e = 0; e < NS; ++e) reg_fence(s[e]);
+          mask_scores<NS>(s, p, u, (item.t_lo + i) * kBN, pos_a, tig);
+          softmax_step<NS>(s, m, alpha, rs, p.scale_log2);
+          wg_wait<0>();
+#pragma unroll
+          for (int e = 0; e < NO; ++e) reg_fence(o[e]);
+#pragma unroll
+          for (int jj = 0; jj < kBN / 16; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) reg_fence_u(pf[jj][e]);
+          release(i - 1);
+#pragma unroll
+          for (int e = 0; e < NO; ++e) o[e] *= alpha[(e >> 1) & 1];
+          l[0] = l[0] * alpha[0] + rs[0];
+          l[1] = l[1] * alpha[1] + rs[1];
+          pack_p<NS>(s, pf);
+        }
+        wg_fence();
+        issue_pv<D>(o, pf, kv_base(last) + L::KV_BYTES);
+        wg_wait<0>();
+#pragma unroll
+        for (int e = 0; e < NO; ++e) reg_fence(o[e]);
+        release(last);
+      }
+      for (int i = last + 1; i < n_tiles; ++i) {   // past the diagonal
+        wait_full(i);
+        release(i);
+      }
+      mbar_arrive(bar_q_empty);       // the next item's Q may come in
+      it += n_tiles;
+
+      if (u.ok) {
+        // the row sums are split over the four lanes of a row
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+          l[h] = 1.f / fmaxf(l[h], 1e-30f);
+        }
+        __nv_bfloat16* ob =
+            p.out + ((size_t)item.bh * p.g + u.g) * (size_t)p.sq * D;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row_a + h * 8;
+          if (row >= p.sq) continue;
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj)
+            *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * D +
+                                               jj * 8 + tig * 2) =
+                __floats2bfloat162_rn(o[4 * jj + 2 * h] * l[h],
+                                      o[4 * jj + 2 * h + 1] * l[h]);
+        }
       }
     }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);
-      alpha[h] = exp2f(m[h] - m_new);
-      m[h] = m_new;
-      l[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int e = 0; e < D / 8; ++e) {
-      o[e][0] *= alpha[0];
-      o[e][1] *= alpha[0];
-      o[e][2] *= alpha[1];
-      o[e][3] *= alpha[1];
-    }
-    uint32_t pf[NT / 2][4];          // P as the A fragments of P V
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float p0 = exp2f(s[j][0] - m[0]), p1 = exp2f(s[j][1] - m[0]);
-      const float p2 = exp2f(s[j][2] - m[1]), p3 = exp2f(s[j][3] - m[1]);
-      l[0] += p0 + p1;
-      l[1] += p2 + p3;
-      pf[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
-      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-
-#pragma unroll
-    for (int t = 0; t < NT / 2; ++t) {       // 16 keys a k-step
-#pragma unroll
-      for (int e = 0; e < D / 8; e += 2) {   // d tiles e and e + 1
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4_trans(b0, b1, b2, b3,
-                          vs + (t * 16 + (lm & 1) * 8 + lr) * LD
-                              + (e + (lm >> 1)) * 8);
-        mma_bf16(o[e], pf[t], b0, b1);
-        mma_bf16(o[e + 1], pf[t], b2, b3);
-      }
-    }
-  }
-
-  // the row sums are split over the four lanes of a row
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    l[h] = 1.f / fmaxf(l[h], 1e-30f);
-  }
-  __nv_bfloat16* ob = out + (size_t)bhg * sq * D;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const long long row = row_a + h * 8;
-    if (row >= sq) continue;
-#pragma unroll
-    for (int e = 0; e < D / 8; ++e)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * D + e * 8
-                                         + tig * 2) =
-          __floats2bfloat162_rn(o[e][h * 2] * l[h], o[e][h * 2 + 1] * l[h]);
   }
 }
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &res);
+#endif
+    return err == cudaSuccess && res == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a (planes, rows, D) bf16 tensor read in boxes of (COLS, box_rows, 1),
+// swizzled as the wgmma descriptors expect; rows past the tensor read as 0
+template <int D>
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, long long planes,
+                       long long rows, int box_rows) {
+  using L = Layout<D>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)L::COLS, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      L::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int bh, int g, int sq, int skv, int window,
+                   cudaStream_t st) {
+  using L = Layout<D>;
+  constexpr int bytes = L::SMEM + 1024;          // + the alignment slack
+  cudaError_t err = set_smem_once<flash_wgmma_kernel<D>>(bytes);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  err = tensor_map<D>(&tq, q, (long long)bh * g, sq, kRows);
+  if (err == cudaSuccess) err = tensor_map<D>(&tk, k, bh, skv, kBN);
+  if (err == cudaSuccess) err = tensor_map<D>(&tv, v, bh, skv, kBN);
+  if (err != cudaSuccess) return err;
+  Params p;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.g = g;
+  p.sq = sq;
+  p.skv = skv;
+  p.window = window;
+  p.n_units = ((sq + kRows - 1) / kRows) * g;
+  p.n_pairs = (p.n_units + 1) / 2;
+  p.bh = bh;
+  p.n_items = p.n_pairs * bh;
+  p.scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  flash_wgmma_kernel<D><<<min(p.n_items, sms), kThreads, bytes, st>>>(
+      tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
+}  // namespace hop
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int bhg, int g, long long sq, long long skv, int window,
+                   int bh, int g, int sq, int skv, int window,
                    cudaStream_t st) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value && D <= 128) {
-    const int bytes = mma_smem_bytes<D>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(bhg, (unsigned)((sq + kBQ - 1) / kBQ));
-    flash_mma_kernel<D><<<grid, kMmaThreads, bytes, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), g, sq, skv, window,
-        (float)(1.4426950408889634 / sqrt((double)D)));   // log2(e) / sqrt(D)
-    return cudaGetLastError();
+    return hop::launch<D>(q, k, v, out, bh, g, sq, skv, window, st);
   } else {
-    const int bytes = smem_floats<D>() * (int)sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+    constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
+    const cudaError_t err = set_smem_once<flash_fwd_kernel<T, D>>(bytes);
     if (err != cudaSuccess) return err;
-    const dim3 grid(bhg, (unsigned)((sq + kBQ - 1) / kBQ));
+    const dim3 grid(bh * g, (unsigned)((sq + kBQ - 1) / kBQ));
     flash_fwd_kernel<T, D><<<grid, kThreads, bytes, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(out), g, sq, skv, window,
@@ -510,33 +912,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 template <typename T>
 cudaError_t by_dim(const void* q, const void* k, const void* v, void* out,
-                   int bhg, int g, long long sq, long long skv, int d,
-                   int window, cudaStream_t st) {
+                   int bh, int g, int sq, int skv, int d, int window,
+                   cudaStream_t st) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, out, bhg, g, sq, skv, window, st);
-    case 64: return launch<T, 64>(q, k, v, out, bhg, g, sq, skv, window, st);
+    case 32: return launch<T, 32>(q, k, v, out, bh, g, sq, skv, window, st);
+    case 64: return launch<T, 64>(q, k, v, out, bh, g, sq, skv, window, st);
     case 128:
-      return launch<T, 128>(q, k, v, out, bhg, g, sq, skv, window, st);
+      return launch<T, 128>(q, k, v, out, bh, g, sq, skv, window, st);
     case 256:
-      return launch<T, 256>(q, k, v, out, bhg, g, sq, skv, window, st);
+      return launch<T, 256>(q, k, v, out, bh, g, sq, skv, window, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype 0: float32, 1: bfloat16; 1 <= sq <= skv
+// dtype 0: float32, 1: bfloat16; 1 <= sq <= skv < 2^31
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int dtype,
                                       int b, int kvh, int g, long long sq,
                                       long long skv, int d, int window,
                                       void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int bhg = b * kvh * g;
+  if (sq < 1 || sq > skv || skv > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)by_dim<float>(q, k, v, out, bhg, g, sq, skv, d, window, st);
+    return (int)by_dim<float>(q, k, v, out, b * kvh, g, (int)sq, (int)skv, d,
+                              window, st);
   if (dtype == 1)
-    return (int)by_dim<__nv_bfloat16>(q, k, v, out, bhg, g, sq, skv, d,
-                                      window, st);
+    return (int)by_dim<__nv_bfloat16>(q, k, v, out, b * kvh, g, (int)sq,
+                                      (int)skv, d, window, st);
   return (int)cudaErrorInvalidValue;
 }

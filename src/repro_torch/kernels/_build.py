@@ -32,7 +32,7 @@ SOURCES = {"scan_filter": "scan_filter.cu", "aggregate": "aggregate.cu",
            "flash_attention": "flash_attention.cu",
            "decode_attention": "decode_attention.cu",
            "ssd_chunk": "ssd_chunk.cu"}
-HEADERS = ("bitweave.cuh", "error.cuh")
+HEADERS = ("bitweave.cuh", "error.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -78,7 +78,9 @@ SIGNATURES = {
         "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL,
                                    _I, _I, _P)},
     "decode_attention": {
-        # (q, k, v, q_pos, kv_pos, part_ml, part_acc, out, dtype, b, kvh, g,
+        # (dtype, b, kvh, g, s, d, plan: four int64 out)
+        "decode_attention_plan": (_I, _I, _I, _I, _LL, _I, _P),
+        # (q, k, v, q_pos, kv_pos, scratch, copied, out, dtype, b, kvh, g,
         #  s, d, n_splits, window, stream)
         "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                     _I, _I, _LL, _I, _I, _I, _P)},
@@ -218,5 +220,26 @@ def check_operand(t: torch.Tensor, what: str, like: torch.Tensor | None = None,
                          f"bytes at a time)")
 
 
+# The current stream's handle by device index, read without building a
+# Stream object: a private call of torch's, kept for its speed on the
+# decode path. Where a torch build lacks it, stream_of falls back to the
+# public torch.cuda.current_stream, which gives the same handle.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(t: torch.Tensor) -> int:
+    """The handle of the current stream of t's device, where kernels
+    launch."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def call_on(t: torch.Tensor, fn, *args) -> int:
+    """fn(*args) with t's device the current one (a kernel launches on the
+    current device); switches device only when it is not."""
+    index = t.get_device()
+    if torch.cuda.current_device() == index:
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)

@@ -3,7 +3,7 @@ through repro_torch.kernels.dispatch (counterpart of
 repro/kernels/decode_attention/ops.py). k/v arrive in the kernel-native
 (B, KVH, S, D) cache layout: nothing of the ring is copied on the decode
 hot path. The reference's `bk` tunable has no counterpart: the CUDA
-kernel picks its ring slices from the card (kernel.n_splits)."""
+kernel library plans its ring slices for the card (kernel.plan)."""
 from __future__ import annotations
 
 import torch

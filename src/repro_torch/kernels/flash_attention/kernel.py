@@ -7,7 +7,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-LAUNCHES = 0   # real CUDA launches (not op calls)
+LAUNCHES = 0   # wrapper calls that launched the kernel (one launch each)
 
 HEAD_DIMS = (32, 64, 128, 256)   # head dims the kernel is instantiated for
 
@@ -42,11 +42,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = _build.load("flash_attention")
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _build.FLOAT_DTYPES[q.dtype], b, kvh, g, sq, skv, d, int(window),
-            _build.stream_of(q))
+    err = _build.call_on(
+        q, lib.flash_attention_launch, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), _build.FLOAT_DTYPES[q.dtype], b, kvh,
+        g, sq, skv, d, int(window), _build.stream_of(q))
     _build.check(lib, err, "flash_attention")
     LAUNCHES += 1
     return out

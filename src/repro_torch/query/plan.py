@@ -8,7 +8,8 @@ and one query aggregates any number of columns over the same selection.
 
 Plans are frozen, hashable dataclasses, so executions can be cached per
 plan shape. (Counterpart of repro/query/plan.py; GroupBy and HashJoin are
-declared here, but the port's engine does not execute them yet.)
+declared here and executed by query/relational.py, on the plain table and
+on the compressed store.)
 """
 from __future__ import annotations
 

@@ -290,7 +290,160 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_launching():
     assert (dec_kernel.LAUNCHES, flash_kernel.LAUNCHES) == before
 
 
-def test_decode_heads_per_block():
-    assert [dec_kernel.heads_per_block(g) for g in (1, 2, 3, 4, 5, 8, 16)] \
-        == [1, 2, 4, 4, 8, 8, 8]
+# --------------------------------------------------------------------------
+# kernel 10's work plan: the library's plan as the wrapper keeps it, the
+# scratch, and the plain version of the plan each block makes on the card
+# against brute force
+# --------------------------------------------------------------------------
 
+class PlanLib:
+    """Stands in for the kernel library's decode_attention_plan: writes a
+    plan of (splits, tile slots, rows, scratch words) that depends on the
+    shape, or returns a CUDA error."""
+
+    def __init__(self, err: int = 0):
+        self.err = err
+        self.asked = []
+
+    def decode_attention_plan(self, dtype, b, kvh, g, s, d, out):
+        self.asked.append((dtype, b, kvh, g, s, d))
+        if self.err:
+            return self.err
+        out[0], out[1], out[2] = 6, 64, b * kvh
+        out[3] = b * kvh * 6 * g * (d + 2) + b * kvh
+        return 0
+
+    def repro_error_string(self, err):
+        return b"invalid argument"
+
+
+def test_decode_plan_is_asked_once_per_device_dtype_and_shape(monkeypatch):
+    monkeypatch.setattr(dec_kernel, "_PLANS", {})
+    lib = PlanLib()
+    key = (0, 1, 8, 8, 2, 8192, 128)
+    want = (6, 64, 64, 64 * 6 * 2 * 130 + 64)
+    assert dec_kernel.plan(lib, key) == want
+    assert dec_kernel.plan(lib, key) == want
+    assert lib.asked == [key[1:]]
+    # another device, dtype or shape is planned anew
+    for other in ((1, 1, 8, 8, 2, 8192, 128), (0, 0, 8, 8, 2, 8192, 128),
+                  (0, 1, 8, 8, 2, 4096, 128)):
+        dec_kernel.plan(lib, other)
+    assert len(lib.asked) == 4
+
+
+def test_decode_plan_error_raises_and_is_not_kept(monkeypatch):
+    monkeypatch.setattr(dec_kernel, "_PLANS", {})
+    lib = PlanLib(err=1)
+    key = (0, 1, 1, 1, 1, 64, 96)
+    with pytest.raises(RuntimeError, match="decode_attention.*CUDA error 1"):
+        dec_kernel.plan(lib, key)
+    assert dec_kernel._PLANS == {}
+
+
+def test_decode_scratch_is_zeroed_once_per_device_stream_and_shape(
+        monkeypatch):
+    monkeypatch.setattr(dec_kernel, "_SCRATCH", {})
+    dev = torch.device("cpu")
+    key = (0, 1, 1, 2, 2, 512, 64)
+    a = dec_kernel._scratch(dev, 7, key, 100, False)
+    assert a.dtype == torch.float32 and a.numel() == 100 and not a.any()
+    assert dec_kernel._scratch(dev, 7, key, 100, False) is a
+    assert dec_kernel._scratch(dev, 8, key, 100, False) is not a
+    assert dec_kernel._scratch(dev, 7, key[:-1] + (32,), 100, False) is not a
+
+
+def test_decode_scratch_under_capture_is_its_own(monkeypatch):
+    """A call being captured in a CUDA graph gets a fresh zeroed scratch,
+    never the eager calls' one, and leaves the eager cache untouched."""
+    monkeypatch.setattr(dec_kernel, "_SCRATCH", {})
+    dev = torch.device("cpu")
+    key = (0, 1, 1, 2, 2, 512, 64)
+    eager = dec_kernel._scratch(dev, 7, key, 100, False)
+    eager.fill_(1.0)
+    a = dec_kernel._scratch(dev, 7, key, 100, True)
+    b = dec_kernel._scratch(dev, 7, key, 100, True)
+    assert a is not eager and b is not a
+    assert a.numel() == 100 and not a.any() and not b.any()
+    assert list(dec_kernel._SCRATCH.values()) == [eager]
+
+
+def brute_plan(kv_pos, q_pos, window, tile, splits):
+    """Per batch row, slot by slot: the valid slots; the tiles from the
+    first valid slot's to the last's (every tile when none is valid) cut
+    into `splits` runs of ceil(span / splits); a split reads the tiles of
+    its run that hold a valid slot (every one when none is valid)."""
+    b, s = kv_pos.shape
+    n_tiles = -(-s // tile)
+    reads = np.zeros((b, splits, n_tiles), bool)
+    anys = np.zeros(b, bool)
+    for i in range(b):
+        valid = [j for j in range(s)
+                 if 0 <= q_pos[i] - kv_pos[i, j]
+                 and (not window or q_pos[i] - kv_pos[i, j] < window)]
+        anys[i] = bool(valid)
+        if valid:
+            lo, hi = valid[0] // tile, valid[-1] // tile
+            need = {j // tile for j in valid}
+        else:
+            lo, hi, need = 0, n_tiles - 1, set(range(n_tiles))
+        per = -(-(hi - lo + 1) // splits)
+        for sp in range(splits):
+            for t in range(lo + sp * per, min(hi + 1, lo + (sp + 1) * per)):
+                reads[i, sp, t] = t in need
+    return reads, anys
+
+
+def plan_rings(rng, s, tile):
+    """Rings of one length S: filled, wrapped, windowed, all masked (an
+    inactive slot: q_pos 0 over INF_POS), valid slots only in the last tile,
+    one valid slot in each of a few scattered tiles, all valid slots inside
+    one split's run. Returns [(label, kv_pos (B, S), q_pos (B,), window)]."""
+    out = []
+    fills = rng.integers(1, s + 1, 4)
+    kv, qp = ring(4, s, list(fills))
+    out.append(("filled", kv, qp, 0))
+    kv, qp = ring(3, s, [0] * 3, [s + 1, 2 * s + 37, 5 * s - 3])
+    out.append(("wrapped", kv, qp, 0))
+    out.append(("wrapped, window across the wrap", kv, qp,
+                int(rng.integers(2, s))))
+    kv, qp = ring(2, s, [0, 0])
+    out.append(("all masked", kv, qp, 0))
+    kv = np.full((2, s), INF_POS, np.int32)
+    kv[:, s - 3:] = np.arange(3)
+    out.append(("only the last tile", kv, np.full(2, 3, np.int32), 0))
+    kv = np.full((2, s), INF_POS, np.int32)
+    slots = np.sort(rng.choice(s, 5, replace=False))
+    kv[:, slots] = np.arange(5)
+    out.append(("scattered single slots", kv, np.full(2, 5, np.int32), 0))
+    kv = np.full((1, s), INF_POS, np.int32)
+    a = int(rng.integers(0, s - tile))
+    kv[0, a:a + tile // 2] = np.arange(tile // 2)
+    out.append(("one split's run", kv, np.array([tile // 2], np.int32), 0))
+    return out
+
+
+@pytest.mark.parametrize("s,tile,splits", [
+    (8192, 32, 6), (1000, 64, 16), (300, 16, 7), (512, 64, 1), (4100, 32, 3),
+    (8192, 64, 6),      # the serving path's plan on an H100
+    (1001, 64, 6),      # an odd ring: a last tile of 41 slots
+    (130, 16, 200),     # more splits than tiles
+    (96, 64, 4),        # two tiles, the second ragged
+    (2048, 64, 33),     # splits that do not divide the tiles
+])
+def test_decode_tile_plan_matches_brute_force(s, tile, splits):
+    rng = np.random.default_rng(s + tile + splits)
+    for label, kv, qp, window in plan_rings(rng, s, tile):
+        reads, anys = dec_kernel.tile_plan(
+            torch.from_numpy(kv), torch.from_numpy(qp), window, tile, splits)
+        want_reads, want_any = brute_plan(kv, qp, window, tile, splits)
+        assert np.array_equal(anys.numpy(), want_any), label
+        assert np.array_equal(reads.numpy(), want_reads), label
+        # each tile a row needs is read by exactly one split; none else
+        dp = qp[:, None].astype(np.int64) - kv
+        ok = (dp >= 0) & ((dp < window) if window else True)
+        n_tiles = -(-s // tile)
+        pad = np.zeros((kv.shape[0], n_tiles * tile), bool)
+        pad[:, :s] = ok
+        need = pad.reshape(-1, n_tiles, tile).any(-1) | ~want_any[:, None]
+        assert np.array_equal(reads.numpy().sum(1), need.astype(int)), label
