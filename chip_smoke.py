@@ -113,12 +113,15 @@ The Mamba-2 serving slice (mamba2-1.3b) adds:
 
 3. parity  — the SSD chunk-scan kernel (kernel 12) against its plain
              version on the card, y and the final state, fp32 and bf16,
-             within SSD_TOL: the shapes of tests/test_kernels_ssd.py, the
-             serving path's (one 4096-token row, 64 heads of 64, state
-             128, chunks of 256), ragged chunks (100, 255, a one-step
-             chunk), inbound states, P {16 .. 128}, N {7 .. 128}; then
-             controls (the decay rate A 2% off, the state dropped at one
-             chunk boundary) that the limit must reject.
+             within SSD_TOL, on both its routes (kernel.route: the tensor
+             cores for bf16 at P <= 64, the CUDA cores otherwise): the
+             shapes of tests/test_kernels_ssd.py, the serving path's (one
+             4096-token row, 64 heads of 64, state 128, chunks of 256), a
+             short prompt's one chunk at those widths (Q 64, 100, 192),
+             ragged chunks (100, 255, a one-step chunk), inbound states,
+             P {16 .. 128}, N {7 .. 128}; then controls (the decay rate A
+             2% off, the state dropped at one chunk boundary) that the
+             limit must reject.
 12. serve mamba2 — the model at its published widths and depth in bf16,
              random weights from a seeded generator on the card;
              ServeEngine(batch_slots=8) answers 16 requests (prompts of
@@ -134,7 +137,11 @@ The Mamba-2 serving slice (mamba2-1.3b) adds:
              spread), then 16 decode steps from each; every block's output
              and the logits within SSD_FLOOR_X times the spread, greedy
              tokens equal where the margin is clear.
-14. ssd times — kernel 12 at the serving path's shape; no library call.
+14. ssd times — kernel 12 at the serving path's shape on its tensor-core
+             route, the bound at the bf16 tensor-core rate (the fp32 CUDA-
+             core bound beside it), device time by kernel from a profiled
+             window, and the CUDA-core route at the same shape in the same
+             call; no library call.
 
 The third-to-last line is one JSON object {"serve": {...}} (the mamba2
 records under "mamba2"), the second-to-last {"kernels": [...]} (twelve
@@ -2275,8 +2282,10 @@ SSD_PATH = (1, 4096, 64, 64, 128, 256)
 # asserts it; the port matches). The serve phase therefore draws its
 # prompt lengths in SERVE_PROMPTS as multiples of the 256-step chunk.
 SSD_PROMPT_MULTIPLE = 256
-SSD_KERNELS = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
-               "ssd_scan_kernel")
+# kernel 12's kernels by name: the tensor-core route's one, then the CUDA-
+# core route's four
+SSD_KERNELS = ("ssd_wgmma_kernel", "ssd_cb_kernel", "ssd_state_kernel",
+               "ssd_pass_kernel", "ssd_scan_kernel")
 
 
 def ssd_inputs(g, b: int, s: int, h: int, p: int, n: int, dtype,
@@ -2322,6 +2331,11 @@ def ssd_cases():
     cases.append(("P 48, a one-step chunk", 1, 16, 3, 48, 64, 1, f32, True))
     cases.append(("P 100, N 7, Q 45", 1, 90, 2, 100, 7, 45, f32, True))
     cases.append(("Q 255", 1, 510, 2, 64, 128, 255, bf16, False))
+    # a short prompt's one chunk at the path's widths, tensor-core route
+    cases.append(("path widths, Q 64: one chunk", 1, 64, 64, 64, 128, 64,
+                  bf16, False))
+    cases.append(("path widths, Q 192: one chunk, inbound state", 1, 192,
+                  64, 64, 128, 192, bf16, True))
     return cases
 
 
@@ -2331,11 +2345,15 @@ def ssd_parity_phase() -> tuple:
     tests' shapes, the serving path's, ragged chunks and inbound states;
     then the controls, which must fail."""
     phase("parity (ssd kernel)")
+    from repro_torch.kernels.ssd_chunk import kernel as sk
     from repro_torch.kernels.ssd_chunk import ops as ssd_ops
     g = torch.Generator(device="cuda").manual_seed(SEED + 20)
     err, worst, bad, n_cases = 0.0, {}, [], 0
+    routes = {}
     t0 = time.perf_counter()
     for label, b, s, h, p, n, q, dt, init in ssd_cases():
+        way = sk.route(dt, p, n)
+        routes[way] = routes.get(way, 0) + 1
         args, h_in = ssd_inputs(g, b, s, h, p, n, dt, init)
         got = ssd_ops.ssd(*args, q, init_state=h_in, mode="cuda")
         want = ssd_ops.ssd(*args, q, init_state=h_in, mode="torch_ref")
@@ -2346,13 +2364,14 @@ def ssd_parity_phase() -> tuple:
             key = f"{what} {str(dt).split('.')[-1]}"
             worst[key] = max(worst.get(key, 0.0), ratio)
             if not ratio <= 1.0:
-                bad.append((label, what, (b, s, h, p, n, q), str(dt), e,
-                            ratio))
+                bad.append((label, way, what, (b, s, h, p, n, q), str(dt),
+                            e, ratio))
         n_cases += 1
         del args, h_in, got, want
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    print(f"ssd parity cases {n_cases} max_abs_err {err}; largest error / "
+    print(f"ssd parity cases {n_cases} (routes {json.dumps(routes)}) "
+          f"max_abs_err {err}; largest error / "
           f"limit {json.dumps(worst)} (limit rel * |plain| + row * row "
           f"rms, (rel, row) {SSD_TOL[torch.float32]} fp32, "
           f"{SSD_TOL[torch.bfloat16]} bf16) in "
@@ -2362,7 +2381,7 @@ def ssd_parity_phase() -> tuple:
             print("MISMATCH", b_, file=sys.stderr)
         fail(f"{len(bad)} ssd parity cases out of tolerance")
     controls = ssd_controls(g)
-    return {"ssd_chunk": err}, {"cases": n_cases,
+    return {"ssd_chunk": err}, {"cases": n_cases, "routes": routes,
                                 "largest_err_over_limit": worst,
                                 "controls": controls}
 
@@ -2432,6 +2451,11 @@ def ssd_serve_phase(dev: dict) -> tuple:
     from repro_torch.models import lm
     from repro_torch.serve.engine import ServeEngine
     cfg = ssd_config()
+    way = sk.route(torch.bfloat16, cfg.ssm_head_dim, cfg.ssm_state)
+    if cfg.dtype != "bfloat16" or way != "wgmma":
+        fail(f"{cfg.name} ({cfg.dtype}, P {cfg.ssm_head_dim}, N "
+             f"{cfg.ssm_state}) would take kernel 12's {way} route, not "
+             f"the tensor-core route")
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2607,14 +2631,17 @@ def ssd_serve_parity_phase(model) -> dict:
 
 def ssd_times(dev: dict, launches: dict, parity_err: dict) -> list:
     """Kernel 12 at the serving path's shape SSD_PATH in bf16, with the
-    zero inbound state the model hands it at a fresh prefill. The bound
-    counts each input read once and each output written once (x, dt,
-    a_log, B, C, h_in; y, h_out) and the flops the function needs on the
-    causal pairs j <= i: C . B^T once a chunk for every head (2 N a pair),
-    and a head and chunk the decayed products with x (2 P a pair) and the
-    two state products (2 Q N P each), at the CUDA cores' float32 rate the
-    kernel computes in. PyTorch has no call for this function: library
-    none."""
+    zero inbound state the model hands it at a fresh prefill, on the route
+    the path takes (the tensor cores), then the CUDA-core route at the same
+    shape (the kernel's first design) in the same call. The bound counts
+    each input read once and each output written once (x, dt, a_log, B, C,
+    h_in; y, h_out) and the flops the function needs on the causal pairs
+    j <= i: C . B^T once a chunk for every head (2 N a pair), and a head
+    and chunk the decayed products with x (2 P a pair) and the two state
+    products (2 Q N P each), at the bf16 tensor-core rate the route uses;
+    the same flops at the CUDA cores' float32 rate are printed beside it.
+    Device time by kernel comes from a profiled window of back-to-back
+    calls. PyTorch has no call for this function: library none."""
     phase("ssd times")
     from repro_torch.kernels.ssd_chunk import kernel as sk
     from repro_torch.kernels.ssd_chunk import ref
@@ -2629,20 +2656,71 @@ def ssd_times(dev: dict, launches: dict, parity_err: dict) -> list:
     nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4
               + a_log.numel() * 4 + 2 * bm.numel() * bm.element_size()
               + 2 * h_in.numel() * 4)
+    way = sk.route(bf16, p, n)
     rec = time_float_kernel(
         "ssd_chunk", lambda: sk.ssd_scan(x, dt, a_log, bm, cm, q, h_in)[0],
         lambda: ref.ssd_chunked_ref(x, dt, a_log, bm, cm, q, h_in)[0], None,
-        nbytes=nbytes, flops=flops, dtype=bf16, dev=dev, rate=CORE_OPS,
+        nbytes=nbytes, flops=flops, dtype=bf16, dev=dev, rate=BF16_OPS,
         tol=SSD_TOL)
-    rec.update({"shape": list(SSD_PATH), "ops_rate": "fp32 CUDA cores",
+    core_bound = max(nbytes / MEM_BPS, flops / CORE_OPS) * 1e3
+    rec.update({"shape": list(SSD_PATH), "path_route": way,
+                "ops_rate": "bf16 tensor cores (wgmma), 989 TFLOP/s",
+                "bound_fp32_cuda_cores_ms": core_bound,
                 "source": "src/repro_torch/csrc/ssd_chunk.cu",
                 "replaces": SSD_REPLACES,
                 "launches": launches["ssd_chunk"],
                 "max_abs_err": max(rec["max_abs_err"],
-                                   parity_err["ssd_chunk"])})
+                                   parity_err["ssd_chunk"]),
+                "split_ms": launch_split(
+                    lambda: sk.ssd_scan(x, dt, a_log, bm, cm, q, h_in),
+                    SSD_KERNELS, dev)})
+    share = rec["bound_ms"] / rec["ms_back_to_back"]
+    print(f"ssd_chunk route {way}: {share:.3f} of its "
+          f"{rec['bound_ms']:.4f} ms bound (bf16 tensor cores: bytes "
+          f"{nbytes / MEM_BPS * 1e3:.4f} ms, operations "
+          f"{flops / BF16_OPS * 1e3:.4f} ms); "
+          f"{core_bound / rec['ms_back_to_back']:.3f} of the fp32 CUDA-core "
+          f"bound {core_bound:.4f} ms", flush=True)
+
+    def core():
+        return sk.ssd_scan(x, dt, a_log, bm, cm, q, h_in, "cuda_core")
+    rec["cuda_core_route"] = {
+        "ms": time_ms(core), "ms_back_to_back": time_ms(core, KERNEL_REPS),
+        "split_ms": launch_split(core, SSD_KERNELS, dev)}
+    print(f"the CUDA-core route at the same shape: "
+          f"{rec['cuda_core_route']['ms']:.4f} ms one call "
+          f"({rec['cuda_core_route']['ms_back_to_back']:.4f} ms back to "
+          f"back) [{dev['smi']}]", flush=True)
     del x, dt, bm, cm, h_in
     torch.cuda.empty_cache()
     return [rec]
+
+
+def launch_split(fn, names, dev: dict) -> dict:
+    """Device time of `fn`'s launches by kernel, over KERNEL_REPS calls back
+    to back under torch.profiler: {kernel name: [ms a launch, launches
+    seen]} (a profiled name is shortened to the first of `names` it
+    holds). The profiler may miss launches, so a launch's time is the
+    mean over those it saw; `fn` launches each kernel once."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(KERNEL_REPS):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.self_cpu_time_total == 0 and e.self_device_time_total > 0:
+            key = next((k for k in names if k in e.key), e.key[:60])
+            us, count = split.get(key, (0.0, 0))
+            split[key] = (us + e.self_device_time_total, count + e.count)
+    split = {k: [us / 1e3 / count, count] for k, (us, count) in split.items()}
+    print(f"per launch (torch.profiler, {KERNEL_REPS} calls back to back), "
+          f"device [ms a launch, launches seen]: {json.dumps(split)}; a "
+          f"call {sum(ms for ms, _ in split.values()):.4f} ms "
+          f"[{dev['smi']}]", flush=True)
+    return split
 
 
 def main() -> None:

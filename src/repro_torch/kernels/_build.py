@@ -85,10 +85,10 @@ SIGNATURES = {
         "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                     _I, _I, _LL, _I, _I, _I, _P)},
     "ssd_chunk": {
-        # (x, dt, a_log, b, c, h_in, cb, states, total, y, h_out, dtype, b,
-        #  s, h, p, n, q, stream)
+        # (x, dt, a_log, b, c, h_in, cb, states, total, y, h_out, dtype,
+        #  route, b, s, h, p, n, q, stream)
         "ssd_chunk_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                             _I, _I, _I, _I, _I, _I, _P)},
+                             _I, _I, _I, _I, _I, _I, _I, _P)},
 }
 # kernel operand dtypes -> the `dtype` code the float kernels take
 FLOAT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
