@@ -17,8 +17,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
              Batched kernels: every width x n_chunks {1, 7, 4096} x n_words
              {1, 131, 2052} and a full 16-bit chunk, ragged validity with an
              empty chunk, the six predicates at a random constant per chunk;
-             the RLE kernels over the six predicates at n_chunks {1, 7, 4096}
-             x n_runs {1, 3, 1001, 4096}, zero-length runs included.
+             the RLE kernels over the six predicates at n_chunks {1, 7, 8,
+             9, 4096} x n_runs {1, 3, 31-33, 127-129, 1001, 1535-1537,
+             4096} (both routes and their edges), zero-length runs
+             included, and on planes one int32 off a 16-byte boundary;
+             the cases each route took are printed, and a route that took
+             none fails.
 4. main    — the query engine's flat path at full size: a 2^30-row table
              {"a": 8, "b": 8, "w": 16, "x": 4} built on the card from a
              seeded torch.Generator, the eleven plan shapes of the engine
@@ -43,8 +47,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
              (batched=False); the store path's kernels' launch counters
              must have moved.
 8. store times / store profile — the batched and RLE kernels at the store
-             path's shapes (and the RLE kernel at its largest legal plane),
-             timed as in 5; the store queries under torch.profiler.
+             path's shapes (and the RLE kernels at the largest legal plane
+             and its run count), timed as in 5, the RLE kernels also split
+             into device ms a launch (torch.profiler) and the host's µs a
+             call (HOST_CALLS calls enqueued with no synchronise); the
+             store queries under torch.profiler.
 
 The grouped slice (GroupBy / HashJoin) adds to these phases:
 
@@ -362,7 +369,14 @@ def parity_phase() -> dict:
 
 
 BATCHED_SHAPES = ((1, 1), (7, 131), (4096, 2052))
-RLE_CHUNKS, RLE_RUNS = (1, 7, 4096), (1, 3, 1001, 4096)
+# run counts at the RLE routes' edges (kernel.warp_limit: 128 runs at
+# 1-9 chunks, 1536 at 4096) and a lane's stride (31-33)
+RLE_CHUNKS = (1, 7, 8, 9, 4096)
+RLE_RUNS = (1, 3, 31, 32, 33, 127, 128, 129, 1001, 1535, 1536, 1537, 4096)
+# (n_chunks, n_runs) of the unaligned case: planes one int32 past a 16-byte
+# boundary, run counts that would take 16-byte loads if aligned
+RLE_UNALIGNED = ((1, 128), (1, 4096), (9, 32), (4096, 4), (4096, 1536),
+                 (7, 4096))
 
 
 def ragged_valid(n_chunks: int, n_words: int, bits: int,
@@ -383,6 +397,7 @@ def batched_parity_phase() -> dict:
     phase("parity (batched and RLE kernels)")
     from repro_torch.kernels.aggregate import ops as agg_ops
     from repro_torch.kernels.scan_aggregate import ops as fused_ops
+    from repro_torch.kernels.scan_compressed import kernel as rle_k
     from repro_torch.kernels.scan_compressed import ops as rle_ops
     from repro_torch.kernels.scan_filter.ops import canonical_pred
     from repro_torch.kernels.scan_filter.ref import OPS, field_masks
@@ -392,14 +407,17 @@ def batched_parity_phase() -> dict:
              "rle_scan_aggregate", "rle_scan_aggregate_batched")
     err = dict.fromkeys(names, 0)
     cases = dict.fromkeys(names, 0)
+    routes = {name: dict.fromkeys(rle_k.ROUTES, 0) for name in names[2:]}
     bad = []
 
-    def check(name, k, r, *what):
+    def check(name, k, r, *what, shape=None):
         e = int((k.long() - r.long()).abs().max()) if k.numel() else 0
         if k.shape != r.shape:
             e = max(e, 1)
         err[name] = max(err[name], e)
         cases[name] += 1
+        if shape is not None:          # an RLE case: the route it took
+            routes[name][rle_k.route(*shape)] += 1
         if e:
             bad.append((name, *what))
 
@@ -454,7 +472,8 @@ def batched_parity_phase() -> dict:
                               planes, c, op, bits, mode="cuda"),
                           rle_ops.rle_scan_aggregate_batched(
                               planes, c, op, bits, mode="torch_ref"),
-                          n_chunks, n_runs, bits, op)
+                          n_chunks, n_runs, bits, op,
+                          shape=(n_chunks, n_runs))
                     if n_chunks == 1:
                         v, n = planes[0]
                         check("rle_scan_aggregate",
@@ -462,7 +481,31 @@ def batched_parity_phase() -> dict:
                                   v, n, c, op, bits, mode="cuda").row,
                               rle_ops.rle_scan_aggregate(
                                   v, n, c, op, bits, mode="torch_ref").row,
-                              n_runs, bits, op)
+                              n_runs, bits, op, shape=(1, n_runs))
+    # planes one int32 past a 16-byte boundary: no 16-byte loads, the
+    # scalar tail reads every run
+    for n_chunks, n_runs in RLE_UNALIGNED:
+        v, n = (torch.randint(0, hi, (n_chunks * n_runs + 1,),
+                              device="cuda", dtype=torch.int32,
+                              generator=g)[1:].view(n_chunks, n_runs)
+                for hi in (128, 17))
+        if v.data_ptr() % 16 != 4 or n.data_ptr() % 16 != 4:
+            bad.append(("unaligned view is aligned", n_chunks, n_runs))
+        for op in OPS:
+            check("rle_scan_aggregate_batched",
+                  rle_ops.rle_scan_aggregate_stacked(v, n, 60, op, 8,
+                                                     mode="cuda"),
+                  rle_ops.rle_scan_aggregate_stacked(v, n, 60, op, 8,
+                                                     mode="torch_ref"),
+                  "unaligned", n_chunks, n_runs, op,
+                  shape=(n_chunks, n_runs))
+            if n_chunks == 1:
+                check("rle_scan_aggregate",
+                      rle_ops.rle_scan_aggregate(v[0], n[0], 60, op, 8,
+                                                 mode="cuda").row,
+                      rle_ops.rle_scan_aggregate(v[0], n[0], 60, op, 8,
+                                                 mode="torch_ref").row,
+                      "unaligned", n_runs, op, shape=(1, n_runs))
     # a full chunk of the 16-bit payload max as one run: the sum grazes 2^31
     v = torch.full((2, 1), 32767, dtype=torch.int32, device="cuda")
     n = torch.full((2, 1), 65536, dtype=torch.int32, device="cuda")
@@ -476,6 +519,10 @@ def batched_parity_phase() -> dict:
     torch.cuda.synchronize()
     print(f"batched parity cases {cases} max_abs_err {err} "
           f"in {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"RLE cases by route (kernel.route): {routes}", flush=True)
+    for name, by_route in routes.items():
+        if not all(by_route.values()):
+            bad.append((name, "a route took no case", by_route))
     if bad:
         for b in bad[:20]:
             print("MISMATCH", b, file=sys.stderr)
@@ -888,8 +935,10 @@ def store_phase(table, encoded, encode_s: float) -> dict:
 
 def store_times_phase(encoded, dev: dict, launches: dict,
                       parity_err: dict) -> list:
-    """Kernels 4-7 at the store path's shapes, and the batched RLE kernel
-    at its largest legal plane (4096 chunks x 4096 runs)."""
+    """Kernels 4-7 at the store path's shapes, the batched RLE kernel at
+    its largest legal plane (4096 chunks x 4096 runs) and the single-chunk
+    one at its run count; the RLE kernels split into device and host time
+    (rle_split), and their other route timed at each shape."""
     phase("store times")
     from repro_torch.kernels.aggregate import ref as agg_ref
     from repro_torch.kernels.scan_aggregate import ref as fused_ref
@@ -946,16 +995,16 @@ def store_times_phase(encoded, dev: dict, launches: dict,
             "src/repro/kernels/scan_aggregate/kernel.py:192",
             "scan_aggregate.cu"),
         "rle_scan_aggregate": (
-            lambda: rle_k.rle_scan_aggregate_packed(
-                v0, l0, constant=4, op="lt", code_bits=8),
+            lambda way=None: rle_k.rle_scan_aggregate_packed(
+                v0, l0, constant=4, op="lt", code_bits=8, way=way),
             lambda: rle_ref.rle_scan_aggregate_ref(v0, l0, 4, "lt", 8).row,
             8 * v0.numel() + 20, 7 * v0.numel(), (1, v0.numel()),
             "r chunk 0 (rle_fused_self_agg, batched=False)",
             "src/repro/kernels/scan_compressed/kernel.py:165",
             "scan_compressed.cu"),
         "rle_scan_aggregate_batched": (
-            lambda: rle_k.rle_scan_aggregate_batched_packed(
-                rv, rl, constant=4, op="lt", code_bits=8),
+            lambda way=None: rle_k.rle_scan_aggregate_batched_packed(
+                rv, rl, constant=4, op="lt", code_bits=8, way=way),
             lambda: rle_ref.rle_scan_aggregate_batched_ref(rv, rl, 4, "lt",
                                                            8),
             8 * rv.numel() + 20 * n, 7 * rv.numel(), tuple(rv.shape),
@@ -973,19 +1022,86 @@ def store_times_phase(encoded, dev: dict, launches: dict,
                     "max_abs_err": max(rec["max_abs_err"],
                                        parity_err[name]),
                     "shape": list(shape)})
+        if src == "scan_compressed.cu":
+            rec.update(rle_split(kern, shape, dev))
         out.append(rec)
+    keys = ("ms", "ms_back_to_back", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")
+    # kernel 6 at the run count of the largest legal plane: row 0 of it
+    v1, l1 = bv[0], bl[0]
+    print(f"  rle_scan_aggregate at [1, {v1.numel()}]: row 0 of the largest "
+          f"legal plane")
+
+    def single(way=None):
+        return rle_k.rle_scan_aggregate_packed(v1, l1, constant=60, op="lt",
+                                               code_bits=8, way=way)
+    one = time_kernel(
+        "rle_scan_aggregate", single,
+        lambda: rle_ref.rle_scan_aggregate_ref(v1, l1, 60, "lt", 8).row,
+        8 * v1.numel() + 20, 7 * v1.numel(), dev)
+    out[-2]["largest_run_count"] = {
+        "shape": [1, v1.numel()], **{k: one[k] for k in keys},
+        **rle_split(single, (1, v1.numel()), dev)}
     print(f"  rle_scan_aggregate_batched at [{n}, 4096]: the largest legal "
           f"plane")
+
+    def batched(way=None):
+        return rle_k.rle_scan_aggregate_batched_packed(
+            bv, bl, constant=60, op="lt", code_bits=8, way=way)
     big = time_kernel(
-        "rle_scan_aggregate_batched",
-        lambda: rle_k.rle_scan_aggregate_batched_packed(
-            bv, bl, constant=60, op="lt", code_bits=8),
+        "rle_scan_aggregate_batched", batched,
         lambda: rle_ref.rle_scan_aggregate_batched_ref(bv, bl, 60, "lt", 8),
         8 * bv.numel() + 20 * n, 7 * bv.numel(), dev)
-    out[-1]["largest_plane"] = {k: big[k] for k in (
-        "ms", "ms_back_to_back", "plain_ms", "bound_ms", "bound_by",
-        "max_abs_err")}
+    out[-1]["largest_plane"] = {k: big[k] for k in keys}
+    out[-1]["largest_plane"].update(rle_split(batched, tuple(bv.shape), dev))
     return out
+
+
+HOST_CALLS = 1000     # wrapper calls a host-time sample enqueues
+
+
+def host_us(fn) -> float:
+    """The host's enqueue cost of `fn` in µs a call: a perf_counter
+    interval over HOST_CALLS calls made back to back with no synchronise
+    (inputs drawn once, after warm-up), over HOST_CALLS; one
+    torch.cuda.synchronize() ends the run, outside the interval. Where the
+    card takes longer a launch than the host does, the launch queue fills
+    and the reading approaches the card's time instead."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / HOST_CALLS * 1e6
+
+
+def rle_split(call, shape, dev: dict) -> dict:
+    """Kernels 6-7 at `shape` (n_chunks, n_runs), `call(way)` one wrapper
+    call on route `way` (None: kernel.route's): the route the path takes,
+    its device ms a launch (launch_split) and host µs a call (host_us);
+    then the other route at the same shape, its output equal to the
+    path's, back to back and device ms a launch."""
+    from repro_torch.kernels.scan_compressed import kernel as rle_k
+    way = rle_k.route(*shape)
+    other = next(r for r in rle_k.ROUTES if r != way)
+    names = ("rle_scan_aggregate_kernel",)
+    split = launch_split(call, names, dev)
+    us = host_us(call)
+    print(f"    route {way}: host {us:.3f} us a call ({HOST_CALLS} calls "
+          f"enqueued, no synchronise) [{dev['smi']}]", flush=True)
+    if not torch.equal(call(other), call()):
+        fail(f"RLE routes {way} and {other} differ at {list(shape)}")
+    alt = {"route": other,
+           "ms_back_to_back": time_ms(lambda: call(other), KERNEL_REPS),
+           "split_ms": launch_split(lambda: call(other), names, dev)}
+    print(f"    the {other} route at the same shape: "
+          f"{alt['ms_back_to_back']:.4f} ms back to back [{dev['smi']}]",
+          flush=True)
+    return {"path_route": way, "split_ms": split, "host_us_per_call": us,
+            "other_route": alt}
 
 
 # --------------------------------------------------------------------------

@@ -59,12 +59,13 @@ SIGNATURES = {
         "scan_aggregate_batched_launch": (_P, _P, _P, _P, _P, _P, _LL, _LL,
                                           _I, _P)},
     "scan_compressed": {
-        # (values, lengths, out, n_runs, constant, op, code_bits, stream)
-        "rle_scan_aggregate_launch": (_P, _P, _P, _LL, _I, _I, _I, _P),
-        # (values, lengths, out, n_chunks, n_runs, constant, op, code_bits,
+        # (values, lengths, out, n_runs, constant, op, code_bits, route,
         #  stream)
+        "rle_scan_aggregate_launch": (_P, _P, _P, _LL, _I, _I, _I, _I, _P),
+        # (values, lengths, out, n_chunks, n_runs, constant, op, code_bits,
+        #  route, stream)
         "rle_scan_aggregate_batched_launch": (_P, _P, _P, _LL, _LL, _I, _I,
-                                              _I, _P)},
+                                              _I, _I, _P)},
     "group_aggregate": {
         # (keys, vals, sel, group_keys, scratch, out, n_chunks, per_chunk,
         #  n_groups, stream)
