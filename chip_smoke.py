@@ -631,10 +631,16 @@ def main_phase(table) -> dict:
     return launches
 
 
+# device kernels of the two-route RLE wrappers, by the names nvcc gave them
+RLE_SCAN_KERNELS = ("rle_scan_aggregate_kernel",)
+RLE_GROUP_KERNELS = ("rle_group_accumulate_kernel",
+                     "rle_group_accumulate_warp_kernel")
+
+
 # device kernels of the port, by the names nvcc gave them
 PORT_KERNELS = ("scan_kernel", "aggregate_kernel", "aggregate_batched_kernel",
                 "rle_scan_aggregate_kernel", "group_sum_count_kernel",
-                "group_finalize_kernel", "rle_group_accumulate_kernel")
+                "group_finalize_kernel", *RLE_GROUP_KERNELS)
 
 
 def profile_phase(table, shapes, label: str) -> None:
@@ -938,7 +944,7 @@ def store_times_phase(encoded, dev: dict, launches: dict,
     """Kernels 4-7 at the store path's shapes, the batched RLE kernel at
     its largest legal plane (4096 chunks x 4096 runs) and the single-chunk
     one at its run count; the RLE kernels split into device and host time
-    (rle_split), and their other route timed at each shape."""
+    (route_split), and their other route timed at each shape."""
     phase("store times")
     from repro_torch.kernels.aggregate import ref as agg_ref
     from repro_torch.kernels.scan_aggregate import ref as fused_ref
@@ -1023,7 +1029,8 @@ def store_times_phase(encoded, dev: dict, launches: dict,
                                        parity_err[name]),
                     "shape": list(shape)})
         if src == "scan_compressed.cu":
-            rec.update(rle_split(kern, shape, dev))
+            rec.update(route_split(kern, shape, rle_k, RLE_SCAN_KERNELS,
+                                   dev))
         out.append(rec)
     keys = ("ms", "ms_back_to_back", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
@@ -1041,7 +1048,8 @@ def store_times_phase(encoded, dev: dict, launches: dict,
         8 * v1.numel() + 20, 7 * v1.numel(), dev)
     out[-2]["largest_run_count"] = {
         "shape": [1, v1.numel()], **{k: one[k] for k in keys},
-        **rle_split(single, (1, v1.numel()), dev)}
+        **route_split(single, (1, v1.numel()), rle_k, RLE_SCAN_KERNELS,
+                      dev)}
     print(f"  rle_scan_aggregate_batched at [{n}, 4096]: the largest legal "
           f"plane")
 
@@ -1053,7 +1061,8 @@ def store_times_phase(encoded, dev: dict, launches: dict,
         lambda: rle_ref.rle_scan_aggregate_batched_ref(bv, bl, 60, "lt", 8),
         8 * bv.numel() + 20 * n, 7 * bv.numel(), dev)
     out[-1]["largest_plane"] = {k: big[k] for k in keys}
-    out[-1]["largest_plane"].update(rle_split(batched, tuple(bv.shape), dev))
+    out[-1]["largest_plane"].update(route_split(
+        batched, tuple(bv.shape), rle_k, RLE_SCAN_KERNELS, dev))
     return out
 
 
@@ -1078,22 +1087,23 @@ def host_us(fn) -> float:
     return dt / HOST_CALLS * 1e6
 
 
-def rle_split(call, shape, dev: dict) -> dict:
-    """Kernels 6-7 at `shape` (n_chunks, n_runs), `call(way)` one wrapper
-    call on route `way` (None: kernel.route's): the route the path takes,
-    its device ms a launch (launch_split) and host µs a call (host_us);
-    then the other route at the same shape, its output equal to the
-    path's, back to back and device ms a launch."""
-    from repro_torch.kernels.scan_compressed import kernel as rle_k
-    way = rle_k.route(*shape)
-    other = next(r for r in rle_k.ROUTES if r != way)
-    names = ("rle_scan_aggregate_kernel",)
+def route_split(call, shape, kernel, names, dev: dict) -> dict:
+    """A two-route kernel (6-7 or 9) at `shape`, the arguments of its
+    wrapper module `kernel`'s route() ((n_chunks, n_runs), and G for
+    kernel 9), `call(way)` one wrapper call on route `way` (None:
+    kernel.route's), `names` its device kernels: the route the path
+    takes, its device ms a launch (launch_split) and host µs a call
+    (host_us); then the other route of kernel.ROUTES at the same shape,
+    its output equal to the path's, back to back and device ms a
+    launch."""
+    way = kernel.route(*shape)
+    other = next(r for r in kernel.ROUTES if r != way)
     split = launch_split(call, names, dev)
     us = host_us(call)
     print(f"    route {way}: host {us:.3f} us a call ({HOST_CALLS} calls "
           f"enqueued, no synchronise) [{dev['smi']}]", flush=True)
     if not torch.equal(call(other), call()):
-        fail(f"RLE routes {way} and {other} differ at {list(shape)}")
+        fail(f"routes {way} and {other} differ at {list(shape)}")
     alt = {"route": other,
            "ms_back_to_back": time_ms(lambda: call(other), KERNEL_REPS),
            "split_ms": launch_split(lambda: call(other), names, dev)}
@@ -1111,6 +1121,10 @@ def rle_split(call, shape, dev: dict) -> dict:
 GROUP_SHAPES = ((1, 1), (7, 131), (4096, 512))   # (n_chunks, rows of 128)
 GROUP_SIZES = (1, 8, 100, 1024)
 GROUP_RUN_CHUNKS, GROUP_RUNS = (1, 7, 4096), (1, 3, 1001, 4096)
+# kernel 9's route edges: run counts around kernel.warp_limit at these
+# chunk counts and G; and run planes one int32 off a 16-byte boundary
+GROUP_EDGE_CHUNKS, GROUP_EDGE_SIZES = (7, 1056, 1057, 4096), (1, 8, 128, 1024)
+GROUP_UNALIGNED = ((1, 4), (7, 1000), (4096, 4), (9, 4096))
 RUN_PREDS = (None, ("ge", 60, False), ("ge", 60, True), ("eq", 7, False),
              ("eq", 7, True))
 GROUP_REPLACES = "src/repro/kernels/group_aggregate/kernel.py:124"
@@ -1148,8 +1162,10 @@ def group_planes(n_chunks: int, rows: int, kmax: int, g: torch.Generator):
 
 
 def group_parity_phase() -> dict:
-    """Kernels 8-9 against their plain versions, bit for bit."""
+    """Kernels 8-9 against their plain versions, bit for bit; each kernel
+    9 case on the route the op takes and again on the other route."""
     phase("parity (grouped kernels)")
+    from repro_torch.kernels.group_aggregate import kernel as gkern
     from repro_torch.kernels.group_aggregate import ops as gops
     from repro_torch.kernels.scan_compressed.ops import stack_runs
 
@@ -1159,14 +1175,42 @@ def group_parity_phase() -> dict:
     cases = dict.fromkeys(names, 0)
     bad = []
 
-    def check(name, k, r, *what):
+    routes = dict.fromkeys(gkern.ROUTES, 0)
+
+    def check(name, k, r, *what, count=True):
         e = int((k.long() - r.long()).abs().max()) if k.numel() else 0
         if k.shape != r.shape:
             e = max(e, 1)
         err[name] = max(err[name], e)
-        cases[name] += 1
+        cases[name] += count
         if e:
             bad.append((name, *what))
+
+    def rle(v2, l2, keys, pred, *what):
+        """One run-plane case through the op (on kernel.route's route)
+        and through the wrapper on the other route."""
+        want = gops.rle_group_accumulate_stacked(v2, l2, keys, pred=pred,
+                                                 mode="torch_ref")
+        check("rle_group_accumulate_batched",
+              gops.rle_group_accumulate_stacked(v2, l2, keys, pred=pred,
+                                                mode="cuda"),
+              want, *what)
+        way = gkern.route(*v2.shape, len(keys))
+        routes[way] += 1
+        other = next(r for r in gkern.ROUTES if r != way)
+        check("rle_group_accumulate_batched",
+              gkern.rle_group_accumulate_batched_planes(
+                  v2, l2, keys.to(torch.int32), pred=pred, way=other),
+              want, *what, other, count=False)
+
+    def runs(n_chunks, n_runs, vmax, offset=0):
+        """Random (n_chunks, n_runs) run planes, values below vmax and
+        lengths in [0, 16]; with offset 1, views one int32 into their
+        buffers."""
+        return [torch.randint(0, hi, (n_chunks * n_runs + offset,),
+                              device="cuda", dtype=torch.int32,
+                              generator=g)[offset:].view(n_chunks, n_runs)
+                for hi in (vmax, 17)]
 
     def dense(k, v, s, gk, *what):
         out = gops.group_sum_count_batched(k, v, s, gk, mode="cuda")
@@ -1213,28 +1257,45 @@ def group_parity_phase() -> dict:
                                       generator=g)[:100].sort().values,
                        torch.arange(1024, device="cuda")):
                 for pred in RUN_PREDS:
-                    check("rle_group_accumulate_batched",
-                          gops.rle_group_accumulate_stacked(
-                              v2, l2, gk, pred=pred, mode="cuda"),
-                          gops.rle_group_accumulate_stacked(
-                              v2, l2, gk, pred=pred, mode="torch_ref"),
-                          n_chunks, n_runs, len(gk), pred)
+                    rle(v2, l2, gk, pred, n_chunks, n_runs, len(gk))
+    # run counts at the route threshold - 1, at it and past it
+    for n_chunks in GROUP_EDGE_CHUNKS:
+        for n_groups in GROUP_EDGE_SIZES:
+            limit = gkern.warp_limit(n_chunks, n_groups)
+            for i, n_runs in enumerate((limit - 1, limit, limit + 1)):
+                if n_runs < 1:      # no warp route at this G: runs 1 only
+                    continue
+                gk, kmax = group_keys(n_groups, i == 1, g)
+                rle(*runs(n_chunks, n_runs, kmax), gk, RUN_PREDS[i],
+                    "edge", n_chunks, n_runs, n_groups)
+    for n_chunks, n_runs in GROUP_UNALIGNED:
+        for n_groups, join in ((8, False), (100, True)):
+            gk, kmax = group_keys(n_groups, join, g)
+            rle(*runs(n_chunks, n_runs, kmax, offset=1), gk, RUN_PREDS[3],
+                "unaligned", n_chunks, n_runs, n_groups)
     # one run of 65536 rows of 65535: the reference's int32 sum wraps
     v = torch.full((1, 1), 65535, dtype=torch.int32, device="cuda")
     n = torch.full((1, 1), 65536, dtype=torch.int32, device="cuda")
-    for mode in ("cuda", "torch_ref"):
-        got = gops.rle_group_accumulate_stacked(
-            v, n, torch.full((1,), 65535, device="cuda"), mode=mode).tolist()
-        if got != [[[0, -1, 65536]]]:
-            bad.append(("rle wrap", mode, got))
+    key = torch.full((1,), 65535, dtype=torch.int32, device="cuda")
+    for mode in ("cuda", "torch_ref", *gkern.ROUTES):
+        got = (gops.rle_group_accumulate_stacked(v, n, key, mode=mode)
+               if mode in ("cuda", "torch_ref") else
+               gkern.rle_group_accumulate_batched_planes(v, n, key, way=mode))
+        if got.tolist() != [[[0, -1, 65536]]]:
+            bad.append(("rle wrap", mode, got.tolist()))
     cases["rle_group_accumulate_batched"] += 1
     torch.cuda.synchronize()
     print(f"grouped parity cases {cases} max_abs_err {err} "
-          f"in {time.perf_counter() - t0:.3f} s", flush=True)
+          f"in {time.perf_counter() - t0:.3f} s; kernel 9 cases by the "
+          f"route the op took {routes}, each also on the other route",
+          flush=True)
     if bad:
         for b in bad[:20]:
             print("MISMATCH", b, file=sys.stderr)
         fail(f"{len(bad)} grouped kernel/plain mismatches")
+    idle = [r for r, c in routes.items() if not c]
+    if idle:
+        fail(f"kernel 9's routes {idle} took no parity case")
     return err
 
 
@@ -1395,7 +1456,8 @@ def group_times_main(table, dev: dict) -> dict:
 def group_times_store(encoded, dev: dict) -> tuple[dict, dict]:
     """Kernel 8 at the store's shape (r over u, 4096 x 512 x 128, G = 8),
     kernel 9 at r's run planes (G = 8) and at 4096 x 4096 random runs
-    (G = 128)."""
+    (G = 128), each of kernel 9's split into device and host time on its
+    route, and its other route timed at each shape (route_split)."""
     phase("grouped times (store)")
     from repro_torch.kernels.group_aggregate import kernel as gk
     from repro_torch.kernels.group_aggregate import ref as gref
@@ -1422,12 +1484,16 @@ def group_times_store(encoded, dev: dict) -> tuple[dict, dict]:
     rv, rl = _run_planes_cached(encoded.columns["r"], cids)
     print(f"  rle_group_accumulate_batched at {list(rv.shape)}, G = 8: r's "
           f"run planes (rle_count_only)")
+
+    def small(way=None):
+        return gk.rle_group_accumulate_batched_planes(rv, rl, d8, way=way)
     rle = time_kernel(
-        "rle_group_accumulate_batched",
-        lambda: gk.rle_group_accumulate_batched_planes(rv, rl, d8),
+        "rle_group_accumulate_batched", small,
         lambda: gref.rle_group_accumulate_batched_ref(rv, rl, d8),
         8 * rv.numel() + 12 * 8 * n, 6 * rv.numel(), dev)
     rle["shape"] = list(rv.shape) + [8]
+    rle.update(route_split(small, (*rv.shape, 8), gk, RLE_GROUP_KERNELS,
+                           dev))
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     bv = torch.randint(0, 128, (n, 4096), device="cuda", dtype=torch.int32,
                        generator=g)
@@ -1436,14 +1502,18 @@ def group_times_store(encoded, dev: dict) -> tuple[dict, dict]:
     d128 = torch.arange(128, dtype=torch.int32, device="cuda")
     print(f"  rle_group_accumulate_batched at [{n}, 4096], G = 128: random "
           f"runs")
+
+    def large(way=None):
+        return gk.rle_group_accumulate_batched_planes(bv, bl, d128, way=way)
     big = time_kernel(
-        "rle_group_accumulate_batched",
-        lambda: gk.rle_group_accumulate_batched_planes(bv, bl, d128),
+        "rle_group_accumulate_batched", large,
         lambda: gref.rle_group_accumulate_batched_ref(bv, bl, d128),
         8 * bv.numel() + 12 * 128 * n, 6 * bv.numel(), dev)
     rle["largest_plane"] = {k: big[k] for k in (
         "ms", "ms_back_to_back", "plain_ms", "bound_ms", "bound_by",
         "max_abs_err")}
+    rle["largest_plane"].update(route_split(
+        large, (*bv.shape, 128), gk, RLE_GROUP_KERNELS, dev))
     return dense, rle
 
 

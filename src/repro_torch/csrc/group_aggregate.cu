@@ -30,12 +30,28 @@
 // lengths plus the same keys in, the same planes out; run (v, n) with n > 0
 // that passes an optional (ge | eq, const, invert) predicate on v adds n to
 // group v's count and n * v to its sum. Bound: memory, 8 bytes a run; a
-// sorted column has so few runs that a launch is bound by its latency.
-// Design: one block per chunk, the same shared keys and warp
-// sub-histograms. Sums and counts are taken modulo 2^32 in unsigned
+// sorted column has so few runs that a launch is bound by its latency and
+// by writing its G output rows a chunk. Two routes, chosen by the caller
+// (kernels/group_aggregate/kernel.py::route) from the chunk and run counts
+// and G:
+// - block: one 256-thread block per chunk, the same shared keys and warp
+//   sub-histograms as the dense kernel, folded across the eight warps
+//   after a __syncthreads. For long chunks, whose runs fill the block.
+// - warp: one warp per chunk, eight chunks a block (a block of
+//   32 * n_chunks threads below eight). Each warp zeroes, fills and writes
+//   its own sub-histogram, synchronising with __syncwarp only, reads the
+//   keys through the read-only data path (a contiguous domain needs only
+//   the first and last key) and writes the chunk's 3G output words in
+//   order. For short chunks, where a block would idle most of its threads
+//   and zero and fold eight sub-histograms for a few runs.
+// Both read the runs with 16-byte loads where the row stride allows them,
+// then a scalar tail. Sums and counts are taken modulo 2^32 in unsigned
 // arithmetic, as the reference's int32 sums wrap (signed overflow is
-// undefined in C++), and the sum is split as the reference splits its
-// int32: lo = s & 0xFFFF, hi = s >> 16 arithmetic.
+// undefined in C++), so the order of the adds does not change a bit, and
+// the sum is split as the reference splits its int32: lo = s & 0xFFFF,
+// hi = s >> 16 arithmetic.
+#include <atomic>
+
 #include "bitweave.cuh"
 
 using namespace bitweave;
@@ -49,6 +65,8 @@ constexpr int kMaxGroups = 1024;
 constexpr long long kBlockRowsMax = (long long)kThreads * 2048;
 constexpr long long kBlockRowsMin = 4096;  // below this, fewer blocks
 constexpr int kGroupBlocksPerSM = 8;
+// route codes of the RLE entry (kernel.py ROUTES is indexed by them)
+enum Route { kBlock = 0, kWarp = 1 };
 
 // The sorted group keys in shared memory and how to find a key's slot.
 struct Groups {
@@ -75,8 +93,17 @@ __device__ __forceinline__ Groups setup(const int32_t* __restrict__ gkeys,
   return Groups{keys, g, keys[0], contiguous};
 }
 
+// Key i of the sorted keys: from shared memory, or with kLdg from device
+// memory through the read-only data path.
+template <bool kLdg>
+__device__ __forceinline__ int32_t key_at(const Groups& gr, int i) {
+  if constexpr (kLdg) return __ldg(gr.keys + i);
+  else return gr.keys[i];
+}
+
 // Slot of key k (the index of the first key >= k, as searchsorted), or -1
 // when k is no key.
+template <bool kLdg = false>
 __device__ __forceinline__ int slot_of(int32_t k, const Groups& gr) {
   if (gr.contiguous) {
     const uint32_t d = (uint32_t)k - (uint32_t)gr.k0;
@@ -85,9 +112,9 @@ __device__ __forceinline__ int slot_of(int32_t k, const Groups& gr) {
   int lo = 0, hi = gr.g;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (gr.keys[mid] < k) lo = mid + 1; else hi = mid;
+    if (key_at<kLdg>(gr, mid) < k) lo = mid + 1; else hi = mid;
   }
-  return (lo < gr.g && gr.keys[lo] == k) ? lo : -1;
+  return (lo < gr.g && key_at<kLdg>(gr, lo) == k) ? lo : -1;
 }
 
 __device__ __forceinline__ void add_row(int32_t k, int32_t v, int32_t s,
@@ -116,16 +143,69 @@ struct RunPred {
   bool invert;
 };
 
+template <bool kLdg>
 __device__ __forceinline__ void add_run(int32_t v, int32_t n,
                                         const RunPred& p, const Groups& gr,
                                         uint32_t* wsum, uint32_t* wcnt) {
   if (n <= 0) return;
   if (p.on && ((p.eq ? v == p.c : v >= p.c) == p.invert)) return;
-  const int j = slot_of(v, gr);
+  const int j = slot_of<kLdg>(v, gr);
   if (j < 0) return;
   atomicAdd(&wsum[j], (uint32_t)n * (uint32_t)v);
   atomicAdd(&wcnt[j], (uint32_t)n);
 }
+
+// Add runs first, first + stride, ... of one chunk's (n_runs,) planes into
+// one sub-histogram: with `vec`, the 16-byte body by int4 (thread t takes
+// int4s t, t + stride, ...) and then the scalar tail past it; without, all
+// scalar.
+template <bool kLdg>
+__device__ __forceinline__ void add_runs(const int32_t* v, const int32_t* l,
+                                         long long n_runs, int first,
+                                         int stride, bool vec,
+                                         const RunPred& p, const Groups& gr,
+                                         uint32_t* wsum, uint32_t* wcnt) {
+  long long head = 0;
+  if (vec) {
+    const long long n4 = n_runs / 4;
+    const int4* v4 = reinterpret_cast<const int4*>(v);
+    const int4* l4 = reinterpret_cast<const int4*>(l);
+    for (long long i = first; i < n4; i += stride) {
+      const int4 a = __ldcs(&v4[i]);
+      const int4 b = __ldcs(&l4[i]);
+      add_run<kLdg>(a.x, b.x, p, gr, wsum, wcnt);
+      add_run<kLdg>(a.y, b.y, p, gr, wsum, wcnt);
+      add_run<kLdg>(a.z, b.z, p, gr, wsum, wcnt);
+      add_run<kLdg>(a.w, b.w, p, gr, wsum, wcnt);
+    }
+    head = n4 * 4;
+  }
+  for (long long i = head + first; i < n_runs; i += stride)
+    add_run<kLdg>(v[i], l[i], p, gr, wsum, wcnt);
+}
+
+// Raise a kernel's dynamic shared memory limit to `most` bytes (what
+// kMaxGroups needs) once per device and process; a launch of at most 48
+// KiB needs nothing. `done` holds a bit per device already raised.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t most,
+                       std::atomic<unsigned long long>& done) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)most);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+std::atomic<unsigned long long> dense_smem_raised{0};
+std::atomic<unsigned long long> block_smem_raised{0};
+std::atomic<unsigned long long> warp_smem_raised{0};
 
 }  // namespace
 
@@ -207,23 +287,8 @@ rle_group_accumulate_kernel(const int32_t* __restrict__ values,
   const int32_t* l = lengths + row;
   uint32_t* wsum = sum + (threadIdx.x / 32) * g;
   uint32_t* wcnt = cnt + (threadIdx.x / 32) * g;
-  long long head = 0;
-  if (vec) {
-    const long long n4 = n_runs / 4;
-    const int4* v4 = reinterpret_cast<const int4*>(v);
-    const int4* l4 = reinterpret_cast<const int4*>(l);
-    for (long long i = threadIdx.x; i < n4; i += blockDim.x) {
-      const int4 a = __ldcs(&v4[i]);
-      const int4 b = __ldcs(&l4[i]);
-      add_run(a.x, b.x, p, gr, wsum, wcnt);
-      add_run(a.y, b.y, p, gr, wsum, wcnt);
-      add_run(a.z, b.z, p, gr, wsum, wcnt);
-      add_run(a.w, b.w, p, gr, wsum, wcnt);
-    }
-    head = n4 * 4;
-  }
-  for (long long i = head + threadIdx.x; i < n_runs; i += blockDim.x)
-    add_run(v[i], l[i], p, gr, wsum, wcnt);
+  add_runs<false>(v, l, n_runs, threadIdx.x, blockDim.x, vec, p, gr, wsum,
+                  wcnt);
   __syncthreads();
   for (int j = threadIdx.x; j < g; j += blockDim.x) {
     uint32_t s = 0u, c = 0u;  // modulo 2^32, as the reference's int32
@@ -238,14 +303,52 @@ rle_group_accumulate_kernel(const int32_t* __restrict__ values,
   }
 }
 
-static size_t smem_bytes(int g) { return (size_t)g * 4 * (1 + 2 * kWarps); }
+// The warp route: warp w of the block takes chunk blockIdx.x * kWarps + w,
+// its runs i, i + 32, ... in lane i % 32, and its own uint32 [sum[g],
+// cnt[g]] slice of dynamic shared memory.
+__global__ void __launch_bounds__(kThreads)
+rle_group_accumulate_warp_kernel(const int32_t* __restrict__ values,
+                                 const int32_t* __restrict__ lengths,
+                                 const int32_t* __restrict__ gkeys, int g,
+                                 long long n_chunks, long long n_runs,
+                                 RunPred p, int32_t* out, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // a warp-uniform chunk: a warp past the last returns whole
+  const long long chunk =
+      (long long)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (chunk >= n_chunks) return;
+  const int lane = threadIdx.x % 32;
+  uint32_t* sum =
+      reinterpret_cast<uint32_t*>(smem) + (threadIdx.x / 32) * 2 * g;
+  uint32_t* cnt = sum + g;
+  for (int i = lane; i < 2 * g; i += 32) sum[i] = 0u;
+  const int32_t k0 = __ldg(gkeys);
+  // sorted keys span g - 1 exactly when they are distinct and contiguous
+  const Groups gr{gkeys, g, k0,
+                  (long long)__ldg(gkeys + g - 1) - k0 == g - 1};
+  __syncwarp();
+  const long long row = chunk * n_runs;
+  add_runs<true>(values + row, lengths + row, n_runs, lane, 32, vec, p, gr,
+                 sum, cnt);
+  __syncwarp();
+  // the chunk's rows [lo, hi, count] as 3g consecutive words
+  int32_t* o = out + 3 * chunk * g;
+  for (int i = lane; i < 3 * g; i += 32) {
+    const int j = i / 3;
+    const uint32_t s = sum[j];
+    switch (i - 3 * j) {
+      case 0: o[i] = (int32_t)(s & 0xFFFFu); break;
+      case 1:
+        o[i] = (int32_t)((s >> 16) | ((s & 0x80000000u) ? 0xFFFF0000u : 0u));
+        break;
+      default: o[i] = (int32_t)cnt[j];
+    }
+  }
+}
 
-template <typename Kernel>
-static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+static size_t smem_bytes(int g) { return (size_t)g * 4 * (1 + 2 * kWarps); }
+static size_t warp_smem_bytes(int warps, int g) {
+  return (size_t)warps * 2 * g * 4;
 }
 
 // (n_chunks, per_chunk) key/value/select planes -> int32[n_chunks, g, 3].
@@ -274,7 +377,8 @@ extern "C" int group_sum_count_launch(const void* keys, const void* vals,
   bpc = (per_chunk + span - 1) / span;
   if (bpc * n_chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const size_t bytes = smem_bytes(g);
-  cudaError_t err = allow_smem(group_sum_count_kernel, bytes);
+  cudaError_t err = allow_smem(group_sum_count_kernel, bytes,
+                               smem_bytes(kMaxGroups), dense_smem_raised);
   if (err != cudaSuccess) return (int)err;
   auto* sc = static_cast<unsigned long long*>(scratch);
   auto* o = static_cast<int32_t*>(out);
@@ -296,7 +400,8 @@ extern "C" int group_sum_count_launch(const void* keys, const void* vals,
 }
 
 // (n_chunks, n_runs) run planes -> int32[n_chunks, g, 3]. has_pred = 0
-// counts every run of length > 0; prim 0 is ge, 1 is eq.
+// counts every run of length > 0; prim 0 is ge, 1 is eq; route is kBlock
+// or kWarp.
 extern "C" int rle_group_accumulate_launch(const void* values,
                                            const void* lengths,
                                            const void* gkeys, void* out,
@@ -304,20 +409,36 @@ extern "C" int rle_group_accumulate_launch(const void* values,
                                            long long n_runs, int g,
                                            int has_pred, int prim,
                                            int constant, int invert,
-                                           void* stream) {
+                                           int route, void* stream) {
   if (n_chunks < 1 || n_chunks > 0x7fffffffLL || n_runs < 1 || g < 1
-      || g > kMaxGroups || prim < 0 || prim > 1)
+      || g > kMaxGroups || prim < 0 || prim > 1
+      || (route != kBlock && route != kWarp))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t bytes = smem_bytes(g);
-  cudaError_t err = allow_smem(rle_group_accumulate_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
+  const auto* v = static_cast<const int32_t*>(values);
+  const auto* l = static_cast<const int32_t*>(lengths);
+  const auto* k = static_cast<const int32_t*>(gkeys);
+  auto* o = static_cast<int32_t*>(out);
   const bool vec = aligned16(values) && aligned16(lengths) && n_runs % 4 == 0;
   const RunPred p{has_pred != 0, prim == 1, constant, invert != 0};
-  rle_group_accumulate_kernel<<<(unsigned)n_chunks, kThreads, bytes, s>>>(
-      static_cast<const int32_t*>(values),
-      static_cast<const int32_t*>(lengths),
-      static_cast<const int32_t*>(gkeys), g, n_runs, p,
-      static_cast<int32_t*>(out), vec);
+  cudaError_t err;
+  if (route == kWarp) {
+    const int warps = n_chunks < kWarps ? (int)n_chunks : kWarps;
+    const size_t bytes = warp_smem_bytes(warps, g);
+    err = allow_smem(rle_group_accumulate_warp_kernel, bytes,
+                     warp_smem_bytes(kWarps, kMaxGroups), warp_smem_raised);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks = (n_chunks + kWarps - 1) / kWarps;
+    rle_group_accumulate_warp_kernel<<<(unsigned)blocks, 32 * warps, bytes,
+                                       s>>>(v, l, k, g, n_chunks, n_runs, p,
+                                            o, vec);
+  } else {
+    const size_t bytes = smem_bytes(g);
+    err = allow_smem(rle_group_accumulate_kernel, bytes,
+                     smem_bytes(kMaxGroups), block_smem_raised);
+    if (err != cudaSuccess) return (int)err;
+    rle_group_accumulate_kernel<<<(unsigned)n_chunks, kThreads, bytes, s>>>(
+        v, l, k, g, n_runs, p, o, vec);
+  }
   return (int)cudaGetLastError();
 }

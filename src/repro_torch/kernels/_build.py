@@ -71,9 +71,9 @@ SIGNATURES = {
         #  n_groups, stream)
         "group_sum_count_launch": (_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P),
         # (values, lengths, group_keys, out, n_chunks, n_runs, n_groups,
-        #  has_pred, prim, constant, invert, stream)
+        #  has_pred, prim, constant, invert, route, stream)
         "rle_group_accumulate_launch": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I,
-                                        _I, _I, _P)},
+                                        _I, _I, _I, _P)},
     "flash_attention": {
         # (q, k, v, out, dtype, b, kvh, g, sq, skv, d, window, stream)
         "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL,
