@@ -75,6 +75,38 @@ The grouped slice (GroupBy / HashJoin) adds to these phases:
              and 9 timed at the store's shapes (r over u, G = 8; r's run
              planes) and kernel 9 at 4096 x 4096 runs.
 
+The tier slice (placement, prefetch, the energy meter, the power cap)
+adds, after 7b, while the store's tables live:
+
+7c. tiered main — the fast tier's rate measured in this run: a fresh
+             tune cache filled by tune.autotune over kernel 3 at 2^28
+             words, read by measured_fast_gbps (the run fails without
+             it), the capacity tier at that rate over Table 1's 2.5. Then
+             benchmarks/tier_bench.py's table (sixteen 8-bit columns) at
+             2^28 rows on the card, 1 MiB placement chunks, the fast tier
+             a quarter of it: replay_trace of 150 queries at skews 0.6,
+             1.1 and 1.5 under STATIC, CACHE and MEMCACHE, deadlines at
+             twice the mean query's all-fast time; at 1.1 under MEMCACHE
+             also with prefetch (an eighth of the fast tier), with the
+             die-stacked chip's 96 W compute term uncapped and capped at
+             half its demand (window 20 deadlines), with GroupBy/HashJoin
+             in the mix, and through torch_ref. Every answer equals a
+             torch_ref engine's; the torch_ref replay's placement stats,
+             ledger, tier dicts and attainment equal the kernel replay's;
+             prefetch is never slower; no window exceeds the cap; the fast
+             tier never holds more than its capacity (placement's budget
+             raises first); kernels 1-3 and 8 must have launched. Prints, per replay, hit rate, blended
+             GB/s, attainment, joules by tier and compute, modeled
+             service and the host's ms a query with the tier layer's
+             share (placement, prefetch plan, chunk accounting, governor).
+7d. tiered store — the store's plain table and its encoded copy through
+             one 60-query skew-1.1 trace under CACHE (the fast tier a
+             quarter of the plain bytes), three RLE queries after it;
+             answers equal across both and torch_ref; kernels 4, 5, 7 and
+             9 must have launched. Prints both hit rates and byte totals.
+             The launches of both phases stand in the {"kernels": ...}
+             line as each kernel's "launches_tiered".
+
 The LM serving slice (internlm2-1.8b) adds:
 
 3. parity  — the attention kernels (decode_attention, flash_attention)
@@ -150,9 +182,10 @@ The Mamba-2 serving slice (mamba2-1.3b) adds:
              window, and the CUDA-core route at the same shape in the same
              call; no library call.
 
-The third-to-last line is one JSON object {"serve": {...}} (the mamba2
-records under "mamba2"), the second-to-last {"kernels": [...]} (twelve
-entries); the last is {"ok": true, "device": {...}}.
+After the tiered phases one JSON line {"tier": {...}} holds their
+records. The third-to-last line is one JSON object {"serve": {...}} (the
+mamba2 records under "mamba2"), the second-to-last {"kernels": [...]}
+(twelve entries); the last is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1538,6 +1571,386 @@ def group_records(main_rec: dict, store_dense: dict, store_rle: dict,
                                        parity_err[name])})
         out.append(rec)
     return out
+
+
+# --------------------------------------------------------------------------
+# the tier slice: placement, prefetch, the energy meter and the power cap
+# --------------------------------------------------------------------------
+
+# benchmarks/tier_bench.py's table and traffic at a size the card holds:
+# sixteen 8-bit columns (:41-45, 67-70) at 2^28 rows (4 GiB packed), in
+# 1 MiB placement chunks (256 a column, 4096 in all), the fast tier at a
+# quarter of the table, three skews of 150 queries from seed 7, deadlines
+# at twice the all-fast service time of the mean query (:78-86).
+TIER_ROWS = 1 << 28
+TIER_SPEC = {f"c{i:02d}": 8 for i in range(16)}
+TIER_CHUNK_ROWS = 1 << 20
+TIER_FAST_FRACTION = 0.25
+TIER_SKEWS = (0.6, 1.1, 1.5)
+TIER_QUERIES = 150
+TIER_SEED = 7
+TIER_SLA_SLACK = 2.0
+TIER_TUNE_WORDS = 1 << 28     # kernel 3 at the main path's shape
+STORE_TIER_QUERIES = 60
+CAP_TOL = 1e-9                # tests/test_energy.py's slack on the budget
+
+
+def build_tier_table():
+    """TIER_SPEC at TIER_ROWS, built on the card from a seeded generator
+    as build_table does (Table.synthetic's host numpy would need tens of
+    GB here): random payload bits, delimiters cleared."""
+    from repro_torch.db import BitPackedColumn, Table
+    from repro_torch.kernels.scan_filter.ref import field_masks
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    t = Table("tier")
+    for name, bits in TIER_SPEC.items():
+        delim, _, _ = field_masks(bits)
+        t.add(BitPackedColumn(name, bits, TIER_ROWS, random_words(
+            TIER_ROWS * bits // 32, ~int(delim) & 0xFFFFFFFF, g)))
+    for col in t.columns.values():
+        col.valid_words
+    torch.cuda.synchronize()
+    return t
+
+
+def measure_fast_tier(dev: dict) -> float:
+    """The fast tier's rate from this run: a fresh tune cache, filled by
+    tune.autotune over kernel 3 at TIER_TUNE_WORDS words (three planes
+    streamed, each call synchronised), read back by measured_fast_gbps.
+    Fails if the cache gives no rate."""
+    from repro_torch.kernels import tune
+    from repro_torch.kernels.scan_aggregate import kernel as fused_k
+    from repro_torch.kernels.scan_filter.ref import as_int32, field_masks
+    from repro_torch.tier import measured_fast_gbps
+    path = SRC.parent / "build" / "chip_smoke" / "tune_cache.json"
+    path.unlink(missing_ok=True)
+    tune.set_cache_path(path)
+    if measured_fast_gbps() is not None:
+        fail(f"the fresh tune cache {path} already prices the fast tier")
+    delim, _, _ = field_masks(8)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    n = TIER_TUNE_WORDS
+    pred = random_words(n, ~int(delim) & 0xFFFFFFFF, g)
+    agg = random_words(n, ~int(delim) & 0xFFFFFFFF, g)
+    valid = torch.full((n,), as_int32(delim), dtype=torch.int32,
+                       device="cuda")
+
+    def bench(params):
+        fused_k.scan_aggregate_packed(pred, agg, valid, constant=50,
+                                      op="ge", invert=True, code_bits=8)
+        torch.cuda.synchronize()
+
+    entry = tune.autotune("scan_aggregate",
+                          tune.shape_key(rows=n // 128, bits=8), {}, bench)
+    gbps = measured_fast_gbps()
+    if gbps is None:
+        fail("measured_fast_gbps() gave no rate after the sweep")
+    print(f"kernel 3 at {n} words, 3 planes: {entry['us']} us a "
+          f"synchronised call -> fast tier {gbps:.2f} GB/s "
+          f"(tune cache {path.relative_to(SRC.parent)}) [{dev['smi']}]")
+    del pred, agg, valid
+    torch.cuda.empty_cache()
+    return gbps
+
+
+class HostClock:
+    """Host seconds spent in the tier layer's Python (placement's per-chunk
+    loops, the prefetch plan, the chunk accounting, the power governor),
+    by wrapping those methods for the duration of a `with`. (The fast
+    tier never holds more than its capacity: `TieredBudget.alloc`
+    raises first, and the replay with it.)"""
+
+    def __init__(self):
+        from repro_torch.energy.caps import PowerCap
+        from repro_torch.query.engine import QueryEngine
+        from repro_torch.tier.placement import PlacementEngine
+        from repro_torch.tier.prefetch import PrefetchPipeline
+        self.targets = [(PlacementEngine, "on_access"),
+                        (PrefetchPipeline, "plan"),
+                        (QueryEngine, "chunk_accesses"),
+                        (PowerCap, "throttled_service_s")]
+        self.seconds = {name: 0.0 for _, name in self.targets}
+
+    def __enter__(self):
+        self.saved = [(cls, name, getattr(cls, name))
+                      for cls, name in self.targets]
+        for cls, name, fn in self.saved:
+            setattr(cls, name, self.wrap(name, fn))
+        return self
+
+    def wrap(self, name, fn):
+        def timed(obj, *a, **kw):
+            t0 = time.perf_counter()
+            out = fn(obj, *a, **kw)
+            self.seconds[name] += time.perf_counter() - t0
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.saved:
+            setattr(cls, name, fn)
+
+
+def torch_ref_answers(table, trace) -> list:
+    """Each traced query through QueryEngine(table, "torch_ref"), no
+    deadlines: the plain versions' answers, by query id - 1."""
+    from repro_torch.query import QueryEngine
+    eng = QueryEngine(table, mode="torch_ref")
+    out = []
+    for tq in trace:
+        eng.submit(tq.query)
+        out.append(eng.run()[0].aggregates)
+    return out
+
+
+def sla_of(table, trace, tiers) -> float:
+    """tier_bench's deadline: TIER_SLA_SLACK x the mean query's bytes at
+    the fast tier's rate."""
+    from repro_torch.query import physical
+    mean = sum(physical.referenced_bytes(q.query.plan(), q.query.aggregates,
+                                         table.columns)
+               for q in trace) / len(trace)
+    return TIER_SLA_SLACK * mean / tiers.fast.bandwidth
+
+
+def tier_replay(label: str, table, trace, tiers, policy, want, bad: list,
+                **kw) -> dict:
+    """One replay_trace on the card, timed on the host with its tier-layer
+    share; each answer against `want` (torch_ref's); prints and returns
+    the record."""
+    from repro_torch.tier import replay_trace
+    with HostClock() as hc:
+        t0 = time.perf_counter()
+        pe, eng, att = replay_trace(table, trace, tiers, policy,
+                                    chunk_rows=TIER_CHUNK_ROWS, **kw)
+        wall = time.perf_counter() - t0
+    wrong = [r.qid for r in eng.results if r.aggregates != want[r.qid - 1]]
+    if wrong:
+        bad.append((label, policy, "answers differ from torch_ref", wrong))
+    s = eng.summary()
+    m = s["energy"]
+    served = max(s["served"], 1)
+    rec = {"policy": policy, "hit_rate": pe.hit_rate,
+           "blended_gbps": s["tier"]["blended_gbps"],
+           "attainment": att, "served": s["served"],
+           "rejected": s["rejected"], "fast_j": m["fast_j"],
+           "capacity_j": m["capacity_j"], "compute_j": m["compute_j"],
+           "total_j": m["total_j"], "seconds_total": eng.seconds_total,
+           "service_ms_a_query": eng.seconds_total / served * 1e3,
+           "host_ms_a_query": wall / len(trace) * 1e3,
+           "tier_host_ms_a_query": {k: v / len(trace) * 1e3
+                                    for k, v in hc.seconds.items()},
+           "fast_bytes": pe.fast_bytes_total,
+           "capacity_bytes": pe.capacity_bytes_total}
+    host = rec["tier_host_ms_a_query"]
+    print(f"{label:22s} {policy:8s} hit {pe.hit_rate:.4f}  blended "
+          f"{rec['blended_gbps']:9.2f} GB/s  attainment "
+          f"{'-' if att is None else f'{att:.4f}'}  served "
+          f"{s['served']:3d} rejected {s['rejected']:3d}  J fast "
+          f"{m['fast_j']:.4f} capacity {m['capacity_j']:.4f} compute "
+          f"{m['compute_j']:.4f}  service {rec['service_ms_a_query']:.4f} "
+          f"ms/q  host {rec['host_ms_a_query']:.3f} ms/q (on_access "
+          f"{host['on_access']:.3f}, plan {host['plan']:.3f}, chunks "
+          f"{host['chunk_accesses']:.3f}, governor "
+          f"{host['throttled_service_s']:.3f})", flush=True)
+    return {"rec": rec, "pe": pe, "eng": eng, "att": att}
+
+
+def tier_kernel_counters():
+    """Launch counters of kernels 1-3 and 8 (the flat tiered path) and
+    4, 5, 7 and 9 (the store's): name -> (module, attribute)."""
+    from repro_torch.kernels.aggregate import kernel as agg_k
+    from repro_torch.kernels.group_aggregate import kernel as gk
+    from repro_torch.kernels.scan_aggregate import kernel as fused_k
+    from repro_torch.kernels.scan_compressed import kernel as rle_k
+    from repro_torch.kernels.scan_filter import kernel as scan_k
+    return {"scan_filter": (scan_k, "LAUNCHES"),
+            "aggregate": (agg_k, "LAUNCHES"),
+            "scan_aggregate": (fused_k, "LAUNCHES"),
+            "group_sum_count_batched": (gk, "LAUNCHES"),
+            "aggregate_batched": (agg_k, "BATCHED_LAUNCHES"),
+            "scan_aggregate_batched": (fused_k, "BATCHED_LAUNCHES"),
+            "rle_scan_aggregate_batched": (rle_k, "BATCHED_LAUNCHES"),
+            "rle_group_accumulate_batched": (gk, "RLE_LAUNCHES")}
+
+
+def reset_counters() -> dict:
+    counters = tier_kernel_counters()
+    for m, attr in counters.values():
+        setattr(m, attr, 0)
+    return counters
+
+
+def tiered_main_phase(dev: dict) -> dict:
+    """The tiered engine on the card at the tier bench's shape: every skew
+    under the three policies, then at skew 1.1 under MEMCACHE with
+    prefetch, with the die-stacked chip's compute power uncapped and
+    capped at half its demand, and with GroupBy/HashJoin in the mix; a
+    torch_ref replay beside the kernel one; answers against torch_ref."""
+    phase("tiered main")
+    from repro_torch.core import DIE_STACKED
+    from repro_torch.energy import PowerCap, chip_compute_watts
+    from repro_torch.tier import TraceSpec, make_trace, paper_tiers
+    fast_gbps = measure_fast_tier(dev)
+    table = build_tier_table()
+    tiers = paper_tiers(TIER_FAST_FRACTION * table.nbytes,
+                        fast_gbps=fast_gbps)
+    print(f"table {table.num_rows} rows x {len(table.columns)} columns, "
+          f"{table.nbytes / 2**30:.3f} GiB packed; chunks of "
+          f"{TIER_CHUNK_ROWS} rows; fast tier {tiers.fast.gbps:.2f} GB/s "
+          f"over {tiers.fast.capacity / 2**30:.3f} GiB, capacity tier "
+          f"{tiers.capacity.gbps:.2f} GB/s [{dev['smi']}]", flush=True)
+    traces = {s: make_trace(table, TraceSpec(n_queries=TIER_QUERIES,
+                                             skew=s, seed=TIER_SEED))
+              for s in TIER_SKEWS}
+    grouped = make_trace(table, TraceSpec(n_queries=TIER_QUERIES, skew=1.1,
+                                          seed=TIER_SEED, p_grouped=0.1,
+                                          p_join=0.05))
+    t0 = time.perf_counter()
+    want = {s: torch_ref_answers(table, tr) for s, tr in traces.items()}
+    want["grouped"] = torch_ref_answers(table, grouped)
+    print(f"torch_ref answers for {len(want)} traces: "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    bad: list = []
+    out = {"fast_gbps": tiers.fast.gbps,
+           "capacity_gbps": tiers.capacity.gbps, "replays": {}}
+    counters = reset_counters()
+    runs = {}
+    for s, trace in traces.items():
+        sla_s = sla_of(table, trace, tiers)
+        print(f"skew {s}: sla {sla_s * 1e3:.4f} ms", flush=True)
+        for policy in ("static", "cache", "memcache"):
+            runs[s, policy] = tier_replay(f"skew {s}", table, trace, tiers,
+                                          policy, want[s], bad, sla_s=sla_s)
+    trace, sla_s = traces[1.1], sla_of(table, traces[1.1], tiers)
+    sync = runs[1.1, "memcache"]
+    pf = tier_replay("skew 1.1 prefetch", table, trace, tiers, "memcache",
+                     want[1.1], bad, sla_s=sla_s,
+                     prefetch_bytes=int(tiers.fast.capacity // 8))
+    compute_w = chip_compute_watts(DIE_STACKED)
+    unc = tier_replay("skew 1.1 compute", table, trace, tiers, "memcache",
+                      want[1.1], bad, sla_s=sla_s, compute_w=compute_w)
+    demand_w = unc["rec"]["total_j"] / unc["rec"]["seconds_total"]
+    cap = PowerCap(0.5 * demand_w, window_s=20 * sla_s)
+    capped = tier_replay("skew 1.1 capped", table, trace, tiers,
+                         "memcache", want[1.1], bad, sla_s=sla_s,
+                         compute_w=compute_w, power_cap=cap)
+    grp = tier_replay("skew 1.1 grouped", table, grouped, tiers,
+                      "memcache", want["grouped"], bad,
+                      sla_s=sla_of(table, grouped, tiers))
+    launches = {k: getattr(m, attr) for k, (m, attr) in counters.items()}
+    print(f"kernel launches on the tiered main path: {launches}")
+    ref = tier_replay("skew 1.1 torch_ref", table, trace, tiers,
+                      "memcache", want[1.1], bad, sla_s=sla_s,
+                      mode="torch_ref")
+    # the accounting does not depend on the mode
+    for what, a, b in (
+            ("stats", sync["pe"].stats(), ref["pe"].stats()),
+            ("meter", sync["pe"].meter.summary(),
+             ref["pe"].meter.summary()),
+            ("tier dicts", [r.tier for r in sync["eng"].results],
+             [r.tier for r in ref["eng"].results]),
+            ("attainment", sync["att"], ref["att"]),
+            ("rejected", sync["eng"].rejected, ref["eng"].rejected)):
+        if a != b:
+            bad.append(("torch_ref replay", what, a, b))
+    for (s, policy), r in runs.items():
+        other = runs[s, "static"]["eng"].results
+        common = {x.qid: x.aggregates for x in other}
+        if any(x.aggregates != common[x.qid] for x in r["eng"].results
+               if x.qid in common):
+            bad.append(("policies disagree", s, policy))
+    if not pf["eng"].seconds_total <= sync["eng"].seconds_total:
+        bad.append(("prefetch slower than sync",
+                    pf["eng"].seconds_total, sync["eng"].seconds_total))
+    if [r.aggregates for r in pf["eng"].results] != \
+            [want[1.1][r.qid - 1] for r in pf["eng"].results]:
+        bad.append(("prefetch answers",))
+    rep = cap.report(now=capped["eng"].clock())
+    print(f"power cap: budget {cap.budget_w:.4f} W (demand "
+          f"{demand_w:.4f} W), window {cap.window_s * 1e3:.4f} ms, max "
+          f"window {rep['max_window_w']:.4f} W, throttled "
+          f"{rep['throttled_queries']} queries by "
+          f"{rep['throttle_s_total'] * 1e3:.4f} ms; attainment "
+          f"{capped['att']} capped vs {unc['att']} uncapped")
+    print(f"prefetch: {json.dumps(pf['eng'].prefetch.stats())}; modeled "
+          f"{pf['eng'].seconds_total * 1e3:.4f} ms vs sync "
+          f"{sync['eng'].seconds_total * 1e3:.4f} ms")
+    if not rep["max_window_w"] <= cap.budget_w * (1 + CAP_TOL):
+        bad.append(("power cap exceeded", rep))
+    if not capped["att"] <= unc["att"]:
+        bad.append(("capped attainment above uncapped", capped["att"],
+                    unc["att"]))
+    if not sum(1 for r in grp["eng"].results if "groups" in r.aggregates):
+        bad.append(("no grouped query served in the grouped replay",))
+    if bad:
+        for b in bad:
+            print("MISMATCH", str(b)[:2000], file=sys.stderr)
+        fail(f"{len(bad)} tiered main checks failed")
+    zero = [k for k in ("scan_filter", "aggregate", "scan_aggregate",
+                        "group_sum_count_batched") if launches[k] == 0]
+    if zero:
+        fail(f"kernels never launched on the tiered main path: {zero}")
+    for key, r in (("prefetch", pf), ("compute", unc), ("capped", capped),
+                   ("grouped", grp), ("torch_ref", ref)):
+        out["replays"][key] = r["rec"]
+    out["replays"].update({f"{p} skew {s}": r["rec"]
+                           for (s, p), r in runs.items()})
+    out["power_cap"] = rep
+    out["launches"] = launches
+    del table, runs, pf, unc, capped, grp, ref, sync
+    release()
+    return out
+
+
+def tiered_store_phase(table, encoded, fast_gbps: float, dev: dict) -> dict:
+    """One skew-1.1 trace under CACHE over the store phase's plain table
+    and its encoded copy, the fast tier at a quarter of the plain bytes:
+    the encoded replay streams its physical bytes. The trace's queries
+    never aggregate their predicate's column and its count-only rollups
+    are on other keys, so three store queries follow it that reach the
+    RLE kernels (a fused scan of r over r, r's count-only rollups)."""
+    phase("tiered store")
+    from repro_torch.query import GroupBy, Pred, Query
+    from repro_torch.tier import TracedQuery, TraceSpec, make_trace, \
+        paper_tiers
+    tiers = paper_tiers(TIER_FAST_FRACTION * table.nbytes,
+                        fast_gbps=fast_gbps)
+    trace = make_trace(table, TraceSpec(n_queries=STORE_TIER_QUERIES,
+                                        skew=1.1, seed=TIER_SEED,
+                                        p_grouped=0.1))
+    trace += [TracedQuery(0, Query(Pred("r", "lt", 4), aggregates=("r",))),
+              TracedQuery(1, GroupBy("r")),
+              TracedQuery(2, GroupBy("r", where=Pred("r", "le", 4)))]
+    want = torch_ref_answers(encoded, trace)
+    bad: list = []
+    counters = reset_counters()
+    plain = tier_replay("store plain", table, trace, tiers, "cache", want,
+                        bad)
+    enc = tier_replay("store encoded", encoded, trace, tiers, "cache", want,
+                      bad)
+    launches = {k: getattr(m, attr) for k, (m, attr) in counters.items()}
+    print(f"kernel launches on the tiered store path: {launches}")
+    print(f"bytes streamed: plain {plain['rec']['fast_bytes']} fast + "
+          f"{plain['rec']['capacity_bytes']} capacity, encoded "
+          f"{enc['rec']['fast_bytes']} + {enc['rec']['capacity_bytes']}; "
+          f"hit rate plain {plain['rec']['hit_rate']:.4f}, encoded "
+          f"{enc['rec']['hit_rate']:.4f}")
+    if [r.aggregates for r in plain["eng"].results] != \
+            [r.aggregates for r in enc["eng"].results]:
+        bad.append(("plain and encoded replays disagree",))
+    if bad:
+        for b in bad:
+            print("MISMATCH", str(b)[:2000], file=sys.stderr)
+        fail(f"{len(bad)} tiered store checks failed")
+    zero = [k for k in ("aggregate_batched", "scan_aggregate_batched",
+                        "rle_scan_aggregate_batched",
+                        "rle_group_accumulate_batched")
+            if launches[k] == 0]
+    if zero:
+        fail(f"kernels never launched on the tiered store path: {zero}")
+    return {"plain": plain["rec"], "encoded": enc["rec"],
+            "launches": launches}
 
 
 # --------------------------------------------------------------------------
@@ -2964,6 +3377,14 @@ def main() -> None:
         fail(f"kernels never launched on the grouped paths: {zero}")
     kernels += group_records(group_main, store_dense, store_rle, launches,
                              parity_err)
+    tier = {"main": tiered_main_phase(dev)}
+    tier["store"] = tiered_store_phase(table, encoded,
+                                       tier["main"]["fast_gbps"], dev)
+    print(json.dumps({"tier": tier}, default=str), flush=True)
+    for rec in kernels:
+        if rec["name"] in tier["main"]["launches"]:
+            rec["launches_tiered"] = {p: t["launches"][rec["name"]]
+                                      for p, t in tier.items()}
     # the LM slice needs the card's memory: drop the query tables first
     del table, encoded, shapes
     torch.cuda.empty_cache()

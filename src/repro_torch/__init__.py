@@ -16,5 +16,9 @@ Ported so far:
   `store.execute_grouped_encoded`) over the group_aggregate kernels;
 - LM serving (`configs`, `models`, `serve.engine`, `serve.scheduler`)
   for attention-only stacks over the flash_attention (prefill) and
-  decode_attention (one-token decode) kernels.
+  decode_attention (one-token decode) kernels, and Mamba-2 stacks over
+  the ssd_chunk kernel;
+- the tiered engine (`core.systems`, `tier`, `energy`, `kernels.tune`):
+  placement, prefetch, the energy meter and the power cap around the
+  query engine's kernels.
 """

@@ -2,8 +2,9 @@
 
 - `metrics`  scoped counter/gauge/histogram registry (the dispatch launch
              counters live here)
-- `trace`    per-query span trees on the VirtualClock; only the disabled
-             `NullTracer` path runs in the port so far
+- `trace`    per-query span trees on the VirtualClock, recorded by a
+             tiered QueryEngine (`Tracer`) or skipped (`NullTracer`);
+             audit, export and the SLO monitor are ROADMAP.md's step 6c
 """
 from repro_torch.obs.metrics import (MetricsRegistry, default_registry,
                                      scoped, unified_snapshot)

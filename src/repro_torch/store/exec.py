@@ -363,7 +363,7 @@ def execute_encoded(plan: Plan, aggregates, table: EncodedTable,
     if guard is not None:
         raise NotImplementedError(
             "guard= (verify-on-read, resilience.ChunkGuard) is not ported "
-            "yet: ROADMAP.md, 'Modules to port', step 6 (resilience)")
+            "yet: ROADMAP.md, 'Modules to port', step 6b (resilience)")
     aggregates = tuple(aggregates)
     if batched:
         return _execute_batched(plan, aggregates, table, mode)
@@ -498,7 +498,7 @@ def execute_grouped_encoded(query, table: EncodedTable, mode=None,
     if guard is not None:
         raise NotImplementedError(
             "guard= (verify-on-read, resilience.ChunkGuard) is not ported "
-            "yet: ROADMAP.md, 'Modules to port', step 6 (resilience)")
+            "yet: ROADMAP.md, 'Modules to port', step 6b (resilience)")
     relational.bind_check(query, table.columns)
     names = sorted(columns_of(query.plan()) | set(query.aggregates))
     kcol = table.columns[query.key]

@@ -317,12 +317,22 @@ class TestEngine:
     @pytest.mark.parametrize("kw", ("tiered", "power_cap", "chaos",
                                     "prefetch", "monitor"))
     def test_later_slice_arguments_raise(self, table, kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        """chaos= and monitor= are later steps (6b, 6c); tiered=,
+        power_cap= and prefetch= are ported and refuse, as the reference's
+        engine does, to run without what they need (a VirtualClock, the
+        tier model)."""
+        want = {"chaos": (NotImplementedError, "ROADMAP.*step 6b"),
+                "monitor": (NotImplementedError, "ROADMAP.*step 6c"),
+                "tiered": (ValueError, "advanceable clock"),
+                "power_cap": (ValueError, "needs the tiered energy model"),
+                "prefetch": (ValueError, "needs the tiered service model")}
+        exc, match = want[kw]
+        with pytest.raises(exc, match=match):
             tq.QueryEngine(table, device="cpu", **{kw: object()})
 
     def test_later_slice_paths_raise(self, table):
         from repro_torch.obs.trace import Tracer
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="modeled tiered timeline"):
             tq.QueryEngine(table, device="cpu", tracer=Tracer())
         eng = tq.QueryEngine(table, device="cpu")
         for fn in (eng.model_check, lambda: eng.provision(0.1)):
