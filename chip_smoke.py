@@ -107,6 +107,33 @@ adds, after 7b, while the store's tables live:
              The launches of both phases stand in the {"kernels": ...}
              line as each kernel's "launches_tiered".
 
+The paper model slice (core/, energy/tco.py, no kernel of its own) adds:
+
+6b. paper model — after the main profile, on the 2^30-row table: the
+             eleven plans through a fresh QueryEngine(mode="auto"), then
+             again through another (the warm pass), then the five fused
+             plans alone; answers against torch_ref; kernels 1-3 must have
+             launched (their counts stand in the {"kernels": ...} line as
+             "launches_paper_model"). model_check() on the H100 row (the
+             warm pass's attained fraction of Eq. 4 must lie in (0, 1.05])
+             and on DIE_STACKED, for each engine; provision() at 10 and
+             100 ms on the H100 row and Table 1's three systems, each
+             within its SLA and equal to advisor.advise_scan_sla called by
+             hand with the engine's counters; the paper's 16 TiB at 20% at
+             the measured rate.
+7e. paper model (tier split, cost, sweep) — after the tiered phases:
+             advise_tier_split at the tiered main phase's fast and capacity
+             rates and its skew-1.1 MEMCACHE hit rate at 25% (the H100 row
+             as fast system must hold the measured rate within its Eq. 4
+             roofline; the default, the paper's 192 GB/s node, is printed
+             beside it); cheapest_architecture over Table 1 and the H100
+             row at 10 ms and 1 s, 1 MW, the store's measured ratio, and
+             evaluate_tiered at the measured fast rate over the H100 row
+             (which must price a node); sweep_performance over 64 SLAs on
+             the card against the same call on the CPU (SWEEP_RTOL; the
+             gradients GRAD_RTOL) and against the scalar model (2%).
+             One JSON line {"paper_model": {...}} holds the records.
+
 The LM serving slice (internlm2-1.8b) adds:
 
 3. parity  — the attention kernels (decode_attention, flash_attention)
@@ -1954,6 +1981,228 @@ def tiered_store_phase(table, encoded, fast_gbps: float, dev: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the paper model: Eq. 4 calibrated by the engine's scans on the card
+# --------------------------------------------------------------------------
+
+FUSED_PLANS = ("single_pred_fused", "fused_ge", "fused_gt", "fused_eq",
+               "fused_ne")
+MODEL_SLAS = (0.010, 0.100)
+MODEL_MAX_FRACTION = 1.05     # a scan above the datasheet mis-counts bytes
+SWEEP_POINTS = 64
+SWEEP_RTOL = 1e-5             # tests/test_torch_paper_model.py's SOFT_RTOL
+GRAD_RTOL = 1e-4              # ... and GRAD_RTOL
+SCALAR_RTOL = 0.02            # tests/test_core_engines.py's hard-sweep 2%
+PAPER_DB = 16 * 2**40         # the paper's 16 TiB at 20% accessed
+PAPER_ACCESS = 0.20
+COST_BUDGET_W = 1e6
+COST_SLAS = (0.010, 1.0)
+
+
+def paper_engine_phase(table, dev: dict) -> dict:
+    """The engine's measured scans against the paper model on the main
+    table: the eleven plans twice through fresh QueryEngine(mode="auto")s
+    (the first pass, then the warm one that model_check and provision
+    read), the fused plans alone, answers against torch_ref;
+    model_check on the H100 row and DIE_STACKED, provision at
+    MODEL_SLAS on the H100 row and the paper's three systems, each against
+    advisor.advise_scan_sla called by hand with the engine's counters."""
+    phase("paper model")
+    from repro_torch.core import (BIG_MEMORY, DIE_STACKED, H100_SXM,
+                                  TRADITIONAL, advisor, as_paper_system)
+    from repro_torch.query import Query, QueryEngine
+    shapes = plan_shapes()
+    mods = kernel_modules()
+    for m in mods.values():
+        m.LAUNCHES = 0
+
+    def run(names=None) -> tuple:
+        eng = QueryEngine(table, mode="auto")
+        out = []
+        for name, plan, aggs in shapes:
+            if names is None or name in names:
+                eng.submit(Query(plan, aggregates=aggs))
+                out.append((name, eng.run()[0]))
+        return eng, out
+
+    first, got_first = run()
+    warm, got_warm = run()
+    fused, _ = run(FUSED_PLANS)
+    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    print(f"kernel launches on the paper model's path: {launches}")
+    ref = QueryEngine(table, mode="torch_ref")
+    bad = []
+    for (name, plan, aggs), (_, a), (_, b) in zip(shapes, got_first,
+                                                  got_warm):
+        ref.submit(Query(plan, aggregates=aggs))
+        want = ref.run()[0].aggregates
+        if a.aggregates != want or b.aggregates != want:
+            bad.append((name, a.aggregates, b.aggregates, want))
+    h100 = as_paper_system(H100_SXM)
+    rec = {"queries": len(warm.reports), "bytes_total": warm.bytes_total,
+           "seconds_total": warm.seconds_total, "db_bytes": table.nbytes,
+           "launches": launches}
+    for label, eng in (("first pass", first), ("warm", warm),
+                       ("fused warm", fused)):
+        for sys_ in (None, DIE_STACKED):
+            mc = eng.model_check(sys_)
+            rec[f"model_check {label} {mc['system']}"] = mc
+            print(f"model_check {label:10s} {mc['system']:18s} measured "
+                  f"{mc['measured_gbps']:9.2f} GB/s  model "
+                  f"{mc['model_gbps']:8.2f} GB/s  attained "
+                  f"{mc['attained_fraction']:.4f}  [{dev['smi']}]")
+    frac = warm.model_check()["attained_fraction"]
+    if not 0 < frac <= MODEL_MAX_FRACTION:
+        bad.append(("warm H100 attained fraction", frac))
+    measured = warm.bytes_total / warm.seconds_total / warm.n_shards
+    bpq = warm.bytes_total / len(warm.reports)
+    rec["provision"] = {}
+    for sla in MODEL_SLAS:
+        for sys_ in (h100, TRADITIONAL, BIG_MEMORY, DIE_STACKED):
+            adv = warm.provision(sla, system=sys_)
+            by_hand = advisor.advise_scan_sla(
+                db_bytes=table.nbytes, bytes_per_query=bpq, sla_s=sla,
+                system=sys_, measured_chip_bps=measured)
+            d = adv.design
+            rec["provision"][f"{sys_.name} {sla}"] = adv.summary()
+            print(f"provision {sla * 1e3:6.1f} ms {sys_.name:18s} chips "
+                  f"{d.compute_chips:4d} cores {d.cores_per_chip:2d} "
+                  f"response {d.response_time * 1e3:8.4f} ms power "
+                  f"{d.power / 1e3:8.3f} kW")
+            if adv.summary() != by_hand.summary():
+                bad.append(("provision vs advise_scan_sla", sys_.name, sla))
+            if not d.response_time <= sla * (1 + 1e-9):
+                bad.append(("design misses its SLA", sys_.name, sla,
+                            d.response_time))
+    # the paper's question at its own scale, at this engine's rate
+    for sys_ in (h100, DIE_STACKED):
+        adv = advisor.advise_scan_sla(PAPER_DB, PAPER_ACCESS * PAPER_DB,
+                                      MODEL_SLAS[0], sys_,
+                                      measured_chip_bps=measured)
+        rec["provision"][f"paper 16 TiB {sys_.name}"] = adv.summary()
+        print(f"paper 16 TiB at 20%, {MODEL_SLAS[0] * 1e3:.0f} ms, "
+              f"{sys_.name} at the measured rate: "
+              f"{adv.design.compute_chips} chips, "
+              f"{adv.design.power / 1e3:.3f} kW")
+    if bad:
+        for b in bad:
+            print("MISMATCH", str(b)[:2000], file=sys.stderr)
+        fail(f"{len(bad)} paper model (engine) checks failed")
+    zero = [k for k, n in launches.items() if n == 0]
+    if zero:
+        fail(f"kernels never launched on the paper model's path: {zero}")
+    return rec
+
+
+def paper_model_phase(engine_rec: dict, tier: dict, ratio: float,
+                      dev: dict) -> dict:
+    """The rest of the paper model from this run's measurements: the tier
+    split at the tiered phase's fast rate and skew-1.1 MEMCACHE hit rate,
+    the cost surface at the store's ratio, the SLA sweep on the card."""
+    phase("paper model (tier split, cost, sweep)")
+    from repro_torch.core import (BIG_MEMORY, DIE_STACKED, H100_SXM,
+                                  TRADITIONAL, Workload, advisor,
+                                  as_paper_system, provision_performance,
+                                  sweep)
+    from repro_torch.energy import tco
+    h100 = as_paper_system(H100_SXM)
+    main = tier["main"]
+    fast, cap = main["fast_gbps"], main["capacity_gbps"]
+    mem = main["replays"]["memcache skew 1.1"]
+    db = TIER_ROWS * sum(TIER_SPEC.values()) / 8
+    bpq = (mem["fast_bytes"] + mem["capacity_bytes"]) / mem["served"]
+    sla = TIER_SLA_SLACK * bpq / (fast * 1e9)
+    bad = []
+    out = {"engine": engine_rec}
+    for label, fs in (("h100", h100), ("default", None)):
+        adv = advisor.advise_tier_split(
+            db, bpq, sla, hit_curve={TIER_FAST_FRACTION: mem["hit_rate"]},
+            fast_gbps=fast, capacity_gbps=cap, fast_system=fs)
+        row = next(r for r in adv["rows"]
+                   if r["fast_fraction"] == TIER_FAST_FRACTION)
+        out[f"tier split {label}"] = {k: adv[k] for k in (
+            "roofline_gbps", "fast_within_roofline", "best")} | {"row": row}
+        print(f"tier split ({label} fast system): roofline "
+              f"{adv['roofline_gbps']:.2f} GB/s, fast {fast:.2f} GB/s "
+              f"within {adv['fast_within_roofline']}; at "
+              f"{TIER_FAST_FRACTION}: hit {row['hit_rate']:.4f} blended "
+              f"{row['blended_gbps']:.2f} GB/s response "
+              f"{row['response_time_s'] * 1e3:.4f} ms (sla "
+              f"{sla * 1e3:.4f} ms) within {row['within_roofline']}; best "
+              f"{adv['best'] and adv['best']['fast_fraction']}")
+        if fs is not None and not (adv["fast_within_roofline"]
+                                   and row["within_roofline"]):
+            bad.append(("H100-row tier split outside its roofline", adv))
+    bpq_paper = PAPER_ACCESS * PAPER_DB
+    systems = (TRADITIONAL, BIG_MEMORY, DIE_STACKED, h100)
+    for s_ in COST_SLAS:
+        cell = tco.cheapest_architecture(PAPER_DB, bpq_paper, s_,
+                                         COST_BUDGET_W, systems=systems,
+                                         compression_ratio=ratio)
+        t = tco.evaluate_tiered(PAPER_DB, bpq_paper, s_, 1.1,
+                                fast_gbps=fast, fast_system=h100)
+        out[f"cost {s_}"] = {"winner": cell["winner"],
+                             "usd_per_query": cell["usd_per_query"],
+                             "candidates": cell["candidates"],
+                             "tiered_h100": t}
+        cands = ", ".join(
+            f"{c['name']} {c['chips']} chips {c['power_w'] / 1e3:.1f} kW "
+            f"${c['usd_per_query']:.3e}{'' if c['feasible'] else ' (x)'}"
+            for c in cell["candidates"])
+        print(f"cost at {s_ * 1e3:.0f} ms, 1 MW, store ratio {ratio:.4f}: "
+              f"winner {cell['winner']} ${cell['usd_per_query']}/query; "
+              f"{cands}")
+        if t is None:
+            bad.append(("no tiered H100 candidate", s_))
+        else:
+            print(f"  tiered over the H100 row at {fast:.2f} GB/s: fast "
+                  f"fraction {t['fast_fraction']}, {t['chips']} chips, "
+                  f"{t['power_w'] / 1e3:.1f} kW, "
+                  f"${t['usd_per_query']:.3e}/query")
+    slas = np.geomspace(1e-3, 10.0, SWEEP_POINTS)
+    wl = Workload(PAPER_DB, PAPER_ACCESS)
+    worst = {"hard": 0.0, "soft": 0.0, "grad": 0.0, "scalar": 0.0}
+    for sys_ in systems:
+        on_card = torch.tensor(slas, dtype=torch.float32, device="cuda")
+        got = sweep.sweep_performance(sys_, wl, on_card)
+        soft = sweep.soft_performance_power(sys_, wl, on_card)
+        torch.cuda.synchronize()
+        if got.device.type != "cuda" or soft.device.type != "cuda":
+            bad.append(("sweep left the card", sys_.name))
+        host = sweep.sweep_performance(sys_, wl, slas, device="cpu")
+        host_soft = sweep.soft_performance_power(sys_, wl, slas,
+                                                 device="cpu")
+        worst["hard"] = max(worst["hard"], float(
+            ((got.cpu() - host).abs() / host.abs()).max()))
+        worst["soft"] = max(worst["soft"], float(
+            ((soft.cpu() - host_soft).abs() / host_soft.abs()).max()))
+        for i, s_ in enumerate(slas):
+            p = provision_performance(sys_, wl, float(s_)).power
+            worst["scalar"] = max(worst["scalar"],
+                                  abs(float(got[i]) - p) / p)
+        for s_ in (0.01, 0.1):
+            g = sweep.power_sensitivity(sys_, wl, s_)
+            h = sweep.power_sensitivity(sys_, wl, s_, device="cpu")
+            worst["grad"] = max(worst["grad"], *(
+                abs(g[k] - h[k]) / max(abs(h[k]), 1e-30) for k in h))
+    out["sweep"] = worst
+    print(f"sweep of {SWEEP_POINTS} SLAs x {len(systems)} systems on the "
+          f"card: hard vs CPU {worst['hard']:.3e} (limit {SWEEP_RTOL}), "
+          f"soft vs CPU {worst['soft']:.3e} (limit {SWEEP_RTOL}), "
+          f"gradients vs CPU {worst['grad']:.3e} (limit {GRAD_RTOL}), "
+          f"hard vs the scalar model {worst['scalar']:.3e} (limit "
+          f"{SCALAR_RTOL})")
+    if not (worst["hard"] <= SWEEP_RTOL and worst["soft"] <= SWEEP_RTOL
+            and worst["grad"] <= GRAD_RTOL
+            and worst["scalar"] < SCALAR_RTOL):
+        bad.append(("sweep outside its tolerances", worst))
+    if bad:
+        for b in bad:
+            print("MISMATCH", str(b)[:2000], file=sys.stderr)
+        fail(f"{len(bad)} paper model checks failed")
+    return out
+
+
+# --------------------------------------------------------------------------
 # the LM serving slice: attention kernels 10 and 11
 # --------------------------------------------------------------------------
 
@@ -3347,6 +3596,7 @@ def main() -> None:
     launches = main_phase(table)
     kernels = times_phase(table, dev, launches, parity_err)
     profile_phase(table, plan_shapes(), "main")
+    paper_engine = paper_engine_phase(table, dev)
     shapes = grouped_main_shapes(build_dim({"a": [1, 3, 5, 99, 127]}))
     grouped = {"main": grouped_phase(table, shapes, "main", MAIN_ROWS)}
     profile_phase(table, shapes, "grouped main")
@@ -3385,6 +3635,11 @@ def main() -> None:
         if rec["name"] in tier["main"]["launches"]:
             rec["launches_tiered"] = {p: t["launches"][rec["name"]]
                                       for p, t in tier.items()}
+        if rec["name"] in paper_engine["launches"]:
+            rec["launches_paper_model"] = \
+                paper_engine["launches"][rec["name"]]
+    paper = paper_model_phase(paper_engine, tier, encoded.ratio, dev)
+    print(json.dumps({"paper_model": paper}, default=str), flush=True)
     # the LM slice needs the card's memory: drop the query tables first
     del table, encoded, shapes
     torch.cuda.empty_cache()

@@ -1,15 +1,11 @@
-"""System datasheets for the paper's analytical model: Table 1
-(counterpart of the first part of repro/core/systems.py).
+"""System datasheets for the paper's analytical model: Table 1 plus the
+accelerator the port runs on (counterpart of repro/core/systems.py, with
+an NVIDIA H100 row where the reference has its TPU row).
 
 Unit conventions (recovered from the paper's numbers): capacities are
 *binary* (GiB/TiB), bandwidths are *decimal* (GB/s). Using these
 conventions the paper's 256x / 60x capacity-provisioned speedups are
 reproduced exactly.
-
-Only Table 1 is here: the tier and energy layers price their memory and
-compute terms from it. The reference's TPU datasheet rows and the
-analytical model come with the paper model (ROADMAP.md, 'Modules to
-port', step 7), which brings an H100 row in their place.
 """
 from __future__ import annotations
 
@@ -127,3 +123,70 @@ DIE_STACKED = SystemSpec(
 )
 
 PAPER_SYSTEMS = (TRADITIONAL, BIG_MEMORY, DIE_STACKED)
+
+
+# --- the accelerator as the 2020s die-stacked node --------------------------
+
+@dataclass(frozen=True)
+class AcceleratorSpec:
+    """Datasheet constants used by the roofline engine and the advisor."""
+
+    name: str
+    peak_flops_bf16: float      # FLOP/s per chip (dense)
+    hbm_bandwidth: float        # bytes/s per chip (decimal units)
+    hbm_capacity: float         # bytes per chip (binary units)
+    link_bandwidth: float       # bytes/s per chip-to-chip link, one direction
+    links: int                  # links per chip
+    chip_power: float           # W per chip (board power limit)
+    chips_per_host: int
+    host_overhead_power: float  # W per host (CPUs, NICs, fans, switches)
+
+    @property
+    def bandwidth_capacity_ratio(self) -> float:
+        return self.hbm_bandwidth / self.hbm_capacity
+
+    @property
+    def ridge_intensity(self) -> float:
+        """FLOP/byte at which compute and HBM terms balance."""
+        return self.peak_flops_bf16 / self.hbm_bandwidth
+
+
+# NVIDIA H100 SXM5 80GB datasheet. Its HBM3 is five die-stacked stacks on
+# the package: the paper's die-stacked node, a decade on.
+H100_SXM = AcceleratorSpec(
+    name="h100-sxm",
+    peak_flops_bf16=989e12,       # dense bf16 tensor-core rate
+    hbm_bandwidth=3.35 * TB,      # decimal, as the module's convention
+    hbm_capacity=80 * GiB,        # "80 GB" read in the module's binary units
+    link_bandwidth=25 * GB,       # NVLink 4: 50 GB/s a link, 25 each way
+    links=18,                     # 18 links, 900 GB/s in all
+    chip_power=700.0,             # SXM5 board power limit
+    chips_per_host=8,             # HGX H100 baseboard
+    # No datasheet gives a host's own power: a DGX H100's 10.2 kW
+    # maximum less its eight 700 W cards.
+    host_overhead_power=10200.0 - 8 * 700.0,
+)
+
+
+def as_paper_system(spec: AcceleratorSpec = H100_SXM) -> SystemSpec:
+    """Express an accelerator chip in the paper's Table-1 vocabulary so
+    that the paper's provisioning machinery applies unchanged.
+
+    One chip = one module = one "channel"; cores are modeled so that
+    core_perf * max_cores == HBM bandwidth (a scan is bandwidth-bound, the
+    paper's Eq. 4 regime), and memory takes a quarter of the board power.
+    """
+    cores = 32
+    return SystemSpec(
+        name=f"{spec.name}-as-paper",
+        module_capacity=spec.hbm_capacity,
+        channel_bandwidth=spec.hbm_bandwidth,
+        memory_channels=1,
+        channel_modules=1,
+        module_power=spec.chip_power * 0.25,   # HBM share of board power
+        blade_chips=spec.chips_per_host,
+        core_perf=spec.hbm_bandwidth / cores,
+        core_power=spec.chip_power * 0.75 / cores,
+        max_chip_cores=cores,
+        blade_overhead=spec.host_overhead_power,
+    )

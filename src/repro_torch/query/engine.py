@@ -29,10 +29,13 @@ flat-table and compressed-store paths).
   an enabled `tracer=` records each query's spans in modeled time.
   Placement never changes answers — execution is identical, the kernels
   run as in flat mode; only the time/energy accounting moves.
+- model_check() and provision() hold the measured rate against the
+  paper model (repro_torch.core; default system the H100 datasheet row)
+  and provision a cluster from it.
 
-The reference engine's chaos, monitoring, sharded and model-feedback
-paths belong to later slices of the port; asking for one raises
-NotImplementedError naming its step in ROADMAP.md ("Modules to port").
+The reference engine's chaos, monitoring and sharded paths belong to
+later slices of the port; asking for one raises NotImplementedError
+naming its step in ROADMAP.md ("Modules to port").
 """
 from __future__ import annotations
 
@@ -461,9 +464,41 @@ class QueryEngine:
         return out
 
     def model_check(self, system=None) -> dict:
-        raise _later("model_check (the paper model in core/)",
-                     "step 7 (paper model)")
+        """Measured scan throughput vs the analytical model's Eq. 4 roofline
+        (chips = shards; default system: the H100 datasheet row): the
+        number the provisioning regimes assume each chip sustains, checked
+        against what the kernels attained. The rate is bytes_total over
+        seconds_total, so queries that built kernels count at their cold
+        time."""
+        from repro_torch.core.systems import H100_SXM, as_paper_system
+        if self.seconds_total <= 0:
+            raise ValueError(
+                "no measured throughput to check the model against "
+                "(seconds_total=0); submit() and run() at least one query "
+                "before model_check()")
+        sys_ = system or as_paper_system(H100_SXM)
+        model_bps = sys_.chip_peak_perf * self.n_shards
+        measured = self.bytes_total / self.seconds_total
+        return {
+            "system": sys_.name,
+            "chips": self.n_shards,
+            "measured_gbps": measured / 1e9,
+            "model_gbps": model_bps / 1e9,
+            "attained_fraction": measured / model_bps,
+        }
 
     def provision(self, sla_s: float, system=None):
-        raise _later("provision (the paper model in core/)",
-                     "step 7 (paper model)")
+        """The paper's performance-provisioning question answered from this
+        engine's *measured* workload: how many chips to meet `sla_s` per
+        query, with core_perf calibrated to attained throughput."""
+        from repro_torch.core import advisor
+        if not self.reports or self.seconds_total <= 0:
+            raise ValueError(
+                "no measured queries to provision from; submit() and run() "
+                "at least one query first")
+        return advisor.advise_scan_sla(
+            db_bytes=self.table.nbytes,
+            bytes_per_query=self.bytes_total / len(self.reports),
+            sla_s=sla_s, system=system,
+            measured_chip_bps=(self.bytes_total / self.seconds_total
+                               / self.n_shards))

@@ -331,13 +331,17 @@ class TestEngine:
             tq.QueryEngine(table, device="cpu", **{kw: object()})
 
     def test_later_slice_paths_raise(self, table):
+        """An enabled tracer needs the tiered timeline, as the reference's
+        engine says; the paper model (ported) refuses to run before any
+        query, with the reference's messages."""
         from repro_torch.obs.trace import Tracer
         with pytest.raises(ValueError, match="modeled tiered timeline"):
             tq.QueryEngine(table, device="cpu", tracer=Tracer())
         eng = tq.QueryEngine(table, device="cpu")
         for fn in (eng.model_check, lambda: eng.provision(0.1)):
-            with pytest.raises(NotImplementedError, match="step 7"):
+            with pytest.raises(ValueError, match="no measured"):
                 fn()
+
 
     def test_cuda_mode_on_cpu_table_raises(self, table):
         with pytest.raises(ValueError, match="mode='cuda'"):
@@ -345,3 +349,65 @@ class TestEngine:
         with pytest.raises(ValueError, match="lies on the CPU"):
             scan_aggregate_query(table, [tq.Pred("a", "lt", 5)], "b",
                                  mode="cuda")
+
+
+class TestModelFeedback:
+    """tests/test_query_engine.py's model_check / provision on the port:
+    both engines answer the same queries, their counters are forced to
+    the same seconds, and the paper model's answers must be equal."""
+
+    QUERIES = [("single_pred_fused", ("b",)), ("and_mixed_width", ("w",)),
+               ("multi_agg_mixed", ("b", "w", "x"))]
+
+    def engines(self, table, ref_table, seconds=0.0125):
+        shapes = {n: f for n, f, _, _ in PLAN_SHAPES}
+        teng = tq.QueryEngine(table, device="cpu")
+        jeng = rq.QueryEngine(ref_table, mode="xla_ref")
+        for name, aggs in self.QUERIES:
+            run_one(teng, tq.Query(shapes[name](tq), aggregates=aggs))
+            run_one(jeng, rq.Query(shapes[name](rq), aggregates=aggs))
+        assert teng.bytes_total == jeng.bytes_total > 0
+        assert len(teng.reports) == len(jeng.reports) == 3
+        teng.seconds_total = jeng.seconds_total = seconds
+        return teng, jeng
+
+    def test_model_check_equals_reference(self, table, ref_table):
+        import dataclasses
+
+        import repro.core.systems as rsys
+        import repro_torch.core.systems as tsys
+        teng, jeng = self.engines(table, ref_table)
+        tpu = dataclasses.asdict(rsys.TPU_V5E)
+        tpu["link_bandwidth"] = tpu.pop("ici_link_bandwidth")
+        tpu["links"] = tpu.pop("ici_links")
+        carried = tsys.as_paper_system(tsys.AcceleratorSpec(**tpu))
+        assert teng.model_check(carried) == jeng.model_check()
+        h100 = tsys.as_paper_system(tsys.H100_SXM)
+        assert teng.model_check() == teng.model_check(h100) == \
+            jeng.model_check(rsys.SystemSpec(**dataclasses.asdict(h100)))
+        assert teng.model_check()["system"] == "h100-sxm-as-paper"
+        for t, r in ((tsys.DIE_STACKED, rsys.DIE_STACKED),
+                     (tsys.TRADITIONAL, rsys.TRADITIONAL)):
+            mc = teng.model_check(t)
+            assert mc == jeng.model_check(r)
+            assert mc["chips"] == 1 and mc["measured_gbps"] > 0
+        for sla in (0.001, 0.1):
+            for t, r in ((None, None), (carried, None),
+                         (tsys.DIE_STACKED, rsys.DIE_STACKED)):
+                got = teng.provision(sla, system=t)
+                want = jeng.provision(sla, system=r) if t is not None \
+                    else jeng.provision(sla, system=rsys.SystemSpec(
+                        **dataclasses.asdict(h100)))
+                assert got.summary() == want.summary()
+                assert got.design.response_time <= sla * 1.01
+
+    def test_model_feedback_errors_equal_reference(self, table, ref_table):
+        teng = tq.QueryEngine(table, device="cpu")
+        jeng = rq.QueryEngine(ref_table, mode="xla_ref")
+        for call in (lambda e: e.model_check(),
+                     lambda e: e.provision(sla_s=0.1)):
+            with pytest.raises(ValueError) as got:
+                call(teng)
+            with pytest.raises(ValueError) as want:
+                call(jeng)
+            assert str(got.value) == str(want.value)
