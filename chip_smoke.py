@@ -209,6 +209,50 @@ The Mamba-2 serving slice (mamba2-1.3b) adds:
              window, and the CUDA-core route at the same shape in the same
              call; no library call.
 
+The sharded slice (virtual shards on the card, degraded re-execution,
+chaos) adds:
+
+4c. sharded main — after grouped times (main), the 2^30-row table
+             sharded 8 ways (no padding: the table's own words) and 7 ways
+             (padded): the eleven plans through QueryEngine(sharded,
+             "auto"), each answer against the unsharded engine's, a
+             torch_ref sharded engine's and the merged execute_partials;
+             kernels 1, 4 and 5 must have launched. Prints ms and GB/s a
+             plan beside the unsharded ones, rows_per_shard, padding bytes,
+             and model_check (chips = the virtual shards, as the reference
+             counts them) with the rate against one card's Eq. 4.
+4d. sharded grouped (main) — the main table's delta view built
+             (EncodedTable at 65536-row chunks, ShardedEncodedTable over 8
+             shards); the six grouped main shapes on the 8-shard plain and
+             delta views against the grouped main phase's answers; kernel 8
+             must have launched on each.
+4e. degraded — on both 8-shard views: execute_degraded (three flat
+             queries) and
+             execute_grouped_degraded (three grouped shapes) with shards
+             [0], [3, 5] and seven of eight lost, each answer equal to the
+             fault-free one with recovered bytes > 0; all eight lost must
+             raise DegradedResultError. Prints ms a call.
+7f. sharded store / sharded grouped (store) — after grouped times
+             (store): ShardedEncodedTable over the 2^28-row store, 8 shards,
+             the sixteen store plans against the unsharded store's answers
+             and torch_ref (nbytes printed against the plain and encoded
+             footprints); the seven grouped store shapes on its 8-shard
+             plain and delta views against the grouped store phase's
+             answers.
+7g. chaos — after the paper model phases: examples/chaos_replay.py's
+             replay scaled to 8 x 2^24 rows in 16384-row chunks (1024 a
+             column), FaultSpec(seed=42, stall_rate=0.1, corrupt_rate=0.05),
+             CACHE, skew 1.2, 120 queries: twice with recovery (attainment,
+             fault counts, recovery joules, answers and ledger equal), once
+             without (attainment lower, every answer it gives exact), once
+             through torch_ref (equal to the first); prints host wall and
+             the guard's verification share of it. Then seeded shard losses
+             over the 8-shard view of the tiered main table (kernel and
+             torch_ref replays with equal ledgers, every answer exact).
+             One JSON line {"sharded": {...}} holds the slice's records;
+             each kernel's launches there stand in the {"kernels": ...}
+             line as "launches_sharded".
+
 After the tiered phases one JSON line {"tier": {...}} holds their
 records. The third-to-last line is one JSON object {"serve": {...}} (the
 mamba2 records under "mamba2"), the second-to-last {"kernels": [...]}
@@ -1708,9 +1752,10 @@ class HostClock:
     def wrap(self, name, fn):
         def timed(obj, *a, **kw):
             t0 = time.perf_counter()
-            out = fn(obj, *a, **kw)
-            self.seconds[name] += time.perf_counter() - t0
-            return out
+            try:
+                return fn(obj, *a, **kw)
+            finally:
+                self.seconds[name] += time.perf_counter() - t0
         return timed
 
     def __exit__(self, *exc):
@@ -3571,6 +3616,480 @@ def launch_split(fn, names, dev: dict) -> dict:
     return split
 
 
+# --------------------------------------------------------------------------
+# the sharded slice: virtual shards, degraded re-execution, chaos
+# --------------------------------------------------------------------------
+
+SHARDS = (8, 7)                  # 8 splits 2^30 rows evenly; 7 pads
+DEGRADED_LOST = ([0], [3, 5], list(range(7)))
+CHAOS_COLS = 8
+CHAOS_ROWS = 1 << 24
+CHAOS_CHUNK_ROWS = 16384           # 1024 chunks a column (see chaos_phase)
+CHAOS_QUERIES = 120
+CHAOS_SPEC = dict(seed=42, stall_rate=0.1, corrupt_rate=0.05)
+CHAOS_SLA_SLACK = 2.5            # examples/chaos_replay.py's SLA_SLACK
+CHAOS_FAST_GBPS = 0.016          # ... and its modeled fast tier
+SHARD_LOSS_SPEC = dict(seed=5, shard_loss_rate=0.3)
+
+
+def read_counters(counters: dict) -> dict:
+    """Launches since `reset_counters()` returned `counters`."""
+    return {k: getattr(m, attr) for k, (m, attr) in counters.items()}
+
+
+def unsharded_answers(table, shapes) -> list:
+    """The unsharded engine's results for `shapes` ((name, plan, aggs)),
+    warm: the kernels ran on this table in an earlier phase."""
+    from repro_torch.query import Query, QueryEngine
+    eng = QueryEngine(table, mode="auto")
+    out = []
+    for _, plan, aggs in shapes:
+        eng.submit(Query(plan, aggregates=aggs))
+        out.append(eng.run()[0])
+    return out
+
+
+def sharded_run(st, shapes, flat, label: str, dev: dict, bad: list) -> dict:
+    """`shapes` through QueryEngine(st, "auto"), against `flat` (the
+    unsharded engine's results), QueryEngine(st, "torch_ref") and the
+    merged execute_partials; prints ms and GB/s a plan and model_check."""
+    from repro_torch.core.systems import H100_SXM, as_paper_system
+    from repro_torch.query import Query, QueryEngine
+    counters = reset_counters()
+    eng = QueryEngine(st, mode="auto")
+    got = []
+    for _, plan, aggs in shapes:
+        eng.submit(Query(plan, aggregates=aggs))
+        got.append(eng.run()[0])
+    launches = read_counters(counters)
+    ref = QueryEngine(st, mode="torch_ref")
+    inner = getattr(st, "inner", st)
+    rows = []
+    for (name, plan, aggs), res, f in zip(shapes, got, flat):
+        ref.submit(Query(plan, aggregates=aggs))
+        want = ref.run()[0]
+        same = res.aggregates == f.aggregates == want.aggregates
+        if inner is st:        # the merged partials equal execute's
+            parts = st.execute_partials(plan, aggs)
+            for a in aggs:
+                d, hit = res.aggregates[a], [p[a] for p in parts
+                                             if p[a]["count"]]
+                same = same and d["count"] == sum(p["count"] for p in hit) \
+                    and d["sum"] == sum(p["sum"] for p in hit) \
+                    and (not hit or (d["min"], d["max"]) == (
+                        min(p["min"] for p in hit),
+                        max(p["max"] for p in hit)))
+        gbps = res.bytes_scanned / res.latency_s / 1e9
+        print(f"{label} {name:24s} {res.latency_s * 1e3:9.3f} ms "
+              f"{gbps:8.1f} GB/s | unsharded {f.latency_s * 1e3:9.3f} ms "
+              f"{f.bytes_scanned / f.latency_s / 1e9:8.1f} GB/s | "
+              f"torch_ref {want.latency_s * 1e3:9.3f} ms | count "
+              f"{res.count} equal={same}", flush=True)
+        rows.append({"plan": name, "ms": res.latency_s * 1e3,
+                     "gbps": gbps, "unsharded_ms": f.latency_s * 1e3,
+                     "unsharded_gbps": f.bytes_scanned / f.latency_s / 1e9,
+                     "torch_ref_ms": want.latency_s * 1e3})
+        if not same:
+            bad.append((label, name, res.aggregates, f.aggregates,
+                        want.aggregates))
+    card = as_paper_system(H100_SXM)
+    mc = eng.model_check(card)
+    one_card = eng.bytes_total / eng.seconds_total / card.chip_peak_perf
+    print(f"{label} model_check (chips = {mc['chips']} virtual shards): "
+          f"{json.dumps(mc)}; against one card's Eq. 4 "
+          f"({card.chip_peak_perf / 1e9:.0f} GB/s): {one_card:.4f}")
+    print(f"{label} kernel launches {launches}; dispatch counts "
+          f"{eng.metrics.launch_counts()}", flush=True)
+    return {"plans": rows, "launches": launches, "model_check": mc,
+            "one_card_fraction": one_card,
+            "rows_per_shard": inner.rows_per_shard,
+            "padding_bytes": st.nbytes - sum(
+                4 * int(c.words.numel())
+                for c in inner.table.columns.values()),
+            "nbytes": st.nbytes}
+
+
+def sharded_main_phase(table, dev: dict) -> dict:
+    """The main table sharded 8 ways (no padding) and 7 ways (padded):
+    the eleven plans against the unsharded engine and torch_ref; kernels
+    1, 4 and 5 must have launched."""
+    phase("sharded main")
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.query import ShardedTable
+    shapes = plan_shapes()
+    flat = unsharded_answers(table, shapes)
+    out, bad = {}, []
+    for n in SHARDS:
+        t0 = time.perf_counter()
+        st = ShardedTable.shard(table, make_mesh((n,), ("data",)))
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        print(f"{n} shards: rows_per_shard {st.rows_per_shard}, "
+              f"{st.nbytes} device bytes ({st.nbytes - table.nbytes} of "
+              f"padding), shard() {shard_s * 1e3:.3f} ms", flush=True)
+        rec = out[n] = sharded_run(st, shapes, flat, f"[{n}]", dev, bad)
+        rec["shard_ms"] = shard_s * 1e3
+        del st
+        release()
+    if bad:
+        for b in bad:
+            print("MISMATCH", str(b)[:2000], file=sys.stderr)
+        fail(f"{len(bad)} sharded main results differ")
+    for n, rec in out.items():
+        zero = [k for k in ("scan_filter", "aggregate_batched",
+                            "scan_aggregate_batched")
+                if rec["launches"][k] == 0]
+        if zero:
+            fail(f"kernels never launched on the {n}-shard path: {zero}")
+    return out
+
+
+def sharded_grouped_phase(label: str, views: dict, shapes,
+                          want: list) -> dict:
+    """Grouped `shapes` through QueryEngine(view, "auto") for each 8-shard
+    view, against `want` (the unsharded grouped phase's results); kernel 8
+    must have launched on each."""
+    phase(f"sharded grouped ({label})")
+    from repro_torch.query import QueryEngine
+    out, bad = {}, []
+    for vname, st in views.items():
+        counters = reset_counters()
+        eng = QueryEngine(st, mode="auto")
+        rows = []
+        for (name, q), w in zip(shapes, want):
+            eng.submit(q)
+            r = eng.run()[0]
+            same = r.aggregates == w.aggregates
+            print(f"{label} {vname:6s} {name:18s} {r.latency_s * 1e3:9.3f} "
+                  f"ms | unsharded {w.latency_s * 1e3:9.3f} ms | "
+                  f"{len(r.aggregates['groups'])} groups, count {r.count} "
+                  f"equal={same}", flush=True)
+            rows.append({"shape": name, "ms": r.latency_s * 1e3,
+                         "unsharded_ms": w.latency_s * 1e3})
+            if not same:
+                bad.append((vname, name))
+        launches = read_counters(counters)
+        print(f"{label} {vname} kernel launches {launches}; dispatch counts "
+              f"{eng.metrics.launch_counts()}")
+        if launches["group_sum_count_batched"] == 0:
+            fail(f"kernel 8 never launched on the sharded grouped {label} "
+                 f"{vname} path")
+        out[vname] = {"shapes": rows, "launches": launches}
+    if bad:
+        fail(f"sharded grouped {label} results differ: {bad}")
+    return out
+
+
+def delta_view(encoded, n: int):
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.store import ShardedEncodedTable
+    t0 = time.perf_counter()
+    se = ShardedEncodedTable.shard(encoded, make_mesh((n,), ("data",)))
+    torch.cuda.synchronize()
+    return se, time.perf_counter() - t0
+
+
+def main_views(table, mesh) -> tuple:
+    """The 8-shard plain view of the main table and its delta view (the
+    table encoded in STORE_CHUNK_ROWS chunks, then ShardedEncodedTable);
+    returns them and the delta view's set-up record."""
+    from repro_torch.query import ShardedTable
+    from repro_torch.store import EncodedTable
+    t0 = time.perf_counter()
+    encoded = EncodedTable.from_table(table, chunk_rows=STORE_CHUNK_ROWS)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    se, shard_s = delta_view(encoded, mesh.shape["data"])
+    print(f"delta view of the main table: encode {enc_s:.3f} s, shard "
+          f"{shard_s:.3f} s, {se.nbytes} device bytes, frames "
+          f"{se.frames}", flush=True)
+    return ({"plain": ShardedTable.shard(table, mesh), "delta": se},
+            {"encode_s": enc_s, "shard_s": shard_s, "nbytes": se.nbytes})
+
+
+def degraded_phase(views: dict, dim) -> dict:
+    """execute_degraded and execute_grouped_degraded on the 8-shard main
+    table and its delta view: lost shards [0], [3, 5] and seven of eight,
+    each answer against the fault-free one with recovered bytes > 0; all
+    eight lost must raise DegradedResultError."""
+    phase("degraded")
+    from repro_torch.query import GroupBy, HashJoin, Pred
+    from repro_torch.resilience import (DegradedResultError,
+                                        execute_degraded,
+                                        execute_grouped_degraded)
+    flat = [("fused", Pred("a", "lt", 64), ("b",)),
+            ("and_mixed", Pred("a", "lt", 50) & Pred("w", "ge", 9000),
+             ("w", "b")),
+            ("empty", Pred("a", "gt", 127), ("b",))]
+    grouped = [("groupby_dense", GroupBy("a", ("w",))),
+               ("count_only", GroupBy("x")),
+               ("hash_join", HashJoin(dim, "a", "a", aggs=("b",)))]
+    counters = reset_counters()
+    rec, bad = [], []
+    for vname, st in views.items():
+        for name, plan, aggs in flat:
+            want = st.execute(plan, aggs)
+            for lost in DEGRADED_LOST:
+                t0 = time.perf_counter()
+                got, rb = execute_degraded(st, plan, aggs, lost)
+                ms = (time.perf_counter() - t0) * 1e3
+                ok = got == want and rb > 0
+                rec.append({"view": vname, "query": name, "lost": lost,
+                            "ms": ms, "recovered_bytes": rb})
+                print(f"{vname:6s} {name:14s} lost {len(lost)} "
+                      f"{str(lost):22s} {ms:9.3f} ms  recovered {rb} B  "
+                      f"equal={ok}", flush=True)
+                if not ok:
+                    bad.append((vname, name, lost, got, want))
+            try:
+                execute_degraded(st, plan, aggs, range(8))
+                bad.append((vname, name, "all eight lost did not raise"))
+            except DegradedResultError:
+                pass
+        for name, q in grouped:
+            want = st.execute_grouped(q)
+            for lost in DEGRADED_LOST:
+                t0 = time.perf_counter()
+                got, rb = execute_grouped_degraded(st, q, lost)
+                ms = (time.perf_counter() - t0) * 1e3
+                ok = got == want and rb > 0
+                rec.append({"view": vname, "query": name, "lost": lost,
+                            "ms": ms, "recovered_bytes": rb})
+                print(f"{vname:6s} {name:14s} lost {len(lost)} "
+                      f"{str(lost):22s} {ms:9.3f} ms  recovered {rb} B  "
+                      f"equal={ok}", flush=True)
+                if not ok:
+                    bad.append((vname, name, lost))
+            try:
+                execute_grouped_degraded(st, q, range(8))
+                bad.append((vname, name, "all eight lost did not raise"))
+            except DegradedResultError:
+                pass
+    launches = read_counters(counters)
+    print(f"kernel launches on the degraded path: {launches}")
+    if bad:
+        for b in bad:
+            print("MISMATCH", str(b)[:2000], file=sys.stderr)
+        fail(f"{len(bad)} degraded results differ or did not raise")
+    return {"calls": rec, "launches": launches}
+
+
+def sharded_store_phase(table, encoded, dev: dict) -> dict:
+    """ShardedEncodedTable over the 2^28-row store, 8 shards: the sixteen
+    store plans against the unsharded store's answers and torch_ref."""
+    phase("sharded store")
+    shapes = store_plan_shapes()
+    flat = unsharded_answers(encoded, shapes)
+    se, shard_s = delta_view(encoded, 8)
+    print(f"delta view: {se.nbytes} device bytes against the plain "
+          f"footprint {table.nbytes} and the encoded store's "
+          f"{encoded.nbytes}; rows_per_shard {se.inner.rows_per_shard}; "
+          f"shard {shard_s:.3f} s; frames {se.frames}", flush=True)
+    bad = []
+    rec = sharded_run(se, shapes, flat, "[8 delta]", dev, bad)
+    if bad:
+        for b in bad:
+            print("MISMATCH", str(b)[:2000], file=sys.stderr)
+        fail(f"{len(bad)} sharded store results differ")
+    rec.update(shard_s=shard_s, plain_nbytes=table.nbytes,
+               encoded_nbytes=encoded.nbytes)
+    return rec, se
+
+
+def sharded_launches(sharded: dict, name: str) -> dict:
+    """Kernel `name`'s launches in each sharded-slice run, for the
+    {"kernels": ...} line's "launches_sharded"."""
+    runs = {f"main {n} shards": r["launches"]
+            for n, r in sharded["main"].items()}
+    runs["store 8 shards"] = sharded["store"]["launches"]
+    for label in ("grouped_main", "grouped_store"):
+        for view, r in sharded[label].items():
+            runs[f"{label} {view}"] = r["launches"]
+    runs["degraded"] = sharded["degraded"]["launches"]
+    runs["chaos"] = sharded["chaos"]["launches"]
+    runs["shard loss"] = sharded["chaos"]["shard_loss_launches"]
+    return {k: v[name] for k, v in runs.items() if v.get(name)}
+
+
+class GuardClock(HostClock):
+    """Host seconds in ChunkGuard.check (crc32 over host copies of every
+    chunk a guarded query reads), a check that raises included."""
+
+    def __init__(self):
+        from repro_torch.resilience import ChunkGuard
+        self.targets = [(ChunkGuard, "check")]
+        self.seconds = {"check": 0.0}
+
+
+def build_chaos_table():
+    """examples/chaos_replay.py's table (eight 8-bit columns) at
+    CHAOS_ROWS rows, built on the card from a seeded generator."""
+    from repro_torch.db import BitPackedColumn, Table
+    from repro_torch.kernels.scan_filter.ref import field_masks
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    t = Table("events")
+    delim, _, _ = field_masks(8)
+    for i in range(CHAOS_COLS):
+        t.add(BitPackedColumn(f"c{i:02d}", 8, CHAOS_ROWS, random_words(
+            CHAOS_ROWS // 4, ~int(delim) & 0xFFFFFFFF, g)))
+    torch.cuda.synchronize()
+    return t
+
+
+def chaos_run(table, trace, recover: bool, mode: str = "auto") -> dict:
+    """examples/chaos_replay.py::chaos_run at this size: a fresh store,
+    corruption injected, the trace replayed under CACHE with stalls and
+    retries; host wall and the guard's share of it."""
+    from repro_torch.query import physical
+    from repro_torch.resilience import (ChaosHarness, ChunkGuard, FaultSpec,
+                                        RetryPolicy)
+    from repro_torch.store import EncodedTable
+    from repro_torch.tier import Policy, paper_tiers, replay_trace
+    encoded = EncodedTable.from_table(table, chunk_rows=CHAOS_CHUNK_ROWS)
+    tiers = paper_tiers(table.nbytes * 0.25, fast_gbps=CHAOS_FAST_GBPS)
+    clean_s = (encoded.nbytes
+               / sum(len(c.chunks) for c in encoded.columns.values())
+               / tiers.fast.bandwidth)
+    chaos = ChaosHarness(FaultSpec(**CHAOS_SPEC),
+                         guard=ChunkGuard(encoded), recover=recover,
+                         retry=RetryPolicy(timeout_s=2.0 * clean_s,
+                                           backoff_s=0.5 * clean_s,
+                                           max_retries=2))
+    corrupted = chaos.inject_corruption()
+    bytes_typ = sum(physical.referenced_bytes(tq.query.plan(),
+                                              tq.query.aggregates,
+                                              encoded.columns)
+                    for tq in trace) / len(trace)
+    sla_s = CHAOS_SLA_SLACK * bytes_typ / tiers.fast.bandwidth
+    with GuardClock() as gc:
+        t0 = time.perf_counter()
+        pe, eng, att = replay_trace(encoded, trace, tiers, Policy.CACHE,
+                                    sla_s=sla_s,
+                                    chunk_rows=CHAOS_CHUNK_ROWS,
+                                    chaos=chaos, mode=mode)
+        wall = time.perf_counter() - t0
+    s = chaos.summary()
+    answers = [(r.qid, r.degraded, r.aggregates) for r in eng.results]
+    rec = {"attainment": att, "summary": s,
+           "recovery_j": pe.meter.recovery_j, "answers": answers,
+           "corrupted": len(corrupted),
+           "ledger": [c.as_dict() for c in pe.meter.charges],
+           "wall_s": wall, "verify_s": gc.seconds["check"]}
+    print(f"recover={recover!s:5s} {mode:9s} attainment {att:.4f}  stalls "
+          f"{s['stalls']} retries {s['retries']} failovers "
+          f"{s['failovers']} repairs {s['repairs']} degraded "
+          f"{s['degraded_queries']}  recovery {rec['recovery_j'] * 1e6:.4f} "
+          f"uJ  mttr {s['mttr_s']}  corrupted {len(corrupted)}  host "
+          f"{wall:.3f} s, verify {rec['verify_s']:.3f} s "
+          f"({rec['verify_s'] / wall:.4f} of it)", flush=True)
+    del encoded, chaos, pe, eng
+    return rec
+
+
+def chaos_phase(dev: dict, fast_gbps: float) -> dict:
+    """examples/chaos_replay.py scaled up: two same-seed replays must
+    agree to the bit, the no-recovery replay must attain less and answer
+    exactly wherever it answers, the torch_ref replay's ledger must equal
+    the kernels'; then shard losses over the 8-shard tiered main table."""
+    phase("chaos")
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.query import ShardedTable
+    from repro_torch.resilience import ChaosHarness, FaultSpec
+    from repro_torch.tier import (Policy, TraceSpec, make_trace, paper_tiers,
+                                  replay_trace)
+    table = build_chaos_table()
+    trace = make_trace(table, TraceSpec(n_queries=CHAOS_QUERIES, skew=1.2,
+                                        seed=11))
+    print(f"chaos store: {CHAOS_COLS} x {CHAOS_ROWS} rows, chunk_rows "
+          f"{CHAOS_CHUNK_ROWS}, {CHAOS_QUERIES} queries, {CHAOS_SPEC}",
+          flush=True)
+    counters = reset_counters()
+    first = chaos_run(table, trace, True)
+    second = chaos_run(table, trace, True)
+    off = chaos_run(table, trace, False)
+    plain = chaos_run(table, trace, True, mode="torch_ref")
+    launches = read_counters(counters)
+    bad = []
+    keys = ("attainment", "summary", "recovery_j", "answers", "ledger")
+    for other, label in ((second, "second replay"), (plain, "torch_ref")):
+        diff = [k for k in keys if first[k] != other[k]]
+        if diff:
+            bad.append((label, diff))
+    if not off["attainment"] < first["attainment"]:
+        bad.append(("recover=False attains", off["attainment"],
+                    first["attainment"]))
+    exact = {qid: a for qid, _, a in first["answers"]}
+    wrong = [qid for qid, d, a in off["answers"] if not d and a != exact[qid]]
+    if wrong:
+        bad.append(("recover=False answers differ", wrong))
+    if first["summary"]["degraded_queries"] or \
+            not first["summary"]["repairs"] or \
+            not off["summary"]["degraded_queries"]:
+        bad.append(("fault counts", first["summary"], off["summary"]))
+    print(f"kernel launches in the chaos replays: {launches}")
+    del table, trace
+    release()
+
+    tier_table = build_tier_table()
+    st = ShardedTable.shard(tier_table, make_mesh((8,), ("data",)))
+    trace = make_trace(tier_table, TraceSpec(n_queries=CHAOS_QUERIES,
+                                             skew=1.1, seed=TIER_SEED))
+    tiers = paper_tiers(tier_table.nbytes * TIER_FAST_FRACTION,
+                        fast_gbps=fast_gbps)
+    want = torch_ref_answers(tier_table, trace)
+    counters = reset_counters()
+    loss = {}
+    for mode in ("auto", "torch_ref"):
+        chaos = ChaosHarness(FaultSpec(**SHARD_LOSS_SPEC))
+        t0 = time.perf_counter()
+        pe, eng, att = replay_trace(st, trace, tiers, Policy.CACHE,
+                                    sla_s=sla_of(tier_table, trace, tiers),
+                                    chunk_rows=TIER_CHUNK_ROWS, chaos=chaos,
+                                    mode=mode)
+        wall = time.perf_counter() - t0
+        s = chaos.summary()
+        wrong = [r.qid for r in eng.results
+                 if r.degraded or r.aggregates != want[r.qid - 1]]
+        if wrong:
+            bad.append(("shard loss answers", mode, wrong))
+        loss[mode] = {"attainment": att, "summary": s, "wall_s": wall,
+                      "recovery_j": pe.meter.recovery_j,
+                      "recovery_bytes": pe.recovery_bytes_total,
+                      "ledger": [c.as_dict() for c in pe.meter.charges]}
+        print(f"shard loss {mode:9s} 8 shards: attainment {att:.4f}  "
+              f"losses {s['shard_losses']} recoveries "
+              f"{s['shard_recoveries']}  recovery bytes "
+              f"{pe.recovery_bytes_total}  recovery "
+              f"{pe.meter.recovery_j * 1e3:.4f} mJ  host {wall:.3f} s",
+              flush=True)
+        if mode == "auto":
+            loss_launches = read_counters(counters)
+    a, b = loss["auto"], loss["torch_ref"]
+    if [a[k] for k in ("attainment", "summary", "recovery_j", "ledger")] \
+            != [b[k] for k in ("attainment", "summary", "recovery_j",
+                               "ledger")]:
+        bad.append(("shard loss: torch_ref ledger differs",))
+    s = a["summary"]
+    if not s["shard_losses"] or s["shard_recoveries"] != s["shard_losses"]:
+        bad.append(("shard loss counts", s))
+    print(f"kernel launches in the shard-loss replay: {loss_launches}")
+    if bad:
+        for x in bad:
+            print("MISMATCH", str(x)[:2000], file=sys.stderr)
+        fail(f"{len(bad)} chaos checks failed")
+    del st, tier_table
+    release()
+    strip = ("answers", "ledger")
+    return {"store": {k: {f: v for f, v in r.items() if f not in strip}
+                      for k, r in (("recover", first), ("again", second),
+                                   ("no_recovery", off),
+                                   ("torch_ref", plain))},
+            "launches": launches,
+            "shard_loss": {k: {f: v for f, v in r.items() if f != "ledger"}
+                           for k, r in loss.items()},
+            "shard_loss_launches": loss_launches}
+
+
 def main() -> None:
     dev = device_phase()
     sys.path.insert(0, str(SRC))
@@ -3601,8 +4120,17 @@ def main() -> None:
     grouped = {"main": grouped_phase(table, shapes, "main", MAIN_ROWS)}
     profile_phase(table, shapes, "grouped main")
     group_main = group_times_main(table, dev)
-    del table, shapes
-    torch.cuda.empty_cache()
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.query import ShardedTable
+    mesh8 = make_mesh((8,), ("data",))
+    sharded = {"main": sharded_main_phase(table, dev)}
+    views, sharded["main_delta"] = main_views(table, mesh8)
+    sharded["grouped_main"] = sharded_grouped_phase(
+        "main", views, shapes, grouped["main"]["results"])
+    sharded["degraded"] = degraded_phase(
+        views, build_dim({"a": [1, 3, 5, 99, 127]}))
+    del table, shapes, views
+    release()
 
     from repro_torch.store import EncodedTable
     table = build_store_table()
@@ -3627,6 +4155,12 @@ def main() -> None:
         fail(f"kernels never launched on the grouped paths: {zero}")
     kernels += group_records(group_main, store_dense, store_rle, launches,
                              parity_err)
+    sharded["store"], se = sharded_store_phase(table, encoded, dev)
+    sharded["grouped_store"] = sharded_grouped_phase(
+        "store", {"plain": ShardedTable.shard(table, mesh8), "delta": se},
+        shapes, grouped["store"]["results"])
+    del se
+    release()
     tier = {"main": tiered_main_phase(dev)}
     tier["store"] = tiered_store_phase(table, encoded,
                                        tier["main"]["fast_gbps"], dev)
@@ -3640,6 +4174,12 @@ def main() -> None:
                 paper_engine["launches"][rec["name"]]
     paper = paper_model_phase(paper_engine, tier, encoded.ratio, dev)
     print(json.dumps({"paper_model": paper}, default=str), flush=True)
+    sharded["chaos"] = chaos_phase(dev, tier["main"]["fast_gbps"])
+    print(json.dumps({"sharded": sharded}, default=str), flush=True)
+    for rec in kernels:
+        runs = sharded_launches(sharded, rec["name"])
+        if runs:
+            rec["launches_sharded"] = runs
     # the LM slice needs the card's memory: drop the query tables first
     del table, encoded, shapes
     torch.cuda.empty_cache()

@@ -29,6 +29,23 @@ def _check_code_bits(name: str, code_bits: int) -> None:
             f"exact aggregation needs payloads < 2^16)")
 
 
+def prefix_valid(n_words: int, n_rows: int, code_bits: int,
+                 device) -> torch.Tensor:
+    """(n_words,) packed delimiter-bit mask whose first `n_rows` rows are
+    set, built on `device`: pack_mask(arange(n_words * cpw) < n_rows)
+    without a row plane. Whole words of set rows are the delimiter mask,
+    the word holding the last set row is partial, and words past it are
+    0."""
+    full, part = divmod(n_rows, 32 // code_bits)
+    delim, _, _ = packref.field_masks(code_bits)
+    valid = torch.zeros(n_words, dtype=torch.int32, device=device)
+    valid[:full] = packref.as_int32(delim)
+    if part:
+        bits = sum(1 << (i * code_bits + code_bits - 1) for i in range(part))
+        valid[full] = packref.as_int32(bits)
+    return valid
+
+
 @dataclass
 class BitPackedColumn:
     name: str
@@ -76,16 +93,9 @@ class BitPackedColumn:
         the delimiter mask, the word holding the last row is partial, and
         words past it are 0."""
         if self._valid is None:
-            c = self.codes_per_word
-            full, part = divmod(self.num_rows, c)
-            delim, _, _ = packref.field_masks(self.code_bits)
-            valid = torch.zeros_like(self.words)
-            valid[:full] = packref.as_int32(delim)
-            if part:
-                bits = sum(1 << (i * self.code_bits + self.code_bits - 1)
-                           for i in range(part))
-                valid[full] = packref.as_int32(bits)
-            self._valid = valid
+            self._valid = prefix_valid(int(self.words.numel()),
+                                       self.num_rows, self.code_bits,
+                                       self.words.device)
         return self._valid
 
     @property

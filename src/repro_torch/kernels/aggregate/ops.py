@@ -16,7 +16,8 @@ from repro_torch.kernels.aggregate import ref
 from repro_torch.kernels.aggregate.ref import (AggRow, as_dict, identity,
                                                identity_row, split_sum)
 
-__all__ = ["aggregate", "aggregate_batched", "finalize", "identity",
+__all__ = ["aggregate", "aggregate_batched", "finalize",
+           "finalize_row", "identity",
            "split_sum", "sum_bound_block_rows", "to3d_words"]
 
 LANES = 128          # the reference's tile width (words per tile row)
@@ -35,7 +36,12 @@ def finalize(d: AggRow) -> dict:
     """Device aggregate dict -> exact host ints, planes reassembled. One
     copy of the 5-field row to the host (which also waits for the
     device)."""
-    lo, hi, count, vmin, vmax = d.row.tolist()
+    return finalize_row(d.row.tolist())
+
+
+def finalize_row(row) -> dict:
+    """A host [sum_lo, sum_hi, count, min, max] row -> exact host ints."""
+    lo, hi, count, vmin, vmax = row
     return {"sum": (hi << 16) + lo, "count": count, "min": vmin,
             "max": vmax}
 

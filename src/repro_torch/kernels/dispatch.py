@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import enum
 import importlib
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -104,10 +105,28 @@ def registered() -> dict[str, KernelOp]:
 # reference, so the port's counts compare one for one with its. The real
 # CUDA launches are counted apart, by each kernel.py's LAUNCHES.
 
+_muted = 0
+
+
+@contextmanager
+def muted(on: bool = True):
+    """While `on`, op calls inside the block are not counted. For callers
+    that count by the reference's rule instead: a sharded table counts a
+    query shape's dispatches once, at its first execution, as the
+    reference counts when it traces its cached shard_map."""
+    global _muted
+    _muted += bool(on)
+    try:
+        yield
+    finally:
+        _muted -= bool(on)
+
+
 def count_launch(name: str, n: int = 1) -> None:
     """Record `n` dispatches for kernel family `name` (in every active
-    metrics scope)."""
-    _metrics.count_launch(name, n)
+    metrics scope), unless inside `muted()`."""
+    if not _muted:
+        _metrics.count_launch(name, n)
 
 
 def record_batch(name: str, width: int, n_chunks: int) -> None:

@@ -1,6 +1,5 @@
 """SLA-aware query engine on a torch device: EDF admission, dispatch
-execution, measured throughput (counterpart of repro/query/engine.py,
-flat-table and compressed-store paths).
+execution, measured throughput (counterpart of repro/query/engine.py).
 
 - queries carry deadlines and are admitted/ordered by the shared EDF
   machinery (repro_torch.serve.sla) with service-time estimates of
@@ -17,6 +16,10 @@ flat-table and compressed-store paths).
   store.exec.execute_grouped_encoded on a store table (the
   group_aggregate kernels); the result is the grouped dict
   {"groups": ..., "count": total};
+- a query.sharded.ShardedTable (or the store's ShardedEncodedTable)
+  executes every virtual shard in one batched launch and combines the
+  shards' partials; n_shards is the chip count of the tier and paper
+  models, as in the reference;
 - every query's bytes_scanned and attained wall-clock latency are
   recorded, so measured_bps feeds admission;
 - with `tiered=` a repro_torch.tier.PlacementEngine, the table is treated
@@ -28,14 +31,16 @@ flat-table and compressed-store paths).
   read, `power_cap=` throttles modeled service under a watt budget, and
   an enabled `tracer=` records each query's spans in modeled time.
   Placement never changes answers — execution is identical, the kernels
-  run as in flat mode; only the time/energy accounting moves.
+  run as in flat mode; only the time/energy accounting moves. `chaos=` a
+  repro_torch.resilience.ChaosHarness runs each query under injected
+  faults (verify-on-read, retry, shard failover) on the same clock.
 - model_check() and provision() hold the measured rate against the
   paper model (repro_torch.core; default system the H100 datasheet row)
   and provision a cluster from it.
 
-The reference engine's chaos, monitoring and sharded paths belong to
-later slices of the port; asking for one raises NotImplementedError
-naming its step in ROADMAP.md ("Modules to port").
+The reference engine's SLO monitor (`monitor=`) belongs to a later slice
+of the port; asking for it raises NotImplementedError naming its step in
+ROADMAP.md ("Modules to port").
 """
 from __future__ import annotations
 
@@ -81,7 +86,7 @@ class QueryResult:
     met: bool
     tier: dict | None = None        # tiered mode: byte split + modeled s
     logical_bytes: int = 0          # == bytes_scanned unless compressed
-    degraded: bool = False          # chaos (ROADMAP.md step 6b): False
+    degraded: bool = False          # chaos: no exact answer was produced
     error: str | None = None        # the typed degradation, when degraded
 
 
@@ -111,12 +116,8 @@ class QueryEngine:
                  clock=time.perf_counter, est_gbps: float = 1.0,
                  tiered=None, power_cap=None, chaos=None, prefetch=None,
                  tracer=None, metrics=None, monitor=None, device=None):
-        if chaos is not None:
-            raise _later("chaos=", "step 6b (resilience)")
         if monitor is not None:
             raise _later("monitor=", "step 6c (obs: slo)")
-        if hasattr(table, "n_shards"):
-            raise _later("a sharded table", "step 5 (sharding)")
         if tracer is not None and getattr(tracer, "enabled", True) \
                 and tiered is None:
             # spans are stamped in *modeled* time; a flat engine only has
@@ -135,6 +136,18 @@ class QueryEngine:
                 raise ValueError(
                     "prefetch pipeline was built over a different "
                     "PlacementEngine than this engine's tiered=")
+        if chaos is not None:
+            if tiered is None:
+                # faults are modeled service/byte penalties on the tier
+                # ledger; without tiering there is nothing to charge them to
+                raise ValueError(
+                    "chaos needs the tiered service model; pass "
+                    "tiered=repro.tier.PlacementEngine(...) as well")
+            if chaos.guard is not None and chaos.guard.table is not table:
+                raise ValueError(
+                    "chaos.guard was built over a different table than "
+                    "this engine executes; its oracle cannot repair these "
+                    "chunks")
         if tiered is not None and not hasattr(clock, "advance"):
             # modeled service needs a modeled time axis: pricing admission
             # at tier rates while deadlines tick on the wall clock would
@@ -165,6 +178,7 @@ class QueryEngine:
         self.table = table
         self.tiered = tiered
         self.power_cap = power_cap
+        self.chaos = chaos
         self.prefetch = prefetch
         # per-engine metrics scope: execution runs inside scoped(metrics),
         # so launch counts here are this engine's alone while the default
@@ -184,10 +198,17 @@ class QueryEngine:
 
     # --- structure --------------------------------------------------------
     @property
+    def sharded(self) -> bool:
+        # ShardedTable or the compressed store's delta view: anything that
+        # executes per shard and reports a shard count
+        return hasattr(self.table, "n_shards")
+
+    @property
     def n_shards(self) -> int:
-        """One card: the chip count the tier model scales its rates and
-        compute power by (sharded tables are step 5)."""
-        return 1
+        """The chip count the tier and paper models scale rates and
+        compute power by: the table's shards (virtual, on one card), as
+        the reference counts them, else 1."""
+        return self.table.n_shards if self.sharded else 1
 
     @property
     def num_rows(self) -> int:
@@ -207,12 +228,16 @@ class QueryEngine:
 
     def chunk_accesses(self, query: Query) -> dict:
         """Per-(column, chunk) bytes this query streams, in the tiered
-        placement engine's chunking."""
+        placement engine's chunking (sharded tables report device-resident
+        bytes, padding included)."""
         if self.tiered is None:
             raise ValueError("chunk accounting needs tiered=PlacementEngine")
+        cr = self.tiered.chunk_rows
+        if self.sharded:
+            return self.table.chunk_bytes(query.plan(), query.aggregates,
+                                          cr)
         return physical.referenced_chunk_bytes(
-            query.plan(), query.aggregates, self.table.columns,
-            self.tiered.chunk_rows)
+            query.plan(), query.aggregates, self.table.columns, cr)
 
     # --- admission --------------------------------------------------------
     @property
@@ -241,6 +266,11 @@ class QueryEngine:
                                      chips=self.n_shards).service_s
         else:
             est = p.bytes_scanned / max(self.measured_bps, 1e-9)
+        if self.chaos is not None:
+            # price expected recovery overhead at admission: a query the
+            # fault rate would push past its deadline is rejected here
+            est = self.chaos.inflate_estimate(
+                est, len(p.chunks) if p.chunks else 1)
         if self.power_cap is not None:
             # feasibility must be priced at the power-derated rate: a
             # query the governor would stretch past its deadline is
@@ -289,19 +319,25 @@ class QueryEngine:
         """Exact host-int aggregates (or the grouped result dict for
         GroupBy/HashJoin); every path copies its result to the host, which
         waits for the device."""
+        guard = self.chaos.guard if self.chaos is not None else None
         if is_grouped(query):
+            if self.sharded:
+                return self.table.execute_grouped(query, mode=self.mode)
             if hasattr(self.table, "chunk_rows"):    # a store table
                 from repro_torch.store.exec import execute_grouped_encoded
                 return execute_grouped_encoded(query, self.table,
-                                               mode=self.mode)
+                                               mode=self.mode, guard=guard)
             from repro_torch.query import relational
             return relational.execute_grouped(query, self.table,
                                               mode=self.mode)
+        if self.sharded:
+            return self.table.execute(query.plan(), query.aggregates,
+                                      mode=self.mode)
         if hasattr(self.table, "chunk_rows"):        # a store table
             # imported here: repro_torch.store imports this package
             from repro_torch.store.exec import execute_encoded
             return execute_encoded(query.plan(), query.aggregates,
-                                   self.table, mode=self.mode)
+                                   self.table, mode=self.mode, guard=guard)
         return physical.finalize_aggs(physical.execute(
             query.plan(), query.aggregates,
             physical.table_slices(self.table), mode=self.mode))
@@ -344,35 +380,43 @@ class QueryEngine:
     def _serve_tiered(self, pend: _Pending, t0: float, trace):
         """Execute, then charge the modeled tiered service: each chunk at
         the rate of the tier it lived in, the pipelined read when
-        prefetching, the power cap's stretch. Returns (aggregates, t1,
-        the QueryResult.tier dict)."""
-        # prefetch plans against residency *before* on_access mutates
-        # it — the same residency the charge uses
-        pplan = None
-        if self.prefetch is not None:
-            pplan = self.prefetch.plan(pend.chunks, chips=self.n_shards)
-            self.prefetch.begin(pplan, pend.chunks)
-        aggs = self._execute(pend.query)
-        acc = self.tiered.on_access(pend.chunks, qid=pend.qid,
-                                    tenant=pend.tenant, trace=trace)
-        busy = (pplan.service_s if pplan is not None
-                else self.tiered.service_s(acc, self.n_shards))
-        self.tiered.meter.charge_compute(acc.charge, busy, self.n_shards)
-        query_j = acc.charge.total_j
-        if trace is not None:
+        prefetching, the power cap's stretch. Returns (aggregates or None,
+        t1, the QueryResult.tier dict, the typed degradation or None)."""
+        error = None
+        if self.chaos is not None:
+            # the harness owns the fault-injected path: breaker gating,
+            # verify-on-read, degraded failover, and the stall/retry
+            # extras folded into busy/joules, and the recovery spans
+            aggs, acc, busy, query_j, error = \
+                self.chaos.run_query(self, pend, t0, trace=trace)
+        else:
+            # prefetch plans against residency *before* on_access mutates
+            # it — the same residency the charge uses
+            pplan = None
+            if self.prefetch is not None:
+                pplan = self.prefetch.plan(pend.chunks, chips=self.n_shards)
+                self.prefetch.begin(pplan, pend.chunks)
+            aggs = self._execute(pend.query)
+            acc = self.tiered.on_access(pend.chunks, qid=pend.qid,
+                                        tenant=pend.tenant, trace=trace)
+            busy = (pplan.service_s if pplan is not None
+                    else self.tiered.service_s(acc, self.n_shards))
+            self.tiered.meter.charge_compute(acc.charge, busy, self.n_shards)
+            query_j = acc.charge.total_j
+            if trace is not None:
+                if pplan is not None:
+                    layout_pipeline(trace, t0, pplan, self.tiered.tiers,
+                                    self.n_shards)
+                else:
+                    layout_sync(trace, t0, self.tiered.tiers, self.n_shards)
+                trace.compute(t0, busy, self.n_shards,
+                              self.tiered.meter.compute_w * self.n_shards
+                              * busy)
             if pplan is not None:
-                layout_pipeline(trace, t0, pplan, self.tiered.tiers,
-                                self.n_shards)
-            else:
-                layout_sync(trace, t0, self.tiered.tiers, self.n_shards)
-            trace.compute(t0, busy, self.n_shards,
-                          self.tiered.meter.compute_w * self.n_shards
-                          * busy)
-        if pplan is not None:
-            line = self.prefetch.finish(pplan, qid=pend.qid,
-                                        tenant=pend.tenant)
-            if line is not None:
-                query_j += line.total_j
+                line = self.prefetch.finish(pplan, qid=pend.qid,
+                                            tenant=pend.tenant)
+                if line is not None:
+                    query_j += line.total_j
         service = busy
         if self.power_cap is not None:
             # race-to-idle throttling: the governor stretches wall time
@@ -392,7 +436,7 @@ class QueryEngine:
                      "energy_j": query_j}
         if self.power_cap is not None:
             tier_info["throttle_s"] = service - busy
-        return aggs, t1, tier_info
+        return aggs, t1, tier_info, error
 
     def _serve_one(self, pend: _Pending, deadline: float) -> QueryResult:
         t0 = self.clock()
@@ -408,35 +452,37 @@ class QueryEngine:
         launches0 = ({k: c.value
                       for k, c in self.metrics.counters.items()}
                      if trace is not None else None)
-        tier_info = None
+        tier_info = error = None
         if self.tiered is not None:
-            aggs, t1, tier_info = self._serve_tiered(pend, t0, trace)
+            aggs, t1, tier_info, error = self._serve_tiered(pend, t0, trace)
         else:
             aggs = self._execute(pend.query)
             # the host copies inside _execute waited for the device, so
             # t1 - t0 covers the full scan
             t1 = self.clock()
             self.seconds_total += max(t1 - t0, 1e-12)
+        met = t1 <= deadline and error is None
         if trace is not None:
             self._emit_launches(qt, launches0, t0)
-            qt.close(t1, met=t1 <= deadline)
+            qt.close(t1, met=met, degraded=error is not None, error=error)
         self.bytes_total += pend.bytes_scanned
         self.logical_bytes_total += pend.logical_bytes
-        if "groups" in aggs:
+        if aggs is not None and "groups" in aggs:
             count = aggs["count"]           # grouped: total selected rows
         else:
             count = next(iter(aggs.values()))["count"] if aggs else 0
         res = QueryResult(
-            qid=pend.qid, query=pend.query, aggregates=aggs, count=count,
+            qid=pend.qid, query=pend.query,
+            aggregates=aggs if aggs is not None else {}, count=count,
             selectivity=count / max(self.num_rows, 1),
             bytes_scanned=pend.bytes_scanned,
             latency_s=t1 - pend.submitted_at, deadline=deadline,
-            met=t1 <= deadline, tier=tier_info,
-            logical_bytes=pend.logical_bytes)
+            met=met, tier=tier_info, logical_bytes=pend.logical_bytes,
+            degraded=error is not None, error=error)
         self.reports.append(SLAReport(
             rid=pend.qid, deadline=deadline,
             submitted_at=pend.submitted_at, finished_at=t1,
-            work=pend.bytes_scanned))
+            work=pend.bytes_scanned, degraded=error is not None))
         self.results.append(res)
         return res
 
@@ -459,13 +505,16 @@ class QueryEngine:
             out["prefetch"] = self.prefetch.stats()
         if self.power_cap is not None:
             out["power"] = self.power_cap.report(now=self.clock())
+        if self.chaos is not None:
+            out["resilience"] = self.chaos.summary()
         if getattr(self.tracer, "enabled", False):
             out["trace"] = self.tracer.summary()
         return out
 
     def model_check(self, system=None) -> dict:
         """Measured scan throughput vs the analytical model's Eq. 4 roofline
-        (chips = shards; default system: the H100 datasheet row): the
+        (chips = shards, virtual ones on one card included, as the
+        reference counts them; default system: the H100 datasheet row): the
         number the provisioning regimes assume each chip sustains, checked
         against what the kernels attained. The rate is bytes_total over
         seconds_total, so queries that built kernels count at their cold

@@ -1,5 +1,5 @@
 """Physical query execution: kernel-dispatch operators over packed columns
-(counterpart of repro/query/physical.py, single-device path).
+(counterpart of repro/query/physical.py).
 
 A logical Plan tree binds to a table's packed columns as `ColumnSlice`s
 (words + validity mask + width) and executes bottom-up:
@@ -16,17 +16,23 @@ A logical Plan tree binds to a table's packed columns as `ColumnSlice`s
   query takes the fused scan+aggregate kernel instead (no mask round trip
   through device memory).
 
-The cross-shard psum branch (`axis=`) comes with sharding.
+A sharded table (query.sharded) runs `shard_rows`: each column's padded
+words view as (n_shards, words_per_shard) and the batched kernels take
+the shard as their chunk axis; `combine_rows` is the counterpart of the
+reference's cross-shard psum (`_psum_aggs`, `execute(axis=)`).
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any
 
 import torch
 
+from repro_torch.kernels import dispatch
 from repro_torch.kernels.aggregate import ops as agg_ops
+from repro_torch.kernels.aggregate.ref import as_dict
 from repro_torch.kernels.scan_aggregate import ops as fused_ops
 from repro_torch.kernels.scan_filter import ops as scan_ops
 from repro_torch.kernels.scan_filter.ref import (SLICE_WORDS, codes_per_word,
@@ -195,16 +201,21 @@ def referenced_chunk_bytes(plan: Plan, aggregates, columns: dict,
                           names=columns_of(plan) | set(aggregates))
 
 
+def _fused(plan: Plan, aggregates: tuple, slices: dict) -> bool:
+    """The single-predicate / single-aggregate shape at one width: the
+    fused scan+aggregate kernel's."""
+    return (isinstance(plan, Pred) and len(aggregates) == 1
+            and slices[plan.column].code_bits
+            == slices[aggregates[0]].code_bits
+            and slices[plan.column].words.shape
+            == slices[aggregates[0]].words.shape)
+
+
 def execute(plan: Plan, aggregates: tuple, slices: dict[str, ColumnSlice],
             mode=None) -> dict:
     """Run a bound plan -> {agg_column: device aggregate dict}."""
     out: dict[str, dict] = {}
-    fused = (isinstance(plan, Pred) and len(aggregates) == 1
-             and slices[plan.column].code_bits
-             == slices[aggregates[0]].code_bits
-             and slices[plan.column].words.shape
-             == slices[aggregates[0]].words.shape)
-    if fused:
+    if _fused(plan, aggregates, slices):
         p, a = slices[plan.column], slices[aggregates[0]]
         out[aggregates[0]] = fused_ops.scan_aggregate(
             p.words, a.words, p.valid, plan.constant, plan.op, p.code_bits,
@@ -218,3 +229,99 @@ def execute(plan: Plan, aggregates: tuple, slices: dict[str, ColumnSlice],
                 m = repack_mask(m, mbits, s.code_bits, s.words.shape[0])
             out[col] = agg_ops.aggregate(s.words, m, s.code_bits, mode=mode)
     return out
+
+
+# --- the sharded path: the shard as the batched kernels' chunk axis ---------
+
+SPLIT_CHUNKS = 1024     # chunks of one batched launch over the shards, at most
+SPLIT_WORDS = 4096      # words a sub-chunk of a shard, at least
+
+
+@functools.lru_cache(maxsize=None)
+def shard_split(words_per_shard: int, max_split: int, min_words: int) -> int:
+    """How many equal sub-chunks a shard's words split into for the
+    batched kernels: the most, up to `max_split`, that divide the shard
+    evenly while each keeps at least `min_words` words (1 when none
+    does). The batched kernels run a block a chunk, so eight shards as
+    eight chunks would leave all but eight of the card's SMs idle; the
+    host packs one predicate triple a chunk, so the split stops at
+    SPLIT_CHUNKS chunks a launch."""
+    best = 1
+    for d in range(1, math.isqrt(words_per_shard) + 1):
+        if words_per_shard % d == 0:
+            for k in (d, words_per_shard // d):
+                if best < k <= max_split \
+                        and words_per_shard // k >= min_words:
+                    best = k
+    return best
+
+
+def _fold(rows, n_shards: int):
+    """(n_shards * k, 5) sub-chunk rows -> (n_shards, 5) normalized int32
+    rows: each shard's sub-chunks combine as the shards do."""
+    r = rows.to(torch.int64).view(n_shards, -1, 5)
+    s = ((r[..., 1] << 16) + r[..., 0]).sum(1)
+    return torch.stack([s & 0xFFFF, s >> 16, r[..., 2].sum(1),
+                        r[..., 3].min(1).values,
+                        r[..., 4].max(1).values], 1).to(torch.int32)
+
+
+def shard_rows(plan: Plan, aggregates: tuple,
+               slices: dict[str, ColumnSlice], n_shards: int,
+               mode=None) -> dict:
+    """Run a bound plan over shard-padded slices -> {agg_column: (n_shards,
+    5) int32 rows}, one normalized [sum_lo, sum_hi, count, min, max] row a
+    shard.
+
+    Every column holds n_shards * rows_per_shard rows, so each word plane
+    views as (n_shards, words_per_shard), and further as (n_shards * k,
+    words_per_shard / k) with k from `shard_split`: the
+    batched kernels take the shard (split k ways) as their chunk axis, one
+    launch for all shards, and each shard's k rows fold into its row. A
+    fused plan is one scan_aggregate_batched launch with the same
+    canonical triple for every chunk; any other plan builds its mask
+    through eval_mask over the whole padded column (row-wise, so it equals
+    the per-shard masks), then one aggregate_batched launch per aggregate
+    column. Dispatches count as the unsharded `execute` counts them."""
+    def planes(*ts):
+        k = n_shards * shard_split(ts[0].numel() // n_shards,
+                                   max(1, SPLIT_CHUNKS // n_shards),
+                                   SPLIT_WORDS)
+        return [t.view(k, -1) for t in ts]
+
+    out: dict = {}
+    if _fused(plan, aggregates, slices):
+        p, a = slices[plan.column], slices[aggregates[0]]
+        bits = p.code_bits
+        p3, a3, v3 = planes(p.words, a.words, p.valid)
+        out[aggregates[0]] = _fold(fused_ops.scan_aggregate_batched(
+            p3, a3, v3, [scan_ops.canonical_pred(plan.op, plan.constant,
+                                                 bits)] * p3.shape[0],
+            bits, mode=mode), n_shards)
+        if plan.op == "le" and plan.constant >= (1 << (bits - 1)) - 1 \
+                and dispatch.resolve(mode, p.words):
+            # the one-launch op aggregates the validity mask there
+            dispatch.count_launch("aggregate")
+        return out
+    mask, mbits = eval_mask(plan, slices, mode)
+    for col in aggregates:
+        s = slices[col]
+        m = mask
+        if s.code_bits != mbits or m.shape != s.words.shape:
+            m = repack_mask(m, mbits, s.code_bits, s.words.shape[0])
+        w3, m3 = planes(s.words, m)
+        out[col] = _fold(agg_ops.aggregate_batched(w3, m3, s.code_bits,
+                                                   mode=mode), n_shards)
+    return out
+
+
+def combine_rows(rows) -> dict:
+    """(n_shards, 5) rows -> one aggregate dict, the counterpart of the
+    reference's psum/pmin/pmax combine: the sum planes and counts add (in
+    int64, which agrees with the reference's int32 psum below 2^31 rows),
+    min takes the min, max the max. A shard of padding only holds the
+    identity row, which moves neither."""
+    r = rows.to(torch.int64)
+    return as_dict(torch.stack([r[:, 0].sum(), r[:, 1].sum(),
+                                r[:, 2].sum(), r[:, 3].min(),
+                                r[:, 4].max()]))

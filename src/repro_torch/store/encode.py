@@ -213,6 +213,26 @@ class EncodedChunk:
         return vals[:self.n_rows].astype(np.uint32) + np.uint32(self.base)
 
 
+def verify_chunks(chunks) -> list[bool]:
+    """EncodedChunk.verify() of each chunk, exactly (crc32 over the host
+    bytes of each payload plane and the layout metadata), with every
+    plane copied to the host in one transfer instead of one a plane."""
+    planes = [[p for p in (ch.words, ch.values, ch.lengths) if p is not None]
+              for ch in chunks]
+    flat = [p.reshape(-1) for ps in planes for p in ps]
+    host = (torch.cat(flat).cpu().numpy() if flat
+            else np.zeros(0, np.int32))
+    out, at = [], 0
+    for ch, ps in zip(chunks, planes):
+        views = []
+        for p in ps:
+            views.append(host[at:at + p.numel()])
+            at += p.numel()
+        out.append(_checksum(ch.encoding, ch.n_rows, ch.code_bits, ch.width,
+                             ch.base, ch.n_runs, views) == ch.checksum)
+    return out
+
+
 # --------------------------------------------------------------------------
 # encoding, all chunks of a column at once
 # --------------------------------------------------------------------------
@@ -619,13 +639,15 @@ class EncodedTable:
 
     def decode_table(self):
         """The exact plain-format table (the parity oracle's input), on
-        this table's device."""
+        this table's device: each column decoded and packed there."""
         from repro_torch.db.columnar import BitPackedColumn, Table
+        from repro_torch.store.exec import column_codes, pack_codes
         t = Table(self.name)
         for name, col in self.columns.items():
-            t.add(BitPackedColumn.from_values(
-                name, col.decode(), col.code_bits,
-                dictionary=col.dictionary, device=col.device))
+            t.add(BitPackedColumn(name, col.code_bits, col.num_rows,
+                                  pack_codes(column_codes(col),
+                                             col.code_bits),
+                                  col.dictionary))
         return t
 
     def stats(self) -> dict:

@@ -135,6 +135,19 @@ def rle_rows(chunk) -> torch.Tensor:
     return _rle_rows_batch([chunk], chunk.n_rows)[0]
 
 
+def column_codes(col) -> torch.Tensor:
+    """A column's exact logical codes, (num_rows,) int32 on its device:
+    every chunk decoded at once (`_decode_rows`) plus its frame base."""
+    if not col.chunks:
+        return torch.zeros(0, dtype=torch.int32)
+    rows = _decode_rows(col, np.arange(len(col.chunks)), col.chunk_rows)
+    base = col.chunk_arrays().base
+    if base.any():
+        rows += torch.from_numpy(base.astype(np.int32)).to(
+            rows.device)[:, None]
+    return rows.reshape(-1)[:col.num_rows]
+
+
 @dataclass(frozen=True)
 class _Bound:
     """One chunk of one column, bound for execution: a ColumnSlice plus
@@ -357,18 +370,22 @@ def execute_encoded(plan: Plan, aggregates, table: EncodedTable,
 
     `batched=True` (default) collapses the per-chunk kernel loop into one
     launch per (column group, encoding); `batched=False` keeps the
-    chunk-at-a-time loop as the in-tree parity oracle. `guard=`
-    (verify-on-read through a resilience ChunkGuard) belongs to a later
-    slice and raises NotImplementedError."""
-    if guard is not None:
-        raise NotImplementedError(
-            "guard= (verify-on-read, resilience.ChunkGuard) is not ported "
-            "yet: ROADMAP.md, 'Modules to port', step 6b (resilience)")
+    chunk-at-a-time loop as the in-tree parity oracle.
+
+    `guard` (a resilience.ChunkGuard) makes every chunk read verify its
+    checksum first: a corrupt chunk is quarantined and repaired from the
+    oracle before its bytes reach a kernel, or the query dies with a
+    typed ChunkCorruptionError — corrupt payloads never aggregate. All
+    checks run before the first kernel launch, in (chunk, column) order.
+    A repair installs a new chunk (EncodedColumn.replace_chunk), so the
+    planes cached on the column are rebuilt."""
     aggregates = tuple(aggregates)
+    names = sorted(columns_of(plan) | set(aggregates))
+    if guard is not None:
+        guard.check([(n, ci) for ci in range(table.n_chunks) for n in names])
     if batched:
         return _execute_batched(plan, aggregates, table, mode)
 
-    names = sorted(columns_of(plan) | set(aggregates))
     out = {a: identity_ints(table.columns[a].code_bits)
            for a in aggregates}
     fused_rle = (isinstance(plan, Pred) and aggregates == (plan.column,))
@@ -493,14 +510,13 @@ def execute_grouped_encoded(query, table: EncodedTable, mode=None,
     fallback chunks are grouped on the device together. Each (n_chunks,
     G, 3) result is reduced over its chunks in int64 on the device, each
     chunk's FOR base fix-up applied (the planes are additive), and folded
-    into the partial once. `guard=` (verify-on-read) belongs to a later
-    slice and raises NotImplementedError."""
-    if guard is not None:
-        raise NotImplementedError(
-            "guard= (verify-on-read, resilience.ChunkGuard) is not ported "
-            "yet: ROADMAP.md, 'Modules to port', step 6b (resilience)")
+    into the partial once. `guard` semantics match execute_encoded: every
+    referenced (column, chunk) verifies before the first launch, in
+    (chunk, column) order."""
     relational.bind_check(query, table.columns)
     names = sorted(columns_of(query.plan()) | set(query.aggregates))
+    if guard is not None:
+        guard.check([(n, ci) for ci in range(table.n_chunks) for n in names])
     kcol = table.columns[query.key]
     krange = _key_range(kcol)
     if krange is None:

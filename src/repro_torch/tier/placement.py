@@ -108,7 +108,7 @@ class PlacementEngine:
         self.prefetch_reserved_bytes = 0
         self.prefetch_streamed_bytes_total = 0
         self.prefetch_wasted_bytes_total = 0
-        # circuit-breaker demotion (resilience, ROADMAP.md step 6b): while
+        # circuit-breaker demotion (resilience.CircuitBreaker): while
         # True, every access is *charged* at the capacity tier — the fast
         # copy is not trusted for service — but placement state
         # (residency, LRU clocks, frequency counters, ghost bits) keeps
@@ -126,15 +126,25 @@ class PlacementEngine:
                   chunk_rows: int = 4096,
                   hot_columns: tuple[str, ...] = (), **kw
                   ) -> "PlacementEngine":
-        """Chunk a Table or a store EncodedTable (its physical bytes) into
-        the placement universe. `hot_columns` orders STATIC pinning (an
-        operator hint: pin these first); other policies ignore it.
-        Sharded tables come with ROADMAP.md's step 5.
+        """Chunk a Table, a store EncodedTable (its physical bytes) or a
+        ShardedTable / ShardedEncodedTable into the placement universe.
+
+        Sharded tables are chunked over their padded (device-resident)
+        word arrays, padding included: the same byte totals
+        ShardedTable.chunk_bytes reports. `hot_columns` orders STATIC
+        pinning (an operator hint: pin these first); other policies
+        ignore it.
         """
         from repro_torch.query import physical
 
-        chunk_rows = physical.align_chunk_rows(table.columns, chunk_rows)
-        universe = physical.chunk_universe(table.columns, chunk_rows)
+        source = (table.slices if hasattr(table, "slices")
+                  else table.columns)
+        # align on the *source* widths: a sharded (or compressed delta)
+        # view may store columns at narrower payload widths than the
+        # logical table, and chunk boundaries must be word boundaries in
+        # the layout actually placed
+        chunk_rows = physical.align_chunk_rows(source, chunk_rows)
+        universe = physical.chunk_universe(source, chunk_rows)
         ids = list(universe)
         nbytes = list(universe.values())
         order = None

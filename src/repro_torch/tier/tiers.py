@@ -33,7 +33,10 @@ class TierSpec:
     TierPair.service_s), while `capacity` is the tier's total resident
     bytes across the whole placement domain — one node's stack for a flat
     table, the cluster-aggregate fast tier for a sharded one (placement
-    is a single global decision either way).
+    is a single global decision either way). On one card a sharded
+    table's shards are virtual (repro_torch.query.sharded), yet each
+    counts as a chip here, as the reference counts them, so the ledgers
+    stay the reference's.
     """
 
     name: str

@@ -187,8 +187,13 @@ def replay_trace(table, trace, tiers, policy, *, sla_s: float | None = None,
     `tracer` (a repro_torch.obs.Tracer) records every query's span tree
     on the replay's VirtualClock.
 
-    `chaos` (fault injection) and `monitor` (SLO burn-rate alerts) raise
-    NotImplementedError: they are ROADMAP.md's steps 6b and 6c.
+    `chaos` (a repro_torch.resilience.ChaosHarness) replays the trace
+    under injected faults: recovery extras stretch service on the same
+    clock and typed-degraded answers count as misses, so the attainment
+    returned is the fault-adjusted one.
+
+    `monitor` (SLO burn-rate alerts) raises NotImplementedError: it is
+    ROADMAP.md's step 6c.
     """
     from repro_torch.energy.meter import EnergyMeter
     from repro_torch.query import QueryEngine

@@ -317,11 +317,11 @@ class TestEngine:
     @pytest.mark.parametrize("kw", ("tiered", "power_cap", "chaos",
                                     "prefetch", "monitor"))
     def test_later_slice_arguments_raise(self, table, kw):
-        """chaos= and monitor= are later steps (6b, 6c); tiered=,
-        power_cap= and prefetch= are ported and refuse, as the reference's
-        engine does, to run without what they need (a VirtualClock, the
-        tier model)."""
-        want = {"chaos": (NotImplementedError, "ROADMAP.*step 6b"),
+        """monitor= is a later step (6c); tiered=, power_cap=, prefetch=
+        and chaos= are ported and refuse, as the reference's engine does,
+        to run without what they need (a VirtualClock, the tier model)."""
+        want = {"chaos": (ValueError, "chaos needs the tiered service "
+                                      "model"),
                 "monitor": (NotImplementedError, "ROADMAP.*step 6c"),
                 "tiered": (ValueError, "advanceable clock"),
                 "power_cap": (ValueError, "needs the tiered energy model"),

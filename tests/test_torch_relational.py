@@ -181,9 +181,16 @@ def test_engine_submit_runs_bind_checks(table, encoded, dim):
             eng.submit(tq.GroupBy("zz"))
         with pytest.raises(ValueError, match="width mismatch"):
             eng.submit(tq.HashJoin(dim, "w", "r"))
-        with pytest.raises(NotImplementedError, match="step 6"):
-            execute_grouped_encoded(tq.GroupBy("r"), encoded,
-                                    guard=object())
+    # guard= (verify-on-read) is ported: over an uncorrupted store every
+    # chunk verifies, the answer is the unguarded one, nothing repairs
+    from repro_torch.resilience import ChunkGuard
+    guard = ChunkGuard(encoded)
+    assert execute_grouped_encoded(tq.GroupBy("r"), encoded,
+                                   guard=guard) == \
+        execute_grouped_encoded(tq.GroupBy("r"), encoded)
+    assert guard.summary() == {"chunks": len(guard.chunk_ids()),
+                               "quarantined": 0, "repaired": 0,
+                               "repair_bytes": 0}
 
 
 def test_build_keys_and_domain(dim, ref_dim):

@@ -540,10 +540,21 @@ class TestEngine:
         res = eng.run()[0]
         assert res.bytes_scanned < 0.05 * res.logical_bytes
 
-    def test_later_slice_paths_raise(self, encoded):
-        with pytest.raises(NotImplementedError, match="step 6"):
-            execute_encoded(tq.Pred("u", "lt", 3), ("u",), encoded,
-                            guard=object())
+    def test_later_slice_paths_raise(self, encoded, ref_encoded):
+        """guard= (verify-on-read) is ported: over an uncorrupted store
+        every chunk verifies and the answer is the unguarded one, as in
+        the reference."""
+        from repro.resilience import ChunkGuard as JChunkGuard
+        from repro_torch.resilience import ChunkGuard
+        guard, jguard = ChunkGuard(encoded), JChunkGuard(ref_encoded)
+        got = execute_encoded(tq.Pred("u", "lt", 3), ("u",), encoded,
+                              guard=guard)
+        assert got == execute_encoded(tq.Pred("u", "lt", 3), ("u",),
+                                      encoded) == j_execute(
+            rq.Pred("u", "lt", 3), ("u",), ref_encoded, mode="xla_ref",
+            guard=jguard)
+        assert guard.summary() == jguard.summary()
+        assert guard.summary()["quarantined"] == 0
 
     def test_engine_checks_the_store_device(self, encoded):
         with pytest.raises(ValueError, match="mode='cuda'"):

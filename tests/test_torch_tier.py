@@ -722,18 +722,34 @@ class TestTieredEngine:
             eng.chunk_accesses(tq.Query(tq.Pred("c00", "lt", 4),
                                         aggregates=("c00",)))
 
-    def test_later_steps_still_raise(self, table, ref_table):
+    def test_later_steps_still_raise(self, table, ref_table, stores):
         _, ttiers = tier_pairs(table.nbytes)
         pe = tt.PlacementEngine.for_table(table, ttiers, "cache",
                                           chunk_rows=CHUNK_ROWS)
-        for kw, step in ((dict(chaos=object()), "step 6b"),
-                         (dict(monitor=object()), "step 6c")):
-            with pytest.raises(NotImplementedError, match=step):
-                tq.QueryEngine(table, device="cpu", tiered=pe,
-                               clock=VirtualClock(), **kw)
-            with pytest.raises(NotImplementedError, match=step):
-                tt.replay_trace(table, [], ttiers, "cache",
-                                chunk_rows=CHUNK_ROWS, **kw)
+        with pytest.raises(NotImplementedError, match="step 6c"):
+            tq.QueryEngine(table, device="cpu", tiered=pe,
+                           clock=VirtualClock(), monitor=object())
+        with pytest.raises(NotImplementedError, match="step 6c"):
+            tt.replay_trace(table, [], ttiers, "cache",
+                            chunk_rows=CHUNK_ROWS, monitor=object())
+        # chaos= (step 6b) is ported: a guard over another table than the
+        # one replayed is refused with the reference's message
+        from repro.resilience import ChaosHarness as JChaos
+        from repro.resilience import ChunkGuard as JGuard
+        from repro.resilience import FaultSpec as JFaultSpec
+        from repro_torch.resilience import ChaosHarness, ChunkGuard, FaultSpec
+        jtiers, _ = tier_pairs(table.nbytes)
+        with pytest.raises(ValueError) as got:
+            tt.replay_trace(table, [], ttiers, "cache",
+                            chunk_rows=CHUNK_ROWS,
+                            chaos=ChaosHarness(FaultSpec(),
+                                               guard=ChunkGuard(stores[3])))
+        with pytest.raises(ValueError) as want:
+            rt.replay_trace(ref_table, [], jtiers, "cache",
+                            chunk_rows=CHUNK_ROWS,
+                            chaos=JChaos(JFaultSpec(), guard=JGuard(stores[2])))
+        assert str(got.value) == str(want.value)
+        assert "different table" in str(got.value)
         eng = tq.QueryEngine(table, device="cpu", tiered=pe,
                              clock=VirtualClock())
         # the paper model is ported: before any query it refuses, as the
