@@ -253,6 +253,44 @@ chaos) adds:
              each kernel's launches there stand in the {"kernels": ...}
              line as "launches_sharded".
 
+The observability slice (audit, critical path, exports, the SLO
+monitor; no kernel of its own) adds:
+
+7g. chaos   — the second recovery replay (auto) and the torch_ref one
+             are traced and monitored (SLOMonitor(target 0.9, cadence
+             half the SLA), burn windows flushed after the last
+             completion); the first and the no-recovery replays are not,
+             so the first-vs-second check shows tracing moves no number.
+             Their Chrome trace JSON, alerts JSON, digest and the
+             waterfall of the most fault-afflicted query must be equal;
+             check and verify must pass. Prints the alert count (a
+             missing fast_burn alert is reported, not failed), the head
+             of that waterfall and whatif_fast_fraction over the
+             attribution. The shard-loss kernel replay is traced; check
+             and verify must pass and it must hold shard_failover spans.
+7h. observability (tiered) — the tiered main table at full size through
+             the grouped mix at skew 1.1 under CACHE with prefetch and the
+             96 W compute term under the tiered main phase's cap: traced
+             and monitored in auto and in torch_ref, then untraced in
+             auto. The traced accounting (attainment, rejected, ledger,
+             placement stats, tier dicts, summary without trace/slo) must
+             equal the untraced one and torch_ref's; both traced runs'
+             exports must be equal; check and verify must pass; kernels
+             1-3 and 8 must have launched. Then the tiered store's
+             encoded replay, traced and monitored in both modes, against
+             the tiered store phase's untraced record (kernels 4, 5, 7
+             and 9). Prints the attribution's fractions (also of SLA-miss
+             time), the alert count, each export's length and sha256, and
+             the host wall traced against untraced.
+7i. observability (card and CPU) — tests/test_obs_analysis.py's
+             monitored chaos replay (8 x 8192 rows, 512-row chunks, 40
+             queries) on the card (auto) and on the CPU (torch_ref) in
+             this process: every export must be byte-identical.
+             One JSON line {"obs": {...}} right after the {"sharded": ...}
+             line holds the slice's records; each kernel's launches in
+             the traced replays stand in the {"kernels": ...} line as
+             "launches_obs".
+
 After the tiered phases one JSON line {"tier": {...}} holds their
 records. The third-to-last line is one JSON object {"serve": {...}} (the
 mamba2 records under "mamba2"), the second-to-last {"kernels": [...]}
@@ -1975,14 +2013,10 @@ def tiered_main_phase(dev: dict) -> dict:
     return out
 
 
-def tiered_store_phase(table, encoded, fast_gbps: float, dev: dict) -> dict:
-    """One skew-1.1 trace under CACHE over the store phase's plain table
-    and its encoded copy, the fast tier at a quarter of the plain bytes:
-    the encoded replay streams its physical bytes. The trace's queries
-    never aggregate their predicate's column and its count-only rollups
-    are on other keys, so three store queries follow it that reach the
-    RLE kernels (a fused scan of r over r, r's count-only rollups)."""
-    phase("tiered store")
+def store_tier_trace(table, fast_gbps: float) -> tuple:
+    """The tiered store cell's tiers (a quarter of the plain bytes fast)
+    and trace: STORE_TIER_QUERIES at skew 1.1, then three queries that
+    reach the RLE kernels."""
     from repro_torch.query import GroupBy, Pred, Query
     from repro_torch.tier import TracedQuery, TraceSpec, make_trace, \
         paper_tiers
@@ -1994,6 +2028,18 @@ def tiered_store_phase(table, encoded, fast_gbps: float, dev: dict) -> dict:
     trace += [TracedQuery(0, Query(Pred("r", "lt", 4), aggregates=("r",))),
               TracedQuery(1, GroupBy("r")),
               TracedQuery(2, GroupBy("r", where=Pred("r", "le", 4)))]
+    return tiers, trace
+
+
+def tiered_store_phase(table, encoded, fast_gbps: float, dev: dict) -> dict:
+    """One skew-1.1 trace under CACHE over the store phase's plain table
+    and its encoded copy, the fast tier at a quarter of the plain bytes:
+    the encoded replay streams its physical bytes. The trace's queries
+    never aggregate their predicate's column and its count-only rollups
+    are on other keys, so three store queries follow it that reach the
+    RLE kernels (a fused scan of r over r, r's count-only rollups)."""
+    phase("tiered store")
+    tiers, trace = store_tier_trace(table, fast_gbps)
     want = torch_ref_answers(encoded, trace)
     bad: list = []
     counters = reset_counters()
@@ -3936,10 +3982,16 @@ def build_chaos_table():
     return t
 
 
-def chaos_run(table, trace, recover: bool, mode: str = "auto") -> dict:
+def chaos_run(table, trace, recover: bool, mode: str = "auto",
+              traced: bool = False) -> dict:
     """examples/chaos_replay.py::chaos_run at this size: a fresh store,
     corruption injected, the trace replayed under CACHE with stalls and
-    retries; host wall and the guard's share of it."""
+    retries; host wall and the guard's share of it. `traced` attaches a
+    Tracer and an SLOMonitor(OBS_TARGET, cadence half the SLA), as
+    tests/test_obs_analysis.py's monitored_chaos_run does, flushes the
+    burn windows past the last completion and adds the analysis under
+    "obs" and the exports under "exports"."""
+    from repro_torch.obs import SLOMonitor, Tracer, waterfall_query
     from repro_torch.query import physical
     from repro_torch.resilience import (ChaosHarness, ChunkGuard, FaultSpec,
                                         RetryPolicy)
@@ -3961,12 +4013,16 @@ def chaos_run(table, trace, recover: bool, mode: str = "auto") -> dict:
                                               encoded.columns)
                     for tq in trace) / len(trace)
     sla_s = CHAOS_SLA_SLACK * bytes_typ / tiers.fast.bandwidth
-    with GuardClock() as gc:
+    tracer = Tracer() if traced else None
+    monitor = (SLOMonitor(target=OBS_TARGET, cadence_s=sla_s / 2)
+               if traced else None)
+    with GuardClock() as gc, ObsClock() as oc:
         t0 = time.perf_counter()
         pe, eng, att = replay_trace(encoded, trace, tiers, Policy.CACHE,
                                     sla_s=sla_s,
                                     chunk_rows=CHAOS_CHUNK_ROWS,
-                                    chaos=chaos, mode=mode)
+                                    chaos=chaos, mode=mode, tracer=tracer,
+                                    monitor=monitor)
         wall = time.perf_counter() - t0
     s = chaos.summary()
     answers = [(r.qid, r.degraded, r.aggregates) for r in eng.results]
@@ -3982,17 +4038,37 @@ def chaos_run(table, trace, recover: bool, mode: str = "auto") -> dict:
           f"uJ  mttr {s['mttr_s']}  corrupted {len(corrupted)}  host "
           f"{wall:.3f} s, verify {rec['verify_s']:.3f} s "
           f"({rec['verify_s'] / wall:.4f} of it)", flush=True)
+    if traced:
+        monitor.tick(eng.clock() + monitor.max_window_s)
+        rec["obs"], rec["exports"], attr = obs_analysis(
+            f"chaos {mode}", tracer, monitor, pe, eng, wall)
+        rec["obs"]["host"] = obs_costs(oc, len(eng.results),
+                                       rec["obs"]["spans"])
+        print(f"chaos {mode}: tracer and monitor host "
+              f"{json.dumps(rec['obs']['host'])}", flush=True)
+        noisy = max(tracer.queries, key=lambda qt: sum(
+            n for k, n in qt.span_kinds().items() if k in FAULT_SPANS))
+        rec["exports"]["waterfall"] = waterfall_query(noisy, width=56)
+        rec["whatif"] = obs_whatif(attr, table, bytes_typ, sla_s, pe)
+        rec["noisy_qid"] = noisy.qid
     del encoded, chaos, pe, eng
     return rec
 
 
-def chaos_phase(dev: dict, fast_gbps: float) -> dict:
+def chaos_phase(dev: dict, fast_gbps: float) -> tuple:
     """examples/chaos_replay.py scaled up: two same-seed replays must
     agree to the bit, the no-recovery replay must attain less and answer
     exactly wherever it answers, the torch_ref replay's ledger must equal
-    the kernels'; then shard losses over the 8-shard tiered main table."""
+    the kernels'; then shard losses over the 8-shard tiered main table.
+    The second replay and the torch_ref one are traced and monitored
+    (the first and the no-recovery one are not, so the first-vs-second
+    check shows tracing moves no number): their exports must be equal,
+    check and verify must pass. The shard-loss kernel replay is traced
+    too. Returns the sharded slice's record and the observability
+    phase's."""
     phase("chaos")
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs import Tracer
     from repro_torch.query import ShardedTable
     from repro_torch.resilience import ChaosHarness, FaultSpec
     from repro_torch.tier import (Policy, TraceSpec, make_trace, paper_tiers,
@@ -4005,9 +4081,12 @@ def chaos_phase(dev: dict, fast_gbps: float) -> dict:
           flush=True)
     counters = reset_counters()
     first = chaos_run(table, trace, True)
-    second = chaos_run(table, trace, True)
+    before = read_counters(counters)
+    second = chaos_run(table, trace, True, traced=True)
+    traced_launches = {k: n - before[k]
+                       for k, n in read_counters(counters).items()}
     off = chaos_run(table, trace, False)
-    plain = chaos_run(table, trace, True, mode="torch_ref")
+    plain = chaos_run(table, trace, True, mode="torch_ref", traced=True)
     launches = read_counters(counters)
     bad = []
     keys = ("attainment", "summary", "recovery_j", "answers", "ledger")
@@ -4026,7 +4105,29 @@ def chaos_phase(dev: dict, fast_gbps: float) -> dict:
             not first["summary"]["repairs"] or \
             not off["summary"]["degraded_queries"]:
         bad.append(("fault counts", first["summary"], off["summary"]))
-    print(f"kernel launches in the chaos replays: {launches}")
+    diff = [k for k in second["exports"]
+            if second["exports"][k] != plain["exports"][k]]
+    if diff:
+        bad.append(("chaos exports differ between auto and torch_ref", diff))
+    print(f"kernel launches in the chaos replays: {launches}; in the "
+          f"traced auto replay: {traced_launches}")
+    fires = second["obs"]["fires"]
+    print(f"alerts: {second['obs']['alerts']} ({fires}) at attainment "
+          f"{second['attainment']:.4f} against target {OBS_TARGET}")
+    if not fires.get("fast_burn"):
+        print(f"FINDING: no fast_burn alert fired at attainment "
+              f"{second['attainment']:.4f} against {OBS_TARGET} (the rule "
+              f"is left as it is)")
+    lines = second["exports"]["waterfall"].splitlines()
+    print(f"most fault-afflicted query q{second['noisy_qid']} "
+          f"({len(lines) - 1} spans; the first {WATERFALL_LINES} lines):")
+    print("\n".join(lines[:WATERFALL_LINES + 1]))
+    print_whatif(second["whatif"])
+    obs = {"chaos": {"auto": second["obs"], "torch_ref": plain["obs"],
+                     "whatif": {k: second["whatif"][k]
+                                for k in ("current", "best")},
+                     "noisy_qid": second["noisy_qid"],
+                     "launches": traced_launches}}
     del table, trace
     release()
 
@@ -4041,11 +4142,12 @@ def chaos_phase(dev: dict, fast_gbps: float) -> dict:
     loss = {}
     for mode in ("auto", "torch_ref"):
         chaos = ChaosHarness(FaultSpec(**SHARD_LOSS_SPEC))
+        tracer = Tracer() if mode == "auto" else None
         t0 = time.perf_counter()
         pe, eng, att = replay_trace(st, trace, tiers, Policy.CACHE,
                                     sla_s=sla_of(tier_table, trace, tiers),
                                     chunk_rows=TIER_CHUNK_ROWS, chaos=chaos,
-                                    mode=mode)
+                                    mode=mode, tracer=tracer)
         wall = time.perf_counter() - t0
         s = chaos.summary()
         wrong = [r.qid for r in eng.results
@@ -4064,6 +4166,12 @@ def chaos_phase(dev: dict, fast_gbps: float) -> dict:
               flush=True)
         if mode == "auto":
             loss_launches = read_counters(counters)
+            obs["shard_loss"], _, _ = obs_analysis(
+                "shard loss auto", tracer, None, pe, eng, wall)
+            obs["shard_loss"]["launches"] = loss_launches
+            if not obs["shard_loss"]["span_kinds"].get("shard_failover"):
+                bad.append(("no shard_failover span in the traced "
+                            "shard-loss replay",))
     a, b = loss["auto"], loss["torch_ref"]
     if [a[k] for k in ("attainment", "summary", "recovery_j", "ledger")] \
             != [b[k] for k in ("attainment", "summary", "recovery_j",
@@ -4079,7 +4187,7 @@ def chaos_phase(dev: dict, fast_gbps: float) -> dict:
         fail(f"{len(bad)} chaos checks failed")
     del st, tier_table
     release()
-    strip = ("answers", "ledger")
+    strip = ("answers", "ledger", "obs", "exports", "whatif", "noisy_qid")
     return {"store": {k: {f: v for f, v in r.items() if f not in strip}
                       for k, r in (("recover", first), ("again", second),
                                    ("no_recovery", off),
@@ -4087,7 +4195,412 @@ def chaos_phase(dev: dict, fast_gbps: float) -> dict:
             "launches": launches,
             "shard_loss": {k: {f: v for f, v in r.items() if f != "ledger"}
                            for k, r in loss.items()},
-            "shard_loss_launches": loss_launches}
+            "shard_loss_launches": loss_launches}, obs
+
+
+# --------------------------------------------------------------------------
+# observability: the tracer's audit, critical path, exports, the SLO monitor
+# --------------------------------------------------------------------------
+
+OBS_TARGET = 0.9           # tests/test_obs_analysis.py's SLO target
+FAULT_SPANS = ("retry", "failover", "repair", "stall", "prefetch_stall")
+WATERFALL_LINES = 24       # lines of the fault-afflicted query printed
+OBS_SMALL_ROWS = 8192      # monitored_chaos_run's scenario (8 columns,
+OBS_SMALL_CHUNK_ROWS = 512  # 512-row chunks, 40 queries), card and CPU
+OBS_SMALL_QUERIES = 40
+
+
+class ObsClock(HostClock):
+    """Host seconds in the tracer (QueryTrace's emission, begin_query,
+    the engine's span layout and launch spans) and in the SLO monitor
+    (its intake and ticks), each call counted once at its outermost
+    frame (QueryTrace.read calls add; layout_pipeline calls add)."""
+
+    def __init__(self):
+        from repro_torch.obs.slo import SLOMonitor
+        from repro_torch.obs.trace import QueryTrace, Tracer
+        from repro_torch.query import engine
+        self.group, self.targets = {}, []
+        for owner, names, group in (
+                (QueryTrace, ("begin_run", "add", "read", "compute",
+                              "close"), "tracer"),
+                (Tracer, ("begin_query",), "tracer"),
+                (engine, ("layout_sync", "layout_pipeline"), "tracer"),
+                (engine.QueryEngine, ("_emit_launches",), "tracer"),
+                (SLOMonitor, ("tick", "observe", "observe_rejected"),
+                 "monitor")):
+            for name in names:
+                self.targets.append((owner, name))
+                self.group[name] = group
+        self.seconds = {"tracer": 0.0, "monitor": 0.0}
+        self.depth = 0
+
+    def wrap(self, name, fn):
+        group = self.group[name]
+
+        def timed(*a, **kw):
+            if self.depth:
+                return fn(*a, **kw)
+            self.depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.seconds[group] += time.perf_counter() - t0
+                self.depth -= 1
+        return timed
+
+
+def obs_costs(oc: ObsClock, served: int, spans: int) -> dict:
+    """ObsClock's seconds as host ms a served query and µs a span."""
+    n = max(served, 1)
+    return {"tracer_ms_a_query": oc.seconds["tracer"] / n * 1e3,
+            "monitor_ms_a_query": oc.seconds["monitor"] / n * 1e3,
+            "tracer_us_a_span": oc.seconds["tracer"] / max(spans, 1) * 1e6,
+            "tracer_s": oc.seconds["tracer"],
+            "monitor_s": oc.seconds["monitor"]}
+
+
+def sha256(text: str) -> str:
+    import hashlib
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def obs_analysis(label: str, tracer, monitor, pe, eng,
+                 wall: float) -> tuple:
+    """check and verify over a traced replay (each raises
+    ConservationError at the first mismatch), the critical-path
+    attribution, the alert stream, and the exports (Chrome trace JSON,
+    alerts JSON, digest) with the host seconds each step took. Returns
+    (record, exports, attribution)."""
+    from repro_torch.obs import check, chrome_trace_json, digest, verify
+    t0 = time.perf_counter()
+    check(tracer, pe.meter)
+    attr = verify(tracer, pe.meter)
+    analysis_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exports = {"chrome_trace_json": chrome_trace_json(tracer),
+               "digest": json.dumps(digest(eng, tracer), sort_keys=True,
+                                    separators=(",", ":"))}
+    if monitor is not None:
+        exports["alerts_json"] = monitor.alerts_json()
+    export_s = time.perf_counter() - t0
+    summary = tracer.summary()
+    rec = {"queries": attr.queries, "missed": attr.missed,
+           "spans": summary["spans"], "span_kinds": summary["span_kinds"],
+           "seconds": attr.seconds, "fractions": attr.fractions(),
+           "miss_fractions": attr.fractions(missed_only=True),
+           "replay_wall_s": wall, "analysis_s": analysis_s,
+           "export_s": export_s,
+           "exports": {k: {"bytes": len(v), "sha256": sha256(v)}
+                       for k, v in exports.items()}}
+    if monitor is not None:
+        fires: dict = {}
+        for a in monitor.alerts:
+            if a.kind == "fire":
+                fires[a.rule] = fires.get(a.rule, 0) + 1
+        rec.update(alerts=len(monitor.alerts), fires=fires,
+                   ticks=monitor.summary()["ticks"],
+                   budgets={t: monitor.error_budget(t)
+                            for t in sorted(monitor.tenants)})
+    fr = " ".join(f"{k} {v:.4f}" for k, v in rec["fractions"].items())
+    mf = " ".join(f"{k} {v:.4f}" for k, v in rec["miss_fractions"].items())
+    print(f"{label}: check + verify OK over {attr.queries} queries, "
+          f"{summary['spans']} spans ({analysis_s:.3f} s); path fractions "
+          f"{fr}; of SLA-miss time ({attr.missed} missed) {mf or '-'}; "
+          f"alerts {rec.get('alerts', '-')} {rec.get('fires', '')}; "
+          f"exports {export_s:.3f} s: "
+          + ", ".join(f"{k} {v['bytes']} B sha256 {v['sha256'][:16]}"
+                      for k, v in rec["exports"].items()), flush=True)
+    return rec, exports, attr
+
+
+def obs_whatif(attr, table, bytes_per_query: float, sla_s: float,
+               pe) -> dict:
+    """examples/slo_monitor.py's step 4: the attribution turned into the
+    estimated gain from a bigger fast tier (raises if the what-if model
+    drifts from advise_tier_split)."""
+    from repro_torch.core.advisor import whatif_fast_fraction
+    from repro_torch.tier import zipf_hit_curve
+    return whatif_fast_fraction(
+        attr, db_bytes=table.nbytes, bytes_per_query=bytes_per_query,
+        sla_s=sla_s, current_fraction=0.25,
+        hit_curve=zipf_hit_curve(CHAOS_COLS, 1.2),
+        fast_gbps=pe.tiers.fast.gbps, capacity_gbps=pe.tiers.capacity.gbps)
+
+
+def print_whatif(wi: dict) -> None:
+    cur, best = wi["current"], wi["best"]
+    print(f"what-if: current fraction {cur['fast_fraction']:.2f} -> "
+          f"response {cur['response_s'] * 1e3:.3f} ms (read "
+          f"{cur['read_s'] * 1e3:.3f}, other {cur['other_s'] * 1e3:.3f})")
+    if best is not None:
+        print(f"  first SLA-meeting fraction {best['fast_fraction']:.2f} "
+              f"(est response {best['est_response_s'] * 1e3:.3f} ms, gain "
+              f"{best['est_gain_s'] * 1e3:+.3f} ms/query)")
+    else:
+        top = wi["rows"][-1]
+        print(f"  no fraction meets the SLA; f={top['fast_fraction']:.2f} "
+              f"estimates {top['est_response_s'] * 1e3:.3f} ms")
+
+
+def accounting(pe, eng, att) -> dict:
+    """What tracing and monitoring must not move: attainment, rejected
+    qids, the ledger, placement stats, tier dicts and the summary
+    without its trace and slo sections."""
+    return {"attainment": att, "rejected": eng.rejected,
+            "ledger": [c.as_dict() for c in pe.meter.charges],
+            "stats": pe.stats(),
+            "tier": [r.tier for r in eng.results],
+            "summary": {k: v for k, v in eng.summary().items()
+                        if k not in ("trace", "slo")}}
+
+
+def obs_replay(label: str, table, trace, tiers, policy, *, traced: bool,
+               mode: str, cadence_s: float, **kw) -> dict:
+    """One replay_trace, traced and monitored (SLOMonitor(OBS_TARGET,
+    cadence_s), windows flushed after the last completion) or not; host
+    wall, kernel launches, accounting, and, traced, the analysis and the
+    exports."""
+    from repro_torch.obs import SLOMonitor, Tracer
+    from repro_torch.tier import replay_trace
+    tracer = Tracer() if traced else None
+    monitor = (SLOMonitor(target=OBS_TARGET, cadence_s=cadence_s)
+               if traced else None)
+    counters = reset_counters()
+    with ObsClock() as oc:
+        t0 = time.perf_counter()
+        pe, eng, att = replay_trace(table, trace, tiers, policy,
+                                    chunk_rows=TIER_CHUNK_ROWS, mode=mode,
+                                    tracer=tracer, monitor=monitor, **kw)
+        wall = time.perf_counter() - t0
+    out = {"wall_s": wall, "launches": read_counters(counters),
+           "accounting": accounting(pe, eng, att),
+           "answers": [(r.qid, r.aggregates) for r in eng.results]}
+    print(f"{label} {mode:9s} traced={traced!s:5s} attainment "
+          f"{'-' if att is None else f'{att:.4f}'} served "
+          f"{eng.summary()['served']} host {wall:.3f} s "
+          f"({wall / len(trace) * 1e3:.3f} ms a query); launches "
+          f"{ {k: n for k, n in out['launches'].items() if n} }",
+          flush=True)
+    if traced:
+        monitor.tick(eng.clock() + monitor.max_window_s)
+        out["obs"], out["exports"], _ = obs_analysis(
+            f"{label} {mode}", tracer, monitor, pe, eng, wall)
+        out["obs"]["host"] = obs_costs(oc, len(eng.results),
+                                       out["obs"]["spans"])
+        print(f"{label} {mode}: tracer and monitor host "
+              f"{json.dumps(out['obs']['host'])}", flush=True)
+    return out
+
+
+def obs_compare(label: str, kernel: dict, ref: dict, untraced: dict,
+                bad: list) -> dict:
+    """The traced kernel replay against the traced torch_ref one
+    (exports byte for byte, answers) and against the untraced kernel
+    replay (accounting); the record of the pair."""
+    diff = [k for k in kernel["exports"]
+            if kernel["exports"][k] != ref["exports"][k]]
+    if diff:
+        bad.append((label, "exports differ between auto and torch_ref",
+                    diff))
+    if kernel["answers"] != ref["answers"]:
+        bad.append((label, "answers differ between auto and torch_ref"))
+    for other, what in ((ref, "torch_ref"), (untraced, "untraced")):
+        diff = [k for k in kernel["accounting"]
+                if kernel["accounting"][k] != other["accounting"][k]]
+        if diff:
+            bad.append((label, f"traced accounting differs from {what}",
+                        diff))
+    extra = kernel["wall_s"] - untraced["wall_s"]
+    n = len(kernel["answers"]) or 1
+    rec = {"auto": kernel["obs"], "torch_ref": ref["obs"],
+           "wall_s": {"traced": kernel["wall_s"],
+                      "untraced": untraced["wall_s"],
+                      "torch_ref_traced": ref["wall_s"]},
+           "tracing_host_ms_a_query": extra / n * 1e3,
+           "tracing_host_us_a_span": extra / kernel["obs"]["spans"] * 1e6,
+           "launches": kernel["launches"],
+           "attainment": kernel["accounting"]["attainment"]}
+    print(f"{label}: traced {kernel['wall_s']:.3f} s against untraced "
+          f"{untraced['wall_s']:.3f} s host: "
+          f"{rec['tracing_host_ms_a_query']:.3f} ms a served query, "
+          f"{rec['tracing_host_us_a_span']:.3f} us a span "
+          f"({kernel['obs']['spans']} spans, "
+          f"{kernel['obs']['span_kinds'].get('read', 0)} of them chunk "
+          f"reads)", flush=True)
+    return rec
+
+
+def obs_tiered_phase(tier: dict, store_table, encoded, dev: dict) -> dict:
+    """(a) The tiered main cell at full size through the replay that
+    fills the most categories: the grouped mix at skew 1.1 under CACHE,
+    prefetch on, the die-stacked chip's 96 W compute term under the
+    tiered main phase's cap (half the uncapped demand, window 20 SLAs):
+    traced and monitored in auto and in torch_ref, then untraced in
+    auto. Then the tiered store cell's encoded replay, traced and
+    monitored in both modes, against its untraced record."""
+    phase("observability (tiered)")
+    from repro_torch.core import DIE_STACKED
+    from repro_torch.energy import PowerCap, chip_compute_watts
+    from repro_torch.tier import TraceSpec, make_trace, paper_tiers
+    print(f"[{dev['smi']}]")
+    table = build_tier_table()
+    tiers = paper_tiers(TIER_FAST_FRACTION * table.nbytes,
+                        fast_gbps=tier["main"]["fast_gbps"])
+    trace = make_trace(table, TraceSpec(n_queries=TIER_QUERIES, skew=1.1,
+                                        seed=TIER_SEED, p_grouped=0.1,
+                                        p_join=0.05))
+    sla_s = sla_of(table, trace, tiers)
+    unc = tier["main"]["replays"]["compute"]
+    budget_w = 0.5 * unc["total_j"] / unc["seconds_total"]
+    kw = dict(sla_s=sla_s, prefetch_bytes=int(tiers.fast.capacity // 8),
+              compute_w=chip_compute_watts(DIE_STACKED))
+    print(f"grouped mix, skew 1.1, cache, prefetch, cap {budget_w:.4f} W "
+          f"over {20 * sla_s * 1e3:.4f} ms; sla {sla_s * 1e3:.4f} ms",
+          flush=True)
+    runs = {}
+    for key, mode, traced in (("kernel", "auto", True),
+                              ("torch_ref", "torch_ref", True),
+                              ("untraced", "auto", False)):
+        runs[key] = obs_replay(
+            "tiered main", table, trace, tiers, "cache", traced=traced,
+            mode=mode, cadence_s=sla_s / 2,
+            power_cap=PowerCap(budget_w, window_s=20 * sla_s), **kw)
+    bad: list = []
+    out = {"main": obs_compare("tiered main", runs["kernel"],
+                               runs["torch_ref"], runs["untraced"], bad)}
+    out["main"]["cap_w"] = budget_w
+    zero = [k for k in ("scan_filter", "aggregate", "scan_aggregate",
+                        "group_sum_count_batched")
+            if not runs["kernel"]["launches"][k]]
+    if zero:
+        bad.append(("kernels never launched in the traced tiered main "
+                    "replay", zero))
+    del table, runs
+    release()
+
+    # no deadlines, as the tiered store phase replays it; the monitor
+    # ticks at half the mean query's all-fast time
+    tiers, trace = store_tier_trace(store_table, tier["main"]["fast_gbps"])
+    cadence_s = sla_of(store_table, trace, tiers) / TIER_SLA_SLACK / 2
+    runs = {mode: obs_replay("tiered store", encoded, trace, tiers,
+                             "cache", traced=True, mode=mode,
+                             cadence_s=cadence_s)
+            for mode in ("auto", "torch_ref")}
+    enc = tier["store"]["encoded"]
+    acc = runs["auto"]["accounting"]
+    # the untraced record of the tiered store phase
+    got = (acc["attainment"], acc["stats"]["fast_bytes"],
+           acc["stats"]["capacity_bytes"], acc["summary"]["energy"]
+           ["total_j"])
+    want = (enc["attainment"], enc["fast_bytes"], enc["capacity_bytes"],
+            enc["total_j"])
+    if got != want:
+        bad.append(("tiered store: traced accounting differs from the "
+                    "untraced replay", got, want))
+    diff = [k for k in runs["auto"]["exports"]
+            if runs["auto"]["exports"][k] != runs["torch_ref"]["exports"][k]]
+    if diff or runs["auto"]["answers"] != runs["torch_ref"]["answers"]:
+        bad.append(("tiered store: auto and torch_ref differ", diff))
+    zero = [k for k in ("aggregate_batched", "scan_aggregate_batched",
+                        "rle_scan_aggregate_batched",
+                        "rle_group_accumulate_batched")
+            if not runs["auto"]["launches"][k]]
+    if zero:
+        bad.append(("kernels never launched in the traced tiered store "
+                    "replay", zero))
+    out["store"] = {"auto": runs["auto"]["obs"],
+                    "torch_ref": runs["torch_ref"]["obs"],
+                    "launches": runs["auto"]["launches"]}
+    if bad:
+        for b in bad:
+            print("MISMATCH", str(b)[:2000], file=sys.stderr)
+        fail(f"{len(bad)} observability (tiered) checks failed")
+    return out
+
+
+def obs_small_run(device: str, mode: str) -> dict:
+    """tests/test_obs_analysis.py's monitored_chaos_run on `device`: a
+    seeded fault replay (8 columns x OBS_SMALL_ROWS rows, 512-row chunks)
+    with a Tracer and an SLOMonitor; the exports and the waterfall."""
+    from repro_torch.db import Table
+    from repro_torch.obs import SLOMonitor, Tracer, waterfall
+    from repro_torch.query import physical
+    from repro_torch.resilience import (ChaosHarness, ChunkGuard, FaultSpec,
+                                        RetryPolicy)
+    from repro_torch.store import EncodedTable
+    from repro_torch.tier import (Policy, TraceSpec, make_trace, paper_tiers,
+                                  replay_trace)
+    table = Table.synthetic("events", OBS_SMALL_ROWS,
+                            {f"c{i:02d}": 8 for i in range(CHAOS_COLS)},
+                            seed=0, device=device)
+    enc = EncodedTable.from_table(table, chunk_rows=OBS_SMALL_CHUNK_ROWS)
+    tiers = paper_tiers(table.nbytes * 0.25, fast_gbps=CHAOS_FAST_GBPS)
+    qtrace = make_trace(table, TraceSpec(n_queries=OBS_SMALL_QUERIES,
+                                         skew=1.2, seed=11))
+    clean_s = (enc.nbytes
+               / sum(len(c.chunks) for c in enc.columns.values())
+               / tiers.fast.bandwidth)
+    chaos = ChaosHarness(FaultSpec(**CHAOS_SPEC), guard=ChunkGuard(enc),
+                         retry=RetryPolicy(timeout_s=2.0 * clean_s,
+                                           backoff_s=0.5 * clean_s,
+                                           max_retries=2))
+    chaos.inject_corruption()
+    bytes_typ = sum(physical.referenced_bytes(tq.query.plan(),
+                                              tq.query.aggregates,
+                                              enc.columns)
+                    for tq in qtrace) / len(qtrace)
+    sla_s = CHAOS_SLA_SLACK * bytes_typ / tiers.fast.bandwidth
+    tracer = Tracer()
+    monitor = SLOMonitor(target=OBS_TARGET, cadence_s=sla_s / 2)
+    t0 = time.perf_counter()
+    pe, eng, att = replay_trace(
+        enc, qtrace, tiers, Policy.CACHE, sla_s=sla_s,
+        chunk_rows=OBS_SMALL_CHUNK_ROWS, chaos=chaos,
+        prefetch_bytes=table.nbytes // 16, tracer=tracer, monitor=monitor,
+        mode=mode)
+    wall = time.perf_counter() - t0
+    monitor.tick(eng.clock() + monitor.max_window_s)
+    rec, exports, _ = obs_analysis(f"small chaos on {device} ({mode})",
+                                   tracer, monitor, pe, eng, wall)
+    exports["waterfall"] = waterfall(tracer)
+    rec["exports"]["waterfall"] = {"bytes": len(exports["waterfall"]),
+                                   "sha256": sha256(exports["waterfall"])}
+    rec["attainment"] = att
+    return {"rec": rec, "exports": exports}
+
+
+def obs_devices_phase() -> dict:
+    """(d) The same monitored chaos replay once on the card (auto) and
+    once on the CPU (torch_ref) in this process: every export must be
+    byte-identical."""
+    phase("observability (card and CPU)")
+    counters = reset_counters()
+    card = obs_small_run("cuda", "auto")
+    launches = read_counters(counters)
+    cpu = obs_small_run("cpu", "torch_ref")
+    diff = [k for k in card["exports"]
+            if card["exports"][k] != cpu["exports"][k]]
+    if diff:
+        fail(f"the card's exports differ from the CPU's: {diff}")
+    if not sum(launches.values()):
+        fail("no kernel launched in the card's small chaos replay")
+    print(f"card and CPU exports byte-identical: "
+          + ", ".join(f"{k} {len(v)} B" for k, v in card["exports"].items())
+          + f"; kernel launches on the card {launches}", flush=True)
+    return {"cuda": card["rec"], "cpu": cpu["rec"], "launches": launches}
+
+
+def obs_launches(obs: dict, name: str) -> dict:
+    """Kernel `name`'s launches in each traced replay, for the
+    {"kernels": ...} line's "launches_obs"."""
+    runs = {"tiered main": obs["tiered"]["main"]["launches"],
+            "tiered store": obs["tiered"]["store"]["launches"],
+            "chaos": obs["chaos"]["launches"],
+            "shard loss": obs["shard_loss"]["launches"],
+            "small chaos": obs["devices"]["launches"]}
+    return {k: v[name] for k, v in runs.items() if v.get(name)}
 
 
 def main() -> None:
@@ -4174,12 +4687,18 @@ def main() -> None:
                 paper_engine["launches"][rec["name"]]
     paper = paper_model_phase(paper_engine, tier, encoded.ratio, dev)
     print(json.dumps({"paper_model": paper}, default=str), flush=True)
-    sharded["chaos"] = chaos_phase(dev, tier["main"]["fast_gbps"])
+    sharded["chaos"], obs = chaos_phase(dev, tier["main"]["fast_gbps"])
+    obs["tiered"] = obs_tiered_phase(tier, table, encoded, dev)
+    obs["devices"] = obs_devices_phase()
     print(json.dumps({"sharded": sharded}, default=str), flush=True)
+    print(json.dumps({"obs": obs}), flush=True)
     for rec in kernels:
         runs = sharded_launches(sharded, rec["name"])
         if runs:
             rec["launches_sharded"] = runs
+        runs = obs_launches(obs, rec["name"])
+        if runs:
+            rec["launches_obs"] = runs
     # the LM slice needs the card's memory: drop the query tables first
     del table, encoded, shapes
     torch.cuda.empty_cache()

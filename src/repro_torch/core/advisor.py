@@ -221,8 +221,8 @@ def whatif_fast_fraction(attribution, *, db_bytes: float,
     from raising the fast-tier fraction.
 
     `attribution` is any object with `.seconds` — category -> total
-    path seconds — and `.queries`, such as the reference's
-    obs.critical_path.Attribution.
+    path seconds — and `.queries`, such as
+    repro_torch.obs.critical_path.Attribution.
     The read-bound categories (fast_read, capacity_read, stream_wait)
     are the seconds a bigger fast tier can move; queue, recovery, and
     throttle are carried over unchanged — the attribution *measured*

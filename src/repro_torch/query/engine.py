@@ -37,10 +37,9 @@ execution, measured throughput (counterpart of repro/query/engine.py).
 - model_check() and provision() hold the measured rate against the
   paper model (repro_torch.core; default system the H100 datasheet row)
   and provision a cluster from it.
-
-The reference engine's SLO monitor (`monitor=`) belongs to a later slice
-of the port; asking for it raises NotImplementedError naming its step in
-ROADMAP.md ("Modules to port").
+- `monitor=` a repro_torch.obs.SLOMonitor (tiered mode only) is fed every
+  served report, admission and shed rejection, and ticks on the modeled
+  clock after each completion.
 """
 from __future__ import annotations
 
@@ -55,11 +54,6 @@ from repro_torch.obs.trace import NullTracer, layout_pipeline, layout_sync
 from repro_torch.query import physical
 from repro_torch.query.plan import HashJoin, Query, is_grouped
 from repro_torch.serve.sla import DeadlineQueue, SLAReport, summarize
-
-
-def _later(what: str, step: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md, 'Modules to port', {step}")
 
 
 @dataclass
@@ -116,8 +110,6 @@ class QueryEngine:
                  clock=time.perf_counter, est_gbps: float = 1.0,
                  tiered=None, power_cap=None, chaos=None, prefetch=None,
                  tracer=None, metrics=None, monitor=None, device=None):
-        if monitor is not None:
-            raise _later("monitor=", "step 6c (obs: slo)")
         if tracer is not None and getattr(tracer, "enabled", True) \
                 and tiered is None:
             # spans are stamped in *modeled* time; a flat engine only has
@@ -186,6 +178,11 @@ class QueryEngine:
         self.metrics = (metrics if metrics is not None
                         else obs_metrics.MetricsRegistry("engine"))
         self.tracer = tracer if tracer is not None else NullTracer()
+        self.monitor = monitor
+        if monitor is not None:
+            # bind() enforces tiered mode: the monitor's ticks and burn
+            # windows live on the modeled clock, like the tracer's spans
+            monitor.bind(self)
         self.clock = clock
         self.queue = DeadlineQueue(clock, self._est_service_s)
         self.reports: list[SLAReport] = []
@@ -312,6 +309,8 @@ class QueryEngine:
                         logical_bytes=self.logical_bytes(query))
         if self.queue.push(pend, deadline):
             return pend.qid
+        if self.monitor is not None:
+            self.monitor.observe_rejected(tenant=tenant)
         return None
 
     # --- execution --------------------------------------------------------
@@ -350,7 +349,12 @@ class QueryEngine:
         spans, to the query) without touching the process-global shims."""
         batch: list[QueryResult] = []
         while True:
+            n_rej = len(self.queue.rejected)
             got = self.queue.pop()        # sheds now-hopeless queries
+            if self.monitor is not None:
+                # each shed query broke its promise without being served
+                for p in self.queue.rejected[n_rej:]:
+                    self.monitor.observe_rejected(tenant=p.tenant)
             if got is None:
                 break
             pend, deadline = got
@@ -483,6 +487,12 @@ class QueryEngine:
             rid=pend.qid, deadline=deadline,
             submitted_at=pend.submitted_at, finished_at=t1,
             work=pend.bytes_scanned, degraded=error is not None))
+        if self.monitor is not None:
+            # tick first: a cadence boundary at or before t1 samples the
+            # world *before* this completion lands, so a completion at
+            # exactly a boundary counts at the next tick
+            self.monitor.tick(t1)
+            self.monitor.observe(self.reports[-1], tenant=pend.tenant)
         self.results.append(res)
         return res
 
@@ -509,6 +519,8 @@ class QueryEngine:
             out["resilience"] = self.chaos.summary()
         if getattr(self.tracer, "enabled", False):
             out["trace"] = self.tracer.summary()
+        if self.monitor is not None:
+            out["slo"] = self.monitor.summary()
         return out
 
     def model_check(self, system=None) -> dict:

@@ -192,8 +192,9 @@ def replay_trace(table, trace, tiers, policy, *, sla_s: float | None = None,
     clock and typed-degraded answers count as misses, so the attainment
     returned is the fault-adjusted one.
 
-    `monitor` (SLO burn-rate alerts) raises NotImplementedError: it is
-    ROADMAP.md's step 6c.
+    `monitor` (a repro_torch.obs.SLOMonitor) samples its burn-rate series
+    at cadence ticks of the same VirtualClock and fires multi-window SLO
+    alerts at deterministic virtual timestamps (repro_torch.obs.slo).
     """
     from repro_torch.energy.meter import EnergyMeter
     from repro_torch.query import QueryEngine

@@ -316,19 +316,28 @@ class TestEngine:
 
     @pytest.mark.parametrize("kw", ("tiered", "power_cap", "chaos",
                                     "prefetch", "monitor"))
-    def test_later_slice_arguments_raise(self, table, kw):
-        """monitor= is a later step (6c); tiered=, power_cap=, prefetch=
-        and chaos= are ported and refuse, as the reference's engine does,
-        to run without what they need (a VirtualClock, the tier model)."""
+    def test_later_slice_arguments_raise(self, table, ref_table, kw):
+        """tiered=, power_cap=, prefetch=, chaos= and monitor= are ported
+        and refuse, as the reference's engine does, to run without what
+        they need (a VirtualClock, the tier model); monitor= with the
+        reference's message."""
+        from repro.obs import SLOMonitor as JSLOMonitor
+        from repro_torch.obs import SLOMonitor
         want = {"chaos": (ValueError, "chaos needs the tiered service "
                                       "model"),
-                "monitor": (NotImplementedError, "ROADMAP.*step 6c"),
+                "monitor": (ValueError, "tiered"),
                 "tiered": (ValueError, "advanceable clock"),
                 "power_cap": (ValueError, "needs the tiered energy model"),
                 "prefetch": (ValueError, "needs the tiered service model")}
         exc, match = want[kw]
-        with pytest.raises(exc, match=match):
-            tq.QueryEngine(table, device="cpu", **{kw: object()})
+        arg = SLOMonitor() if kw == "monitor" else object()
+        with pytest.raises(exc, match=match) as got:
+            tq.QueryEngine(table, device="cpu", **{kw: arg})
+        if kw == "monitor":
+            with pytest.raises(ValueError) as ref:
+                rq.QueryEngine(ref_table, mode="xla_ref",
+                               monitor=JSLOMonitor())
+            assert str(got.value) == str(ref.value)
 
     def test_later_slice_paths_raise(self, table):
         """An enabled tracer needs the tiered timeline, as the reference's

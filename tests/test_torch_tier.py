@@ -723,15 +723,53 @@ class TestTieredEngine:
                                         aggregates=("c00",)))
 
     def test_later_steps_still_raise(self, table, ref_table, stores):
-        _, ttiers = tier_pairs(table.nbytes)
+        from repro.obs import SLOMonitor as JSLOMonitor
+        from repro_torch.obs import SLOMonitor
+        jtiers, ttiers = tier_pairs(table.nbytes)
+        # monitor= (step 6c) is ported: a monitored tiered engine and a
+        # monitored replay equal the reference's, alert stream included
+        mon, jmon = SLOMonitor(cadence_s=1e-6), JSLOMonitor(cadence_s=1e-6)
+        eng = tq.QueryEngine(
+            table, device="cpu", clock=VirtualClock(), monitor=mon,
+            tiered=tt.PlacementEngine.for_table(table, ttiers, "cache",
+                                                chunk_rows=CHUNK_ROWS))
+        jeng = rq.QueryEngine(
+            ref_table, mode="xla_ref", clock=JClock(), monitor=jmon,
+            tiered=rt.PlacementEngine.for_table(ref_table, jtiers, "cache",
+                                                chunk_rows=CHUNK_ROWS))
+        for e, q in ((eng, tq), (jeng, rq)):
+            for deadline in (math.inf, 0.0, math.inf):
+                e.submit(q.Query(q.Pred("c00", "lt", 4),
+                                 aggregates=("c01",)),
+                         deadline=e.clock() + deadline)
+                e.run()
+        assert mon.summary()["ticks"] > 0
+        assert mon.error_budget(0)["errors"] == 1     # the rejection
+        assert eng.summary() == jeng.summary()
+        assert mon.series["hit_rate"].as_dict() == \
+            jmon.series["hit_rate"].as_dict()
+        assert mon.alerts_json() == jmon.alerts_json()
+        trace = traces(ref_table, table, **TRACE)
+        sla_s = sla_for(ref_table, trace[0], jtiers)
+        mon, jmon = (SLOMonitor(cadence_s=sla_s / 2),
+                     JSLOMonitor(cadence_s=sla_s / 2))
+        mine = tt.replay_trace(table, trace[1], ttiers, "cache",
+                               chunk_rows=CHUNK_ROWS, sla_s=sla_s)
+        jout = rt.replay_trace(ref_table, trace[0], jtiers, "cache",
+                               chunk_rows=CHUNK_ROWS, mode="xla_ref",
+                               sla_s=sla_s, monitor=jmon)
+        out = tt.replay_trace(table, trace[1], ttiers, "cache",
+                              chunk_rows=CHUNK_ROWS, sla_s=sla_s,
+                              monitor=mon)
+        assert_replays_equal(jout, out)
+        assert out[1].summary()["slo"] == mon.summary()
+        assert mon.alerts_json() == jmon.alerts_json()
+        # the monitor moves no number of the unmonitored replay
+        assert out[2] == mine[2] and \
+            [c.as_dict() for c in out[0].meter.charges] == \
+            [c.as_dict() for c in mine[0].meter.charges]
         pe = tt.PlacementEngine.for_table(table, ttiers, "cache",
                                           chunk_rows=CHUNK_ROWS)
-        with pytest.raises(NotImplementedError, match="step 6c"):
-            tq.QueryEngine(table, device="cpu", tiered=pe,
-                           clock=VirtualClock(), monitor=object())
-        with pytest.raises(NotImplementedError, match="step 6c"):
-            tt.replay_trace(table, [], ttiers, "cache",
-                            chunk_rows=CHUNK_ROWS, monitor=object())
         # chaos= (step 6b) is ported: a guard over another table than the
         # one replayed is refused with the reference's message
         from repro.resilience import ChaosHarness as JChaos
