@@ -209,6 +209,54 @@ The Mamba-2 serving slice (mamba2-1.3b) adds:
              window, and the CUDA-core route at the same shape in the same
              call; no library call.
 
+The Griffin and MoE serving slice (recurrentgemma-2b, moonshot-v1-16b-a3b,
+mixtral-8x22b; the RG-LRU and MoE blocks are plain tensor work, their
+attention runs kernels 10 and 11) adds:
+
+3. parity  — kernels 10 and 11 also at the three paths' shapes, fp32 and
+             bf16: KVH 1, G 10, D 256, window 2048 (recurrentgemma); KVH
+             16, G 1, D 128 (moonshot); KVH 8, G 6, D 128, window 4096
+             (mixtral); ragged fills, an empty slot, rings wrapped past
+             the window, ragged prefills.
+15. parity (rglru and moe blocks) — at each model's full width, fp32
+             weights from a seed, TF32 off, the same port code on the card
+             and on the CPU: one RG-LRU block's apply over 1024 steps and
+             16 decode steps (outputs and states), one MoE block in each
+             routing mode (moonshot's sigmoid scores with a nonzero
+             selection bias, mixtral's softmax) at capacity factor 0.5, so
+             choices drop: expert ids and dispatch planes equal exactly,
+             outputs within BLOCK_TOL; then the doubling RG-LRU scan
+             against the sequential recurrence at (1, 4096, 2560) within
+             SCAN_TOL, and a control (the inbound state dropped) that the
+             limit must reject.
+16. serve recurrentgemma / moonshot / mixtral — each model at its
+             published widths in bf16, random weights from a seeded
+             generator on the card, attn_impl="flash" (recurrentgemma-2b
+             at its 26 layers through ServeEngine(8, 8192); moonshot at
+             its 48 through ServeEngine(8, 4224), which holds its 4096 +
+             64 tokens beside 52.3 GiB of weights; mixtral-8x22b at 8 of
+             its 56 layers, printed as reduced, through ServeEngine(8,
+             8192)): the 16 requests of the serve phase. Prints
+             prefill ms by request, decode-step p50/p95/p99, tokens/s, the bytes a
+             step must move (the weights it reads, of the experts only
+             those its routing chose, the rings' valid K/V, recurrent
+             states read and written) and their bound at 3.35 TB/s, peak
+             memory and a profiled window (2 prompts, 8 new tokens); the
+             parameter count must equal cfg.param_count() and kernels 10
+             and 11 must have launched. Then the teacher-forced check of
+             serve parity (4096 + 16, "flash" against "auto"); for the MoE
+             models each layer's expert ids are recorded in both runs and
+             printed as flips; the bound is held at every position whose
+             routing agrees in every layer and at every other position
+             within it; a position whose routing differs and whose logits
+             leave the bound is excused, and excusing more than a quarter
+             of the positions fails.
+17. recurrentgemma times — kernel 10 at recurrentgemma's decode shape
+             and kernel 11 at its prefill shape (bf16, D 256, G 10, window
+             2048, S 4096: the CUDA-core route), with SDPA beside each;
+             recorded in the {"kernels": ...} entries of 10 and 11 with
+             each path's launches ("launches_<arch>").
+
 The sharded slice (virtual shards on the card, degraded re-execution,
 chaos) adds:
 
@@ -293,11 +341,14 @@ monitor; no kernel of its own) adds:
 
 After the tiered phases one JSON line {"tier": {...}} holds their
 records. The third-to-last line is one JSON object {"serve": {...}} (the
-mamba2 records under "mamba2"), the second-to-last {"kernels": [...]}
+mamba2, recurrentgemma, moonshot and mixtral records under their names,
+the block parity under "block_parity"), the second-to-last {"kernels": [...]}
 (twelve entries); the last is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import statistics
@@ -2393,6 +2444,18 @@ def decode_cases():
     for d in (32, 256):
         cases.append((f"head dim {d}", 2, 2, 4, 700, d, bf16, [0, 500], None,
                       0))
+    for dt in (f32, bf16):
+        # the Griffin / MoE paths' shapes over their rings (8 slots): an
+        # empty slot, ragged fills, rings wrapped past the window
+        cases.append(("recurrentgemma path, window 2048", 8, 1, 10, 2048,
+                      256, dt, [0, 1, 100, 1000, 2047, 2048, 0, 0],
+                      [None] * 6 + [4160, 3001], 2048))
+        cases.append(("moonshot path", 8, 16, 1, MOON_MAX_LEN, 128, dt,
+                      [0, 1, 100, 1000, 4096, 4160, MOON_MAX_LEN, 0],
+                      [None] * 7 + [5000], 0))
+        cases.append(("mixtral path, window 4096", 8, 8, 6, 4096, 128, dt,
+                      [0, 1, 100, 1000, 4095, 4096, 0, 0],
+                      [None] * 6 + [4160, 6001], 4096))
     return cases
 
 
@@ -2434,6 +2497,18 @@ def flash_cases():
                       w))
     for g in (1, 4, 8):
         cases.append((f"wgmma, G {g}", 2, 1, g, 333, 777, 128, bf16, 0))
+    for dt in (f32, bf16):
+        # the Griffin / MoE paths' prefill shapes (bf16 D 256: CUDA cores)
+        cases.append(("recurrentgemma path, window 2048", 1, 1, 10, 4096,
+                      4096, 256, dt, 2048))
+        cases.append(("moonshot path", 1, 16, 1, 4096, 4096, 128, dt, 0))
+        cases.append(("mixtral path, window 4096", 1, 8, 6, 4096, 4096, 128,
+                      dt, 4096))
+    # ragged prompts at those shapes, the window inside the keys
+    cases.append(("recurrentgemma, ragged", 1, 1, 10, 1037, 3001, 256, bf16,
+                  2048))
+    cases.append(("mixtral, ragged", 1, 8, 6, 777, 4500, 128, bf16, 4096))
+    cases.append(("moonshot, ragged", 1, 16, 1, 1111, 1111, 128, bf16, 0))
     return cases
 
 
@@ -2820,28 +2895,80 @@ def ring_bytes(pos, q_pos, kvh: int, d: int, elt: int,
     return rows * kvh * d * elt + pos.numel() * 4 + q_pos.numel() * 4
 
 
-def step_counter(model, engine, cfg):
-    """bytes_of(q_pos) for drive: the bytes one decode step had to move.
-    Every weight but the embedding table, of which it reads one row a
-    slot; in every layer the ring as ring_bytes counts it (every layer of
-    this model attends globally and writes the same positions, so layer
-    0's pos plane stands for all) and the new token's K, V and position
-    written. Activations (under 2 MB a step) are not counted."""
-    elt = engine.caches[0]["k"].element_size()
-    kvh, d = cfg.num_kv_heads, cfg.resolved_head_dim
-    if any(k != "attn" for k in cfg.block_pattern):
-        fail(f"step_counter counts global attention layers only, not "
-             f"{cfg.block_pattern}")
+class RouteLog:
+    """While active, records the expert ids of every moe._route call (one
+    a MoE layer and forward pass, in layer order), by wrapping the module's
+    function; restored on exit."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._route = moe, moe._route
+
+        def route(params, x, cfg):
+            out = self._route(params, x, cfg)
+            self.calls.append(out[0])
+            return out
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._route = self._route
+
+    def take(self, n: int) -> list:
+        """The last n calls (a forward pass's), and forget every call."""
+        out, self.calls = self.calls[len(self.calls) - n:], []
+        return out
+
+
+def lm_step_counter(model, engine, cfg, routes=None):
+    """bytes_of(q_pos) for drive: the bytes one decode step of a token LM
+    had to move. Every weight but the embedding table and the experts
+    (tied head: the whole table, which also serves the slots' token rows;
+    untied: one row a slot); in each MoE layer the experts that the step's
+    routing chose over all slots (`routes`, a RouteLog), their three
+    matrices; in each attention layer its ring as ring_bytes counts it
+    (the layers of one kind write the same positions, so the first one's
+    pos plane stands for its kind) and the new token's K, V and position
+    written; in each recurrent layer its state read and written.
+    Activations are not counted. Also returns the per-step record list of
+    the experts chosen a MoE layer."""
+    from repro_torch.models.common import dtype_of
+    elt = torch.empty((), dtype=dtype_of(cfg.dtype)).element_size()
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    kinds = [cfg.pattern_at(i) for i in range(cfg.num_layers)]
     weights = sum(p.numel() * p.element_size()
-                  for n, p in model.named_parameters() if n != "embed")
-    weights += engine.B * cfg.d_model * elt
-    writes = engine.B * (2 * kvh * d * elt + 4)
+                  for n, p in model.named_parameters()
+                  if ".moe.w_" not in n
+                  and (n != "embed" or cfg.tie_embeddings))
+    if not cfg.tie_embeddings:
+        weights += engine.B * cfg.d_model * elt
+    states = sum(2 * t.numel() * t.element_size()
+                 for k, c in zip(kinds, engine.caches)
+                 if k not in ("attn", "swa") for t in c.values())
+    writes = engine.B * (2 * kvh * hd * elt + 4)
+    expert = 3 * cfg.d_model * cfg.d_ff * elt
+    moe_layers = cfg.num_layers if cfg.num_experts else 0
+    chosen = []
 
     def bytes_of(q_pos) -> int:
-        ring = ring_bytes(engine.caches[0]["pos"], torch.from_numpy(q_pos),
-                          kvh, d, elt)
-        return weights + cfg.num_layers * (ring + writes)
-    return bytes_of
+        total = weights + states
+        for kind in ("attn", "swa"):
+            if kind in kinds:
+                window = cfg.window if kind == "swa" else 0
+                ring = ring_bytes(engine.caches[kinds.index(kind)]["pos"],
+                                  torch.from_numpy(q_pos), kvh, hd, elt,
+                                  window)
+                total += kinds.count(kind) * (ring + writes)
+        if moe_layers:
+            n = [int(torch.unique(i).numel()) for i in routes.take(
+                moe_layers)]
+            chosen.append(float(np.mean(n)))
+            total += sum(n) * expert
+        return total
+    return bytes_of, weights, states, chosen
 
 
 def pct(xs, q):
@@ -2924,7 +3051,7 @@ def serve_phase(dev: dict) -> tuple:
         fail("parameter count differs from the config's analytic count")
     engine = ServeEngine(cfg, model, batch_slots=SERVE_SLOTS,
                          max_len=SERVE_MAX_LEN, seed=SEED)
-    bytes_of = step_counter(model, engine, cfg)
+    bytes_of = lm_step_counter(model, engine, cfg)[0]
     dk.LAUNCHES = fk.LAUNCHES = 0
     first = drive(engine, serve_requests(cfg.vocab_size), bytes_of)
     torch.cuda.synchronize()
@@ -2975,8 +3102,9 @@ SERVE_KERNELS = ("flash_wgmma_kernel", "flash_fwd_kernel",
 
 
 def serve_profile(engine, cfg, kernels=SERVE_KERNELS,
-                  what: str = "attention kernels") -> dict:
-    """Four requests (prompts of 2048 tokens, 16 new tokens each) through
+                  what: str = "attention kernels", n: int = 4,
+                  new: int = 16) -> dict:
+    """n requests (prompts of 2048 tokens, `new` new tokens each) through
     the warm engine under torch.profiler: the device's busy share and the
     device time by kernel name (`kernels`: the port's, by name)."""
     from torch.profiler import ProfilerActivity, profile
@@ -2984,7 +3112,7 @@ def serve_profile(engine, cfg, kernels=SERVE_KERNELS,
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(SEED + 1)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, 2048)
-                    .astype(np.int32), max_new_tokens=16) for i in range(4)]
+                    .astype(np.int32), max_new_tokens=new) for i in range(n)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2998,7 +3126,8 @@ def serve_profile(engine, cfg, kernels=SERVE_KERNELS,
     busy_us = sum(r[0] for r in rows)
     ours_us = sum(r[0] for r in rows
                   if any(k in r[2] for k in kernels))
-    print(f"profiled serve (4 prompts of 2048, 16 new tokens each): wall "
+    print(f"profiled serve ({n} prompts of 2048, {new} new tokens each): "
+          f"wall "
           f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
           f"busy share {busy_us / wall_us:.4f}; {what} "
           f"{ours_us / 1e3:.3f} ms, other device work "
@@ -3019,53 +3148,95 @@ def serve_profile(engine, cfg, kernels=SERVE_KERNELS,
             "host_ms": host_us / 1e3}
 
 
-def serve_parity_phase(model) -> dict:
+def tf_parity(model, cfg, max_len: int, label: str, seed: int) -> dict:
     """Teacher-forced: one prefill of TF_PROMPT tokens and TF_STEPS decode
-    steps on one token stream, under attn_impl="flash" (the kernels) and
-    "auto" (blockwise prefill, naive decode: plain torch), same weights."""
-    phase("serve parity")
-    import dataclasses
-
+    steps on one token stream under attn_impl="flash" (the kernels) and
+    "auto" (blockwise prefill, naive decode: plain torch), same weights;
+    the logits within TF_MAX_ABS / TF_MEAN_ABS and greedy tokens equal
+    where "auto"'s top-2 margin exceeds TF_MAX_ABS. With MoE blocks each
+    layer's expert ids are recorded in both runs: a bf16 rounding can flip
+    a top-k choice and move that token's logits, so a position is excused
+    from the bounds when its token routed otherwise in some layer and its
+    logits are outside TF_MAX_ABS. Every position whose routing agrees is
+    held, and excusing more than a quarter of the positions fails."""
+    phase(label)
     from repro_torch.models import lm
-    cfg = serve_config()
-    rng = np.random.default_rng(SEED + 2)
+    rng = np.random.default_rng(seed)
     stream = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, TF_PROMPT + TF_STEPS).astype(np.int32)).cuda()
-    out = {}
-    with torch.no_grad():
+    n_moe = cfg.num_layers if cfg.num_experts else 0
+    out, ids = {}, {}
+    with torch.no_grad(), RouteLog() as routes:
         for impl in ("flash", "auto"):
             c = dataclasses.replace(cfg, attn_impl=impl)
-            caches = lm.init_caches(c, 1, SERVE_MAX_LEN)
+            caches = lm.init_caches(c, 1, max_len)
             hidden, caches, _ = lm.prefill(model, c, stream[None, :TF_PROMPT],
                                            caches, return_hidden=True)
             logits = [lm.head_logits(model, c, hidden[:, -1:])[:, 0].float()]
+            steps = [routes.take(n_moe)] if n_moe else []
             for t in range(TF_PROMPT, TF_PROMPT + TF_STEPS):
                 lg, caches, _ = lm.decode_step(
                     model, c, stream[None, t:t + 1],
                     torch.tensor([t], device="cuda"), caches)
                 logits.append(lg[:, 0].float())
+                if n_moe:
+                    steps.append(routes.take(n_moe))
             out[impl] = torch.cat(logits)             # (1 + steps, vocab)
+            if n_moe:
+                # (layers, tokens, k): the prefill's tokens, then each step's
+                ids[impl] = torch.stack([torch.cat(
+                    [steps[0][i][0]] + [s[i][0] for s in steps[1:]])
+                    for i in range(n_moe)])
             del caches, hidden
     torch.cuda.empty_cache()
+    pos = out["flash"].shape[0]
+    if n_moe:
+        # a token's routing agrees when every layer chose the same experts
+        # (in any order: the combine adds them in ascending id)
+        same = (ids["flash"].sort(dim=2).values
+                == ids["auto"].sort(dim=2).values).all(dim=2).all(dim=0)
+        prefill_flips = int((~same[:TF_PROMPT]).sum())
+        agree = same[TF_PROMPT - 1:]                  # the logits' tokens
+    else:
+        prefill_flips = 0
+        agree = torch.ones(pos, dtype=torch.bool, device="cuda")
     d = (out["flash"] - out["auto"]).abs()
+    excused = ~agree & (d.amax(dim=-1) > TF_MAX_ABS)
+    held = ~excused
     top2 = out["auto"].topk(2, dim=-1).values
-    margin = top2[:, 0] - top2[:, 1]
-    clear = margin > TF_MAX_ABS
-    agree = out["flash"].argmax(-1) == out["auto"].argmax(-1)
-    rec = {"max_abs": float(d.max()), "mean_abs": float(d.mean()),
-           "logit_std": float(out["auto"].std()),
-           "positions": int(d.shape[0]), "clear": int(clear.sum()),
-           "argmax_equal": int(agree.sum()),
+    clear = (top2[:, 0] - top2[:, 1]) > TF_MAX_ABS
+    argmax_eq = out["flash"].argmax(-1) == out["auto"].argmax(-1)
+    rec = {"max_abs": float(d[held].max()), "mean_abs": float(d[held].mean()),
+           "max_abs_all": float(d.max()), "mean_abs_all": float(d.mean()),
+           "max_abs_routing_agrees": (float(d[agree].max())
+                                      if bool(agree.any()) else None),
+           "logit_std": float(out["auto"].std()), "positions": pos,
+           "routing_differs": int((~agree).sum()),
+           "excused": int(excused.sum()),
+           "prefill_tokens_routing_differs": prefill_flips,
+           "clear": int((clear & held).sum()),
+           "argmax_equal": int(argmax_eq.sum()),
            "finite": bool(torch.isfinite(out["flash"]).all())}
-    print(f"teacher-forced {TF_PROMPT} + {TF_STEPS}: |flash - auto| max "
-          f"{rec['max_abs']:.5f} (tol {TF_MAX_ABS}), mean "
-          f"{rec['mean_abs']:.5f} (tol {TF_MEAN_ABS}); logit std "
-          f"{rec['logit_std']:.4f}; argmax equal at {rec['argmax_equal']} "
-          f"of {rec['positions']}, {rec['clear']} with a top-2 margin above "
-          f"the tolerance", flush=True)
+    print(f"teacher-forced {TF_PROMPT} + {TF_STEPS}: routing differs at "
+          f"{rec['routing_differs']} of {pos} positions (and at "
+          f"{prefill_flips} of the {TF_PROMPT} prefill tokens), "
+          f"{rec['excused']} of them outside TF_MAX_ABS and excused; held "
+          f"at {int(held.sum())}: |flash - auto| max {rec['max_abs']:.5f} "
+          f"(tol {TF_MAX_ABS}), mean {rec['mean_abs']:.5f} (tol "
+          f"{TF_MEAN_ABS}); where routing agrees max "
+          f"{rec['max_abs_routing_agrees']}; over all positions max "
+          f"{rec['max_abs_all']:.5f}, mean {rec['mean_abs_all']:.5f}; logit "
+          f"std {rec['logit_std']:.4f}; argmax equal at "
+          f"{rec['argmax_equal']} of {pos}, {rec['clear']} held with a "
+          f"top-2 margin above the tolerance", flush=True)
+    if 4 * rec["excused"] > pos:
+        fail(f"{label}: more than a quarter of the positions routed "
+             f"otherwise and left the bound")
     if not rec["finite"] or rec["max_abs"] > TF_MAX_ABS or \
-            rec["mean_abs"] > TF_MEAN_ABS or not bool(agree[clear].all()):
-        fail("teacher-forced flash logits differ from the auto path's")
+            rec["mean_abs"] > TF_MEAN_ABS or \
+            not bool(argmax_eq[clear & held].all()):
+        fail(f"{label}: teacher-forced flash logits differ from the auto "
+             f"path's")
     return rec
 
 
@@ -3361,24 +3532,6 @@ def ssd_config():
     return get_config(SSD_ARCH)
 
 
-def ssd_step_counter(model, engine, cfg):
-    """bytes_of(q_pos) for drive: the bytes one decode step of an SSD
-    stack had to move, the same at every step: every weight (the tied head
-    reads the whole embedding table, which also serves the slots' token
-    rows), and in every layer each slot's SSM state (fp32) and conv tail
-    read and written. Activations (under 2 MB a step) are not counted."""
-    if any(k != "ssd" for k in cfg.block_pattern) or not cfg.tie_embeddings:
-        fail(f"ssd_step_counter counts tied SSD stacks only, not "
-             f"{cfg.block_pattern}")
-    weights = sum(p.numel() * p.element_size() for p in model.parameters())
-    states = sum(2 * t.numel() * t.element_size()
-                 for c in engine.caches for t in c.values())
-
-    def bytes_of(q_pos) -> int:
-        return weights + states
-    return bytes_of, weights, states
-
-
 def ssd_serve_phase(dev: dict) -> tuple:
     """mamba2-1.3b at its published widths and depth, bf16, random weights
     from a seeded generator on the card: SERVE_REQUESTS requests (prompts
@@ -3412,7 +3565,7 @@ def ssd_serve_phase(dev: dict) -> tuple:
         fail("parameter count differs from the config's analytic count")
     engine = ServeEngine(cfg, model, batch_slots=SERVE_SLOTS,
                          max_len=SERVE_MAX_LEN, seed=SEED)
-    bytes_of, weights, states = ssd_step_counter(model, engine, cfg)
+    bytes_of, weights, states, _ = lm_step_counter(model, engine, cfg)
     print(f"a decode step must move {weights / 1e9:.4f} GB of weights and "
           f"{states / 1e9:.4f} GB of SSM and conv states (read and written, "
           f"{SERVE_SLOTS} slots)", flush=True)
@@ -3660,6 +3813,382 @@ def launch_split(fn, names, dev: dict) -> dict:
           f"call {sum(ms for ms, _ in split.values()):.4f} ms "
           f"[{dev['smi']}]", flush=True)
     return split
+
+
+# --------------------------------------------------------------------------
+# the Griffin and MoE serving slice: recurrentgemma-2b, moonshot-v1-16b-a3b
+# and mixtral-8x22b through kernels 10 and 11
+# --------------------------------------------------------------------------
+
+RG_ARCH = "recurrentgemma-2b"      # 26 layers (R, R, A), d_model 2560
+MOON_ARCH = "moonshot-v1-16b-a3b"  # 48 "attn" layers, 64 experts, top 6
+MIX_ARCH = "mixtral-8x22b"         # 56 "swa" layers, 8 experts, top 2
+# 4096-token prompts and 64 new tokens: an 8192-slot ring would hold 25.8
+# GB of K/V (48 layers x 16 KV heads x 128 x 2 x 2 B a slot-token x 8
+# slots), which does not fit beside moonshot's 52.3 GiB of weights
+MOON_MAX_LEN = 4224
+# mixtral-8x22b is 140.6 B parameters, 262 GiB in bf16: 8 of its 56 layers
+# (20.4 B, 38.1 GiB) at full width
+MIX_LAYERS = 8
+# the profiled window of this slice's serve phases (prompts of 2048
+# tokens, new tokens each), smaller than the serve phase's 4 x 16: the
+# profiler's processing of moonshot's 2 x 8 window (343k host operator
+# calls) took 52.8-60.1 s of host on the H100
+GRIFFIN_PROFILE = (2, 8)
+MOE_DROP_FACTOR = 0.5    # block parity's capacity factor: choices drop
+MOE_BIAS_RATE = 0.02     # block parity's bias_update rate (3 updates)
+BLOCK_S, BLOCK_STEPS = 1024, 16   # RG-LRU block parity: prefill, decode
+MOE_B, MOE_S = 2, 128             # MoE block parity's batch
+SCAN_SHAPE = (1, 4096, 2560)      # the recurrentgemma prefill's scan
+# Card against CPU, the same port code in float32 with TF32 off, element by
+# element as float_err measures: |card - cpu| <= rel * |cpu| + row * rms of
+# the CPU output's row (D values). rel: two units in the last place. row:
+# the products' sums run in other orders on the two devices; a sum of K
+# terms (K = 2560 .. 16384 here) differs by about sqrt(K) * 2^-24 of the
+# row's scale, 2e-6 .. 8e-6, and a block stacks up to five such products
+# (gate, x and output projections, two of the MLP's or experts') with the
+# scan and the gelu between them: 1e-4 of the row leaves ~3x that.
+BLOCK_TOL = {torch.float32: (2.0 ** -22, 1e-4)}
+# The doubling scan against the sequential recurrence, on the card: both
+# float32. A step's weight exp(sum of log_a) is formed from a sum that the
+# doubling scan adds in another order; at the check's log_a in [-0.1, 0)
+# the weights that matter (sums above -20) carry up to ~2 ulp of 20, 4e-6
+# relative, and the value sums ~40 of them: 2^-16 (1.5e-5) of the row.
+SCAN_TOL = {torch.float32: (2.0 ** -20, 2.0 ** -16)}
+
+
+def block_parity_phase() -> dict:
+    """The RG-LRU and MoE blocks on the card against the same port code on
+    the CPU, at each model's full width in float32 (weights from a seeded
+    generator on the card, copied to the CPU), TF32 off; then the doubling
+    scan against the sequential recurrence on the card."""
+    phase("parity (rglru and moe blocks)")
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks, moe, rglru
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = torch.float32
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    rec, bad = {}, []
+
+    def held(label, got, want, tol=BLOCK_TOL):
+        e, ratio = float_err(got.cpu(), want, f32, tol)
+        rec[label] = {"max_abs_err": e, "err_over_limit": ratio}
+        if not ratio <= 1.0:
+            bad.append((label, e, ratio))
+        return ratio
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cfg = dataclasses.replace(get_config(RG_ARCH), dtype="float32")
+        blk = blocks.block_init(cfg, "rglru", f32, g)
+        cpu = copy.deepcopy(blk).cpu()
+        x = torch.randn((1, BLOCK_S + BLOCK_STEPS, cfg.d_model), generator=g,
+                        device="cuda")
+        out, st, _ = blocks.block_apply(blk, x[:, :BLOCK_S], None, cfg,
+                                        "rglru")
+        out_c, st_c, _ = blocks.block_apply(cpu, x[:, :BLOCK_S].cpu(), None,
+                                            cfg, "rglru")
+        held("rglru apply", out, out_c)
+        worst = 0.0
+        for t in range(BLOCK_S, BLOCK_S + BLOCK_STEPS):
+            out, st, _ = blocks.block_apply(blk, x[:, t:t + 1], None, cfg,
+                                            "rglru", cache=st, decode=True)
+            out_c, st_c, _ = blocks.block_apply(
+                cpu, x[:, t:t + 1].cpu(), None, cfg, "rglru", cache=st_c,
+                decode=True)
+            worst = max(worst, held(f"rglru decode {t - BLOCK_S}", out,
+                                    out_c))
+        held("rglru state h", st["h"], st_c["h"])
+        held("rglru state conv", st["conv"], st_c["conv"])
+        print(f"rglru block at {cfg.name}'s width ({cfg.d_model}, lru "
+              f"{cfg.resolved_lru_width}, d_ff {cfg.d_ff}), card against "
+              f"CPU: apply over {BLOCK_S} steps err / limit "
+              f"{rec['rglru apply']['err_over_limit']:.4f}, {BLOCK_STEPS} "
+              f"decode steps at most {worst:.4f}, state h "
+              f"{rec['rglru state h']['err_over_limit']:.4f}", flush=True)
+        del blk, cpu, x, out, out_c, st, st_c
+        for arch in (MOON_ARCH, MIX_ARCH):
+            cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                                      moe_capacity_factor=MOE_DROP_FACTOR)
+            mode = "sigmoid + bias" if cfg.aux_free_bias else "softmax"
+            m = moe.init(cfg, f32, g)
+            if cfg.aux_free_bias:
+                # a nonzero selection bias, so selection and weights differ
+                for _ in range(3):
+                    xb = torch.randn((MOE_B, MOE_S, cfg.d_model),
+                                     generator=g, device="cuda")
+                    _, aux = moe.apply(m, xb, cfg)
+                    m.router_bias.copy_(moe.bias_update(
+                        m.router_bias, aux["load"], MOE_BIAS_RATE))
+            mc = copy.deepcopy(m).cpu()
+            x = torch.randn((MOE_B, MOE_S, cfg.d_model), generator=g,
+                            device="cuda")
+            e, cap = cfg.num_experts, moe.capacity(cfg, MOE_S)
+            idx, w, _ = moe._route(m, x, cfg)
+            idx_c, w_c, _ = moe._route(mc, x.cpu(), cfg)
+            tf, wf = moe._dispatch_indices(idx, w, e, cap)
+            tf_c, _ = moe._dispatch_indices(idx_c, w_c, e, cap)
+            tf_s, wf_s = moe._dispatch_indices(idx.cpu(), w.cpu(), e, cap)
+            out, _ = moe.apply(m, x, cfg)
+            out_c, _ = moe.apply(mc, x.cpu(), cfg)
+            label = f"moe {mode}"
+            r = {"arch": arch, "capacity": cap,
+                 "ids_equal": bool(torch.equal(idx.cpu(), idx_c)),
+                 "token_for_equal": bool(torch.equal(tf.cpu(), tf_c)),
+                 "planes_equal_on_equal_inputs": bool(
+                     torch.equal(tf.cpu(), tf_s)
+                     and torch.equal(wf.cpu(), wf_s)),
+                 "dropped": MOE_B * MOE_S * cfg.experts_per_token
+                 - int((wf > 0).sum()),
+                 "bias_nonzero": bool(cfg.aux_free_bias
+                                      and m.router_bias.any())}
+            held(label, out, out_c)
+            rec[label].update(r)
+            print(f"{label} at {cfg.name}'s width ({cfg.d_model}, {e} "
+                  f"experts of {cfg.d_ff}, top {cfg.experts_per_token}), "
+                  f"({MOE_B}, {MOE_S}) tokens, capacity {cap} (factor "
+                  f"{MOE_DROP_FACTOR}): {json.dumps(rec[label])}",
+                  flush=True)
+            if not (r["ids_equal"] and r["token_for_equal"]
+                    and r["planes_equal_on_equal_inputs"]
+                    and r["dropped"] > 0) or (
+                        cfg.aux_free_bias and not r["bias_nonzero"]):
+                bad.append((label, r))
+            del m, mc, x, out, out_c
+        torch.cuda.empty_cache()
+        # the doubling scan against the sequential recurrence
+        b, s, wd = SCAN_SHAPE
+        la = -0.1 * torch.rand(SCAN_SHAPE, generator=g, device="cuda")
+        bb = torch.randn(SCAN_SHAPE, generator=g, device="cuda")
+        h0 = torch.randn((b, wd), generator=g, device="cuda")
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        h = rglru._scan(la, bb, h0)
+        torch.cuda.synchronize()
+        scan_s = time.perf_counter() - ts
+        ts = time.perf_counter()
+        plain = rglru._scan_ref(la, bb, h0)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - ts
+        held("scan doubling vs sequential", h, plain.cpu(), SCAN_TOL)
+        control = float_err(rglru._scan_ref(la, bb).cpu(), plain.cpu(), f32,
+                            SCAN_TOL)[1]
+        rec["scan doubling vs sequential"].update(
+            {"shape": list(SCAN_SHAPE), "doubling_ms": scan_s * 1e3,
+             "sequential_ms": plain_s * 1e3,
+             "control_h0_dropped_err_over_limit": control})
+        print(f"rglru scan at {SCAN_SHAPE}, log_a in [-0.1, 0): doubling "
+              f"({(s - 1).bit_length()} passes) against sequential, err / "
+              f"limit {rec['scan doubling vs sequential']['err_over_limit']:.4f}"
+              f" (SCAN_TOL {SCAN_TOL[f32]}); host wall {scan_s * 1e3:.3f} ms "
+              f"against {plain_s * 1e3:.3f} ms; control (inbound state "
+              f"dropped) {control:.1f}, must exceed 1", flush=True)
+        if not control > 1.0:
+            bad.append(("scan control", control))
+        del la, bb, h0, h, plain
+    torch.cuda.empty_cache()
+    print(f"block parity in {time.perf_counter() - t0:.2f} s", flush=True)
+    if bad:
+        for b_ in bad:
+            print("MISMATCH", b_, file=sys.stderr)
+        fail(f"{len(bad)} rglru / moe block checks failed on the card")
+    return rec
+
+
+def griffin_moe_config(arch: str):
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+    if arch == MIX_ARCH:
+        cfg = dataclasses.replace(cfg, num_layers=MIX_LAYERS)
+    return cfg
+
+
+def lm_serve_phase(arch: str, max_len: int, dev: dict) -> tuple:
+    """One model of the Griffin / MoE slice at its published widths in
+    bf16, random weights from a seeded generator on the card,
+    attn_impl="flash": SERVE_REQUESTS requests through
+    ServeEngine(SERVE_SLOTS, max_len); kernels 10 and 11 must launch."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.configs import get_config
+    cfg = griffin_moe_config(arch)
+    label = arch.split("-")[0]
+    phase(f"serve {label}")
+    full = get_config(arch).num_layers
+    reduced = ({"num_layers": [full, cfg.num_layers]}
+               if cfg.num_layers != full else {})
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.perf_counter()
+    model = lm.init(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{cfg.name}: {cfg.num_layers} layers {cfg.block_pattern}, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads / "
+          f"{cfg.num_kv_heads} kv of {cfg.resolved_head_dim}, window "
+          f"{cfg.window}, d_ff {cfg.d_ff}, lru {cfg.lru_width}, experts "
+          f"{cfg.num_experts} top {cfg.experts_per_token} (aux-free "
+          f"{cfg.aux_free_bias}, capacity factor {cfg.moe_capacity_factor}),"
+          f" vocab {cfg.vocab_size}, tied {cfg.tie_embeddings}, "
+          f"{cfg.dtype}; {n_params} parameters (analytic "
+          f"{cfg.param_count()}) drawn in {time.perf_counter() - t0:.2f} s; "
+          f"reduced: {json.dumps(reduced)}", flush=True)
+    if n_params != cfg.param_count():
+        fail("parameter count differs from the config's analytic count")
+    engine = ServeEngine(cfg, model, batch_slots=SERVE_SLOTS,
+                         max_len=max_len, seed=SEED)
+    with RouteLog() as routes:
+        bytes_of, weights, states, chosen = lm_step_counter(
+            model, engine, cfg, routes)
+        dk.LAUNCHES = fk.LAUNCHES = 0
+        got = drive(engine, serve_requests(cfg.vocab_size), bytes_of)
+        torch.cuda.synchronize()
+        launches = {"decode_attention": dk.LAUNCHES,
+                    "flash_attention": fk.LAUNCHES}
+    what = ("weights read (experts: those the step chose) + valid ring "
+            "slots" + (" + recurrent states" if states else ""))
+    rec = {"engine": report_serve(label, got, cfg.vocab_size, dev,
+                                  what=what, bucketed=engine._bucket),
+           "reduced": reduced, "max_len": max_len,
+           "parameters": n_params, "weights_bytes_a_step": weights,
+           "state_bytes": states, "source": {
+               RG_ARCH: "arXiv:2402.19427", MOON_ARCH:
+               "hf:moonshotai/Moonlight-16B-A3B",
+               MIX_ARCH: "arXiv:2401.04088"}[arch]}
+    if chosen:
+        rec["experts_chosen_a_layer"] = {
+            "mean": float(np.mean(chosen)), "min": min(chosen),
+            "max": max(chosen), "of": cfg.num_experts}
+        print(f"experts a MoE layer chose over the {SERVE_SLOTS} slots of a "
+              f"step: mean {np.mean(chosen):.2f} of {cfg.num_experts} "
+              f"({min(chosen):.2f}..{max(chosen):.2f}); the step computes "
+              f"all {cfg.num_experts} experts' capacity slots", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    rec["peak_gib"] = peak / 2**30
+    rec["allocated_before_gib"] = before / 2**30
+    rec["launches"] = launches
+    print(f"kernel launches on the {label} serve path: {launches}; peak "
+          f"device memory {peak / 2**30:.3f} GiB ({before / 2**30:.3f} GiB "
+          f"held before the phase)", flush=True)
+    zero = [k for k, n in launches.items() if n == 0]
+    if zero:
+        fail(f"kernels never launched on the {label} serve path: {zero}")
+    n, new = GRIFFIN_PROFILE
+    t = time.perf_counter()
+    rec["profile"] = serve_profile(engine, cfg, n=n, new=new)
+    print(f"serve {label}: {t - t_phase:.2f} s to here, the profiled "
+          f"window {time.perf_counter() - t:.2f} s", flush=True)
+    del engine
+    release()
+    t = time.perf_counter()
+    rec["parity"] = tf_parity(model, cfg, max_len, f"serve {label} parity",
+                              SEED + 2)
+    print(f"serve {label} parity in {time.perf_counter() - t:.2f} s",
+          flush=True)
+    return model, rec
+
+
+def recurrentgemma_times(dev: dict) -> dict:
+    """Kernels 10 and 11 at recurrentgemma-2b's shapes in bf16: decode q
+    (8, 1, 10, 256) over its (8, 1, 2048, 256) window ring wrapped as after
+    the longest request (positions up to 4158 stored, queries at 4159,
+    window 2048), and a 4096-token prefill (1, 1, 10, 4096, 256) at window
+    2048, which takes kernel 11's CUDA-core route (bf16 at D 256). Bounds
+    as attention_times counts them (the window's reachable pairs); the
+    prefill's bound at the fp32 CUDA-core rate that route runs at is
+    printed beside it. SDPA with an explicit mask is the library call."""
+    phase("recurrentgemma times")
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fref
+    cfg = griffin_moe_config(RG_ARCH)
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    b, kvh, gq, d = SERVE_SLOTS, cfg.num_kv_heads, cfg.num_heads \
+        // cfg.num_kv_heads, cfg.resolved_head_dim
+    w = s = cfg.window
+    q = torch.randn((b, kvh, gq, d), generator=g, device="cuda").to(bf16)
+    k = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(bf16)
+    v = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(bf16)
+    last = SERVE_PROMPTS[1] + SERVE_NEW - 1
+    kv_pos, q_pos = ring_positions(b, s, None, [last] * b)
+    dp = q_pos[:, None] - kv_pos
+    mask = ((dp >= 0) & (dp < w))[:, None, None, :]
+    valid = int(mask.sum())
+    out = {}
+    dec = time_float_kernel(
+        "decode_attention",
+        lambda: dk.decode_attention_fwd(q, k, v, q_pos, kv_pos, window=w),
+        lambda: dref.decode_ref(q, k, v, q_pos, kv_pos, window=w),
+        lambda: F.scaled_dot_product_attention(
+            q.reshape(b, kvh * gq, 1, d), k, v, attn_mask=mask,
+            enable_gqa=True),
+        nbytes=ring_bytes(kv_pos, q_pos, kvh, d, 2, w) + 2 * q.numel() * 2,
+        flops=4 * d * gq * kvh * valid, dtype=bf16, dev=dev)
+    dec.update({"shape": [b, kvh, gq, s, d], "window": w,
+                "valid_slots": valid // b})
+    out["decode_attention"] = dec
+    del q, k, v, kv_pos, q_pos, mask
+    sq = TF_PROMPT
+    q5 = torch.randn((1, kvh, gq, sq, d), generator=g,
+                     device="cuda").to(bf16)
+    k4 = torch.randn((1, kvh, sq, d), generator=g, device="cuda").to(bf16)
+    v4 = torch.randn((1, kvh, sq, d), generator=g, device="cuda").to(bf16)
+    i = torch.arange(sq, device="cuda")
+    band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < w)
+    pairs = kvh * gq * int(band.sum())
+    flops = 4 * d * pairs
+    fl = time_float_kernel(
+        "flash_attention",
+        lambda: fk.flash_attention_fwd(q5, k4, v4, window=w),
+        lambda: fref.attention_ref(q5, k4, v4, window=w),
+        lambda: F.scaled_dot_product_attention(
+            q5.reshape(1, kvh * gq, sq, d), k4, v4, attn_mask=band,
+            enable_gqa=True),
+        nbytes=2 * q5.numel() * 2 + 2 * k4.numel() * 2,
+        flops=flops, dtype=bf16, dev=dev)
+    core = max(fl["bytes"] / MEM_BPS, flops / CORE_OPS) * 1e3
+    fl.update({"shape": [1, kvh, gq, sq, sq, d], "window": w,
+               "path_route": "flash_fwd_kernel (CUDA cores, bf16 at D 256)",
+               "bound_fp32_cuda_cores_ms": core})
+    print(f"flash_attention at D 256 runs on the CUDA cores: "
+          f"{core / fl['ms_back_to_back']:.3f} of the fp32 CUDA-core bound "
+          f"{core:.4f} ms back to back [{dev['smi']}]", flush=True)
+    out["flash_attention"] = fl
+    del q5, k4, v4, band
+    torch.cuda.empty_cache()
+    return out
+
+
+def griffin_moe_phases(dev: dict, kernels: list, serve: dict) -> None:
+    """The Griffin and MoE slice after the mamba2 phases: block parity,
+    then each model's serve phase and teacher-forced check (recurrentgemma
+    followed by kernels 10 and 11 at its shapes), each model dropped before
+    the next; records into `serve` and the kernel 10 / 11 entries."""
+    serve["block_parity"] = block_parity_phase()
+    times = None
+    for arch, max_len in ((RG_ARCH, SERVE_MAX_LEN),
+                          (MOON_ARCH, MOON_MAX_LEN),
+                          (MIX_ARCH, SERVE_MAX_LEN)):
+        model, rec = lm_serve_phase(arch, max_len, dev)
+        del model
+        release()
+        label = arch.split("-")[0]
+        serve[label] = rec
+        for k in kernels:
+            if k["name"] in rec["launches"]:
+                k[f"launches_{label}"] = rec["launches"][k["name"]]
+        if arch == RG_ARCH:
+            times = recurrentgemma_times(dev)
+    for k in kernels:
+        if k["name"] in times:
+            k["recurrentgemma_shape"] = times[k["name"]]
 
 
 # --------------------------------------------------------------------------
@@ -4705,7 +5234,8 @@ def main() -> None:
     model, engine, serve = serve_phase(dev)
     del engine
     release()
-    serve["parity"] = serve_parity_phase(model)
+    serve["parity"] = tf_parity(model, serve_config(), SERVE_MAX_LEN,
+                                "serve parity", SEED + 2)
     del model
     release()
     kernels += attention_times(dev, serve["launches"], parity_err)
@@ -4717,6 +5247,7 @@ def main() -> None:
     kernels += ssd_times(dev, mamba["launches"], parity_err)
     mamba["ssd_parity"] = ssd_check
     serve["mamba2"] = mamba
+    griffin_moe_phases(dev, kernels, serve)
     print(json.dumps({"serve": serve}, default=str))
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))

@@ -9,9 +9,11 @@ The functions keep the reference's names and arguments, with the module in
 place of the params pytree, so the tests compare call for call. Caches are
 a list with one dict per layer, of the layer's kind: attention layers'
 {"k", "v", "pos"} rings in the kernel-native (B, KVH, S, D) layout,
-written in place, and SSD layers' {"ssm", "conv"} states, which each call
-returns anew as the reference does. The head is the embedding's transpose
-when the config ties them (mamba2-1.3b).
+written in place, and the recurrent layers' states, SSD's {"ssm", "conv"}
+and RG-LRU's {"h", "conv"}, which each call returns anew as the reference
+does. The aux loss is the sum of the MoE blocks' load-balance losses
+(zero without experts). The head is the embedding's transpose when the
+config ties them (mamba2-1.3b, recurrentgemma-2b).
 """
 from __future__ import annotations
 

@@ -7,8 +7,9 @@ its recurrent state) — about one flop a byte, the bandwidth-bound regime
 the analytical model provisions for. With attn_impl="flash" the attention
 runs on the hand-written kernels (flash prefill, split-K decode over the
 ring); an SSD stack's prefill runs the SSD chunk-scan kernel in every
-layer, and its decode step is plain tensor work; the projections, the MLP
-and the head are plain matrix products.
+layer, and its decode step is plain tensor work; the RG-LRU recurrence,
+the projections, the MLP, the experts and the head are plain tensor work
+and matrix products.
 """
 from __future__ import annotations
 
@@ -82,14 +83,18 @@ class ServeEngine:
 
     Fixed B decode slots with per-slot cache_len; a finished slot is
     refilled by prefilling the new request's prompt in a 1-row cache and
-    copying that row, every tensor of it (pos planes, SSM and conv states)
-    over the slot's row of the batch cache. Slot and length bookkeeping
+    copying that row, every tensor of it (pos planes, the SSD and RG-LRU
+    blocks' recurrent and conv states) over the slot's row of the batch
+    cache. Slot and length bookkeeping
     lives in a host-side numpy mirror, so the only device sync of a decode
     step is the sampled tokens. Prompts are padded to power-of-two
     buckets (attention-only stacks: padded ring slots are re-marked
     never-written via the pos plane); a stack with SSD blocks prefills the
     raw prompt, which must be shorter than a chunk or a whole number of
     chunks (models.ssm._ssd_chunked asserts it, as the reference does).
+    A bucketed stack's MoE blocks route the pad tokens too, after the
+    prompt's, so their capacity comes from the padded length, as in the
+    reference.
 
     `params` is an LM module; the engine runs on its device, which must be
     `device` (the card unless device="cpu").

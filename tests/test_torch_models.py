@@ -219,14 +219,25 @@ def test_block_matches_reference(pair, kind):
     assert float(aux) == float(jaux) == 0.0
 
 
-def test_unported_block_kinds_name_step_9():
-    for arch in ("recurrentgemma-2b", "mixtral-8x22b"):
+def test_every_block_kind_inits_and_unknown_kinds_raise():
+    """The "rglru" kind and MoE feed-forwards build (their parity is
+    tests/test_torch_rglru_moe.py's); a kind outside the four raises
+    ValueError, as in the reference."""
+    for arch in ("recurrentgemma-2b", "mixtral-8x22b",
+                 "moonshot-v1-16b-a3b"):
         cfg = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match="step 9"):
-            lm.init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="step 9"):
-        blocks.block_cache_init(get_config("recurrentgemma-2b").reduced(),
-                                "rglru", 1, 8, torch.float32, "cpu")
+        model = lm.init(cfg, device="cpu")
+        assert [blk.kind for blk in model.blocks] == [
+            cfg.pattern_at(i) for i in range(cfg.num_layers)]
+        assert all(hasattr(blk, "moe") == bool(cfg.num_experts)
+                   for blk in model.blocks)
+    cfg = get_config("recurrentgemma-2b").reduced()
+    assert sorted(blocks.block_cache_init(cfg, "rglru", 1, 8, torch.float32,
+                                          "cpu")) == ["conv", "h"]
+    with pytest.raises(ValueError, match="mlstm"):
+        blocks.block_init(cfg, "mlstm", torch.float32, torch.Generator())
+    with pytest.raises(ValueError, match="mlstm"):
+        blocks.block_apply(None, None, None, cfg, "mlstm")
 
 
 # --------------------------------------------------------------------------
