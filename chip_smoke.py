@@ -217,7 +217,10 @@ attention runs kernels 10 and 11) adds:
              bf16: KVH 1, G 10, D 256, window 2048 (recurrentgemma); KVH
              16, G 1, D 128 (moonshot); KVH 8, G 6, D 128, window 4096
              (mixtral); ragged fills, an empty slot, rings wrapped past
-             the window, ragged prefills.
+             the window, ragged prefills; kernel 11's D 256 tile (64 keys,
+             two stages) at ragged tiles, windows ending inside a tile and
+             G 1, 3 and 10; the controls again at recurrentgemma's D 256
+             shapes.
 15. parity (rglru and moe blocks) — at each model's full width, fp32
              weights from a seed, TF32 off, the same port code on the card
              and on the CPU: one RG-LRU block's apply over 1024 steps and
@@ -253,7 +256,9 @@ attention runs kernels 10 and 11) adds:
              of the positions fails.
 17. recurrentgemma times — kernel 10 at recurrentgemma's decode shape
              and kernel 11 at its prefill shape (bf16, D 256, G 10, window
-             2048, S 4096: the CUDA-core route), with SDPA beside each;
+             2048, S 4096) on the route kernel.route gives (the tensor
+             cores), with SDPA beside each, and kernel 11's CUDA-core route
+             (way="cuda_core") at the same shape in the same call;
              recorded in the {"kernels": ...} entries of 10 and 11 with
              each path's launches ("launches_<arch>").
 
@@ -2373,6 +2378,8 @@ ATTN_TOL = {torch.float32: (2.0 ** -20, 5e-5),
             torch.bfloat16: (2.0 ** -6, 2.0 ** -6)}
 DECODE_REPLACES = "src/repro/kernels/decode_attention/kernel.py:90"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:105"
+FLASH_KERNELS = {"wgmma": "flash_wgmma_kernel",     # kernel 11's routes
+                 "cuda_core": "flash_fwd_kernel"}
 BF16_OPS = 989e12       # H100 SXM dense bf16 tensor-core rate (datasheet)
 
 
@@ -2477,7 +2484,7 @@ def flash_cases():
                           128, torch.bfloat16, w))
         cases.append((f"ragged 1000, window {w}", 2, 1, 2, 1000, 1000, 64,
                       f32, w))
-    for d in (32, 256):                       # bf16 D 256: CUDA cores
+    for d in (32, 256):                       # bf16: the wgmma route
         cases.append((f"head dim {d}", 1, 2, 2, 200, 333, d, bf16, 0))
         cases.append((f"head dim {d}, fp32", 1, 1, 2, 130, 130, d, f32, 50))
     for dt in (f32, bf16):                    # the path's prefill shape
@@ -2497,8 +2504,20 @@ def flash_cases():
                       w))
     for g in (1, 4, 8):
         cases.append((f"wgmma, G {g}", 2, 1, g, 333, 777, 128, bf16, 0))
+    # the same edges for the D 256 tile (64 keys, two stages): windows 65
+    # and 100 end inside a 64-key tile; G 3 pairs units across query tiles
+    cases.append(("wgmma D 256, Sq = Skv = 1000", 1, 2, 2, 1000, 1000, 256,
+                  bf16, 0))
+    cases.append(("wgmma D 256, Sq 130 over Skv 4100", 1, 2, 2, 130, 4100,
+                  256, bf16, 0))
+    for w in (65, 100):
+        cases.append((f"wgmma D 256, window {w}", 1, 2, 2, 1000, 1000, 256,
+                      bf16, w))
+    for g in (1, 3, 10):
+        cases.append((f"wgmma D 256, G {g}", 2, 1, g, 333, 777, 256, bf16,
+                      0))
     for dt in (f32, bf16):
-        # the Griffin / MoE paths' prefill shapes (bf16 D 256: CUDA cores)
+        # the Griffin / MoE paths' prefill shapes
         cases.append(("recurrentgemma path, window 2048", 1, 1, 10, 4096,
                       4096, 256, dt, 2048))
         cases.append(("moonshot path", 1, 16, 1, 4096, 4096, 128, dt, 0))
@@ -2768,41 +2787,51 @@ def attention_graph_phase() -> dict:
 
 
 def attention_controls(g) -> dict:
-    """What the limit reads on outputs known to be wrong, at the path's
-    bf16 shapes: the plain version with its softmax scale 2% off (q scaled
-    by 1.02 in fp32) for both kernels, and in decode the plain version over
-    a ring whose last 64 valid slots are dropped. Each must exceed the
-    limit (err / limit > 1), or the parity check could not see it."""
+    """What the limit reads on outputs known to be wrong, at the serving
+    path's bf16 shapes and at recurrentgemma's (D 256, G 10, window 2048;
+    suffix "_d256"): the plain version with its softmax scale 2% off (q
+    scaled by 1.02 in fp32) for both kernels, and in decode the plain
+    version over a ring whose last 64 valid slots are dropped. Each must
+    exceed the limit (err / limit > 1), or the parity check could not see
+    it."""
     from repro_torch.kernels.decode_attention import ref as dref
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.models.attention import INF_POS
     bf16 = torch.bfloat16
-    b, kvh, gq, s, d = SERVE_SLOTS, 8, 2, SERVE_MAX_LEN, 128
-    q = torch.randn((b, kvh, gq, d), generator=g, device="cuda").to(bf16)
-    k = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(bf16)
-    v = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(bf16)
-    fill = SERVE_PROMPTS[1] + SERVE_NEW - 1
-    kv_pos, q_pos = ring_positions(b, s, [fill] * b)
-    want = dref.decode_ref(q, k, v, q_pos, kv_pos)
-    out = {"decode_scale_2pct": float_err(
-        dref.decode_ref(q.float() * 1.02, k, v, q_pos, kv_pos), want,
-        bf16)[1]}
-    dropped = kv_pos.clone()
-    dropped[:, fill - 64:fill] = INF_POS
-    out["decode_drop_64"] = float_err(
-        dref.decode_ref(q, k, v, q_pos, dropped), want, bf16)[1]
-    del q, k, v, kv_pos, dropped
-    q5 = torch.randn((1, kvh, gq, TF_PROMPT, d), generator=g,
-                     device="cuda").to(bf16)
-    k4 = torch.randn((1, kvh, TF_PROMPT, d), generator=g,
-                     device="cuda").to(bf16)
-    v4 = torch.randn((1, kvh, TF_PROMPT, d), generator=g,
-                     device="cuda").to(bf16)
-    want = fref.attention_ref(q5, k4, v4)
-    out["flash_scale_2pct"] = float_err(
-        fref.attention_ref(q5.float() * 1.02, k4, v4), want, bf16)[1]
-    del q5, k4, v4, want
-    torch.cuda.empty_cache()
+    last = SERVE_PROMPTS[1] + SERVE_NEW - 1
+    out = {}
+    # (suffix, kvh, G, ring slots, D, window, the ring's fill or wrap)
+    for suffix, kvh, gq, s, d, w, (fills, wrap) in (
+            ("", 8, 2, SERVE_MAX_LEN, 128, 0, ([last] * SERVE_SLOTS, None)),
+            ("_d256", 1, 10, 2048, 256, 2048, (None, [last] * SERVE_SLOTS))):
+        b = SERVE_SLOTS
+        q = torch.randn((b, kvh, gq, d), generator=g, device="cuda").to(bf16)
+        k = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(bf16)
+        v = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(bf16)
+        kv_pos, q_pos = ring_positions(b, s, fills, wrap)
+        want = dref.decode_ref(q, k, v, q_pos, kv_pos, window=w)
+        out[f"decode_scale_2pct{suffix}"] = float_err(
+            dref.decode_ref(q.float() * 1.02, k, v, q_pos, kv_pos,
+                            window=w), want, bf16)[1]
+        dropped = kv_pos.clone()
+        dropped[:, torch.arange(last - 64, last, device="cuda") % s] = \
+            INF_POS
+        out[f"decode_drop_64{suffix}"] = float_err(
+            dref.decode_ref(q, k, v, q_pos, dropped, window=w), want,
+            bf16)[1]
+        del q, k, v, kv_pos, dropped
+        q5 = torch.randn((1, kvh, gq, TF_PROMPT, d), generator=g,
+                         device="cuda").to(bf16)
+        k4 = torch.randn((1, kvh, TF_PROMPT, d), generator=g,
+                         device="cuda").to(bf16)
+        v4 = torch.randn((1, kvh, TF_PROMPT, d), generator=g,
+                         device="cuda").to(bf16)
+        want = fref.attention_ref(q5, k4, v4, window=w)
+        out[f"flash_scale_2pct{suffix}"] = float_err(
+            fref.attention_ref(q5.float() * 1.02, k4, v4, window=w), want,
+            bf16)[1]
+        del q5, k4, v4, want
+        torch.cuda.empty_cache()
     print(f"attention controls (err / limit, each must exceed 1): "
           f"{json.dumps(out)}", flush=True)
     caught = [n for n, r in out.items() if not r > 1.0]
@@ -4096,10 +4125,13 @@ def recurrentgemma_times(dev: dict) -> dict:
     (8, 1, 10, 256) over its (8, 1, 2048, 256) window ring wrapped as after
     the longest request (positions up to 4158 stored, queries at 4159,
     window 2048), and a 4096-token prefill (1, 1, 10, 4096, 256) at window
-    2048, which takes kernel 11's CUDA-core route (bf16 at D 256). Bounds
-    as attention_times counts them (the window's reachable pairs); the
-    prefill's bound at the fp32 CUDA-core rate that route runs at is
-    printed beside it. SDPA with an explicit mask is the library call."""
+    2048 on the route kernel.route gives it (the tensor cores), then on
+    kernel 11's CUDA-core route (way="cuda_core", the kernel the D 256
+    prefill took before it had a tensor-core route) in the same call.
+    Bounds as attention_times counts them (the window's reachable pairs);
+    the prefill's bound at the fp32 CUDA-core rate is printed beside the
+    CUDA-core route's time. SDPA with an explicit mask is the library
+    call."""
     phase("recurrentgemma times")
     import torch.nn.functional as F
 
@@ -4153,13 +4185,40 @@ def recurrentgemma_times(dev: dict) -> dict:
             enable_gqa=True),
         nbytes=2 * q5.numel() * 2 + 2 * k4.numel() * 2,
         flops=flops, dtype=bf16, dev=dev)
-    core = max(fl["bytes"] / MEM_BPS, flops / CORE_OPS) * 1e3
+    way = fk.route(bf16, d)
+    share = fl["bound_ms"] / fl["ms_back_to_back"]
+    over = fl["ms_back_to_back"] / fl["library_ms_back_to_back"]
+    print(f"flash_attention at D 256 takes route {way!r} "
+          f"({FLASH_KERNELS[way]}): {share:.3f} of its "
+          f"{fl['bound_ms']:.4f} ms bound back to back, {over:.3f}x SDPA's "
+          f"time ({'under' if over < 1 else 'over'} it) [{dev['smi']}]",
+          flush=True)
+
+    def core():
+        return fk.flash_attention_fwd(q5, k4, v4, window=w, way="cuda_core")
+    e, ratio = float_err(core(), fref.attention_ref(q5, k4, v4, window=w),
+                         bf16)
+    if not ratio <= 1.0:
+        fail(f"flash_attention's CUDA-core route differs from its plain "
+             f"version at D 256 (max abs err {e}, {ratio} of the limit)")
+    bound_core = max(fl["bytes"] / MEM_BPS, flops / CORE_OPS) * 1e3
+    cuda_core = {"ms": time_ms(core),
+                 "ms_back_to_back": time_ms(core, KERNEL_REPS),
+                 "max_abs_err": e, "bound_fp32_cuda_cores_ms": bound_core}
     fl.update({"shape": [1, kvh, gq, sq, sq, d], "window": w,
-               "path_route": "flash_fwd_kernel (CUDA cores, bf16 at D 256)",
-               "bound_fp32_cuda_cores_ms": core})
-    print(f"flash_attention at D 256 runs on the CUDA cores: "
-          f"{core / fl['ms_back_to_back']:.3f} of the fp32 CUDA-core bound "
-          f"{core:.4f} ms back to back [{dev['smi']}]", flush=True)
+               "path_route": way, "path_kernel": FLASH_KERNELS[way],
+               "bound_share_back_to_back": share,
+               "over_library_back_to_back": over,
+               "cuda_core_route": cuda_core,
+               "split_ms": launch_split(
+                   lambda: fk.flash_attention_fwd(q5, k4, v4, window=w),
+                   tuple(FLASH_KERNELS.values()), dev)})
+    print(f"the CUDA-core route at the same shape: {cuda_core['ms']:.4f} ms "
+          f"one call ({cuda_core['ms_back_to_back']:.4f} ms back to back), "
+          f"{bound_core / cuda_core['ms_back_to_back']:.3f} of the fp32 "
+          f"CUDA-core bound {bound_core:.4f} ms; the route taken is "
+          f"{cuda_core['ms_back_to_back'] / fl['ms_back_to_back']:.2f}x as "
+          f"fast back to back [{dev['smi']}]", flush=True)
     out["flash_attention"] = fl
     del q5, k4, v4, band
     torch.cuda.empty_cache()

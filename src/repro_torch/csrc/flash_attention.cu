@@ -15,23 +15,30 @@
 // head for 4 * S * D * sizeof(T) bytes; at S = 4096 that is ~1000 flops a
 // byte, far above the card's ~295. Two kernels:
 //
-// flash_wgmma_kernel, bf16 at head dims 32, 64 and 128 (the serving
-// path's route), is built for the tensor cores' full rate, which only
-// wgmma reaches. A block is three warpgroups. The first is the producer:
-// it gives up registers (setmaxnreg) and one of its threads issues TMA
-// loads (cp.async.bulk.tensor through a CUtensorMap, 128-byte swizzle, or
-// 64-byte at head dim 32) of the Q tiles and of each 128-key K and V tile
-// into a three-stage ring guarded by full and empty mbarriers, so loads
-// run ahead of the products. The other two are consumers with 240
+// flash_wgmma_kernel, bf16 at every head dim (32, 64, 128 and 256), is
+// built for the tensor cores' full rate, which only wgmma reaches. A block
+// is three warpgroups. The first is the producer: it gives up registers
+// (setmaxnreg) and one of its threads issues TMA loads
+// (cp.async.bulk.tensor through a CUtensorMap, 128-byte swizzle, or
+// 64-byte at head dim 32) of the Q tiles and of each K and V tile into a
+// ring guarded by full and empty mbarriers, K's and V's apart, so loads
+// run ahead of the products. Up to D 128 a tile has 128 keys and the ring
+// three stages; at D 256, where a 128-key (K, V) stage would take 128 KiB
+// of the 227, a tile has 64 keys and the ring two stages (64 KiB of Q and
+// 128 KiB of K and V). The other two warpgroups are consumers with 240
 // registers a thread; each owns 64 query rows: S = Q K^T by wgmma
-// m64n128k16 with both operands in shared memory, then P, rounded to bf16
+// m64nBNk16 with both operands in shared memory, then P, rounded to bf16
 // and packed from the score accumulator straight into A fragments, times V
 // by wgmma with A from registers and V read as an MN-major (transposed)
-// operand. Tile j's S product is issued together with tile j - 1's P V,
-// and tile j's softmax runs while that P V does (FlashAttention-3's
-// intra-warpgroup overlap); the other consumer's products fill the tensor
-// cores meanwhile. The softmax takes exp2 on the special-function unit
-// (ex2.approx.ftz) of the raw score scaled to log2 units by one FFMA.
+// operand, at D 256 as two m64n128k16 products a k-step over O's two
+// column halves (O is 128 registers a thread there). Tile j's S product is
+// issued together with tile j - 1's P V, and tile j's softmax runs while
+// that P V does (FlashAttention-3's intra-warpgroup overlap); a K tile is
+// freed as soon as its S product is done, so with two stages the next K
+// tile loads under the P V, and a V tile once its P V is done. The other
+// consumer's products fill the tensor cores meanwhile. The softmax takes
+// exp2 on the special-function unit (ex2.approx.ftz) of the raw score
+// scaled to log2 units by one FFMA.
 // GQA: the 64-row units (query head g, query tile t) are numbered t * G +
 // g and a work item is two neighbours, so at even G both consumers hold
 // two heads of one kv head at the same positions and every K/V tile
@@ -48,15 +55,16 @@
 // and keys while the consumers write the last item's output.
 //
 // flash_fwd_kernel, float32 (whose tolerance the tensor cores' bf16 or TF32
-// inputs would not meet) and bf16 at head dim 256, runs on the CUDA cores:
-// one block per (b, kv head, query head, tile of kBQ query rows), heavy
-// (late) query tiles first. The block keeps its Q tile (pre-scaled, fp32)
-// in shared memory and walks only the key tiles a row of it can reach;
-// 256 threads each own a 4 x 4 block of the kBQ x kBK scores (float4 loads
-// along D) and the matching 4 rows x D/16 columns of the output
-// accumulator, with the online softmax (m, l) of its four rows in
-// registers, reduced over the 16 lanes that share a row. Its probabilities
-// stay in fp32.
+// inputs would not meet), runs on the CUDA cores; bf16 reaches it only when
+// the caller asks for that route (route 0, the wrapper's
+// way="cuda_core"), to measure against. One block per (b, kv head, query
+// head, tile of kBQ query rows), heavy (late) query tiles first. The block
+// keeps its Q tile (pre-scaled, fp32) in shared memory and walks only the
+// key tiles a row of it can reach; 256 threads each own a 4 x 4 block of
+// the kBQ x kBK scores (float4 loads along D) and the matching 4 rows x
+// D/16 columns of the output accumulator, with the online softmax (m, l)
+// of its four rows in registers, reduced over the 16 lanes that share a
+// row. Its probabilities stay in fp32.
 #include <cmath>
 #include <cstdint>
 #include <cuda.h>
@@ -277,31 +285,36 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- Hopper path: bf16, D in {32, 64, 128}: TMA + wgmma -----------------
+// ---- Hopper path: bf16, D in {32, 64, 128, 256}: TMA + wgmma ------------
 
 namespace hop {
 
 constexpr int kWG = 128;                 // threads a warpgroup
 constexpr int kThreads = 3 * kWG;        // the producer and two consumers
 constexpr int kRows = 64;                // query rows a consumer
-constexpr int kBN = 128;                 // keys a tile
-constexpr int kStages = 3;               // K/V tiles in the ring
 
-// Shared memory: each consumer's Q tile, then kStages (K, V) tiles. A tile
-// is stored in column panels of SW bytes a row (the TMA box's width, the
-// swizzle span), each panel rows x SW bytes.
+// Shared memory: each consumer's Q tile, then STAGES (K, V) tiles of BN
+// keys. A tile is stored in column panels of SW bytes a row (the TMA box's
+// width, the swizzle span), each panel rows x SW bytes. Up to D 128 a tile
+// has 128 keys and the ring three stages; at D 256 a (K, V) stage of 128
+// keys would be 128 KiB, so a tile has 64 keys and the ring two stages:
+// 64 KiB of Q and 128 KiB of K and V.
 template <int D>
 struct Layout {
+  static constexpr int BN = D <= 128 ? 128 : 64;  // keys a tile
+  static constexpr int STAGES = D <= 128 ? 3 : 2;  // (K, V) tiles in the ring
   static constexpr int SW = D * 2 < 128 ? D * 2 : 128;
   static constexpr int COLS = SW / 2;            // bf16 columns a panel
   static constexpr int KPP = SW / 32;            // k16 steps a panel
+  static constexpr int PV_N = D < 128 ? D : 128; // columns of a P V wgmma
   static constexpr int Q_PANEL = kRows * SW;
   static constexpr int Q_BYTES = kRows * D * 2;
-  static constexpr int KV_PANEL = kBN * SW;
-  static constexpr int KV_BYTES = kBN * D * 2;
+  static constexpr int KV_PANEL = BN * SW;
+  static constexpr int KV_BYTES = BN * D * 2;
   static constexpr int KV_OFF = 2 * Q_BYTES;
-  static constexpr int SMEM = KV_OFF + kStages * 2 * KV_BYTES;
+  static constexpr int SMEM = KV_OFF + STAGES * 2 * KV_BYTES;
   static constexpr uint64_t MODE = SW == 128 ? 1 : 2;   // descriptor swizzle
+  static_assert(SMEM + 1024 <= 232448, "over a block's shared memory");
 };
 
 struct Params {
@@ -343,12 +356,14 @@ struct Unit {
 constexpr float kMaskRaw = -0x1p100f;
 
 // mask the tile's raw scores where it crosses the diagonal, a window edge
-// or the end of the keys (a fully visible tile is left as it is)
-template <int NS>
+// or the end of the keys (a fully visible tile is left as it is); a tile
+// of BN keys, NS = BN / 2 scores a thread
+template <int BN>
 __device__ __forceinline__ void mask_scores(float* s, const Params& p,
                                             const Unit& u, int k0, int pos_a,
                                             int tig) {
-  const bool visible = k0 + kBN <= p.skv && k0 + kBN - 1 <= u.lo &&
+  constexpr int NS = BN / 2;
+  const bool visible = k0 + BN <= p.skv && k0 + BN - 1 <= u.lo &&
                        (p.window == 0 || u.hi - k0 < p.window);
   if (visible) return;
 #pragma unroll
@@ -400,14 +415,14 @@ __device__ __forceinline__ void pack_p(const float* s, uint32_t (*pf)[4]) {
   }
 }
 
-// S = Q K^T over one key tile: Q (64 x D) at qa, K (kBN x D) at kb, both
+// S = Q K^T over one key tile: Q (64 x D) at qa, K (BN x D) at kb, both
 // K-major in swizzled panels
 template <int D>
 __device__ __forceinline__ void issue_s(float* s, uint32_t qa, uint32_t kb) {
   using L = Layout<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    Wgmma<kBN>::ss(
+    Wgmma<L::BN>::ss(
         s,
         make_desc(qa + (kk / L::KPP) * L::Q_PANEL + (kk % L::KPP) * 32, 16,
                   8 * L::SW, L::MODE),
@@ -417,23 +432,30 @@ __device__ __forceinline__ void issue_s(float* s, uint32_t qa, uint32_t kb) {
   wg_commit();
 }
 
-// O += P V over one key tile: P in registers, V (kBN x D) at vb read as an
-// MN-major operand, 16 keys a k-step
+// O += P V over one key tile: P in registers, V (BN x D) at vb read as an
+// MN-major operand, 16 keys a k-step; at D 256 a k-step is two wgmmas of
+// 128 columns, O's registers 0-63 over V's panels 0-1 and 64-127 over
+// panels 2-3 (the column order of one m64n256 accumulator)
 template <int D>
 __device__ __forceinline__ void issue_pv(float* o, uint32_t (*pf)[4],
                                          uint32_t vb) {
   using L = Layout<D>;
 #pragma unroll
-  for (int kt = 0; kt < kBN / 16; ++kt)
-    Wgmma<D>::rs(o, pf[kt],
-                 make_desc(vb + kt * 16 * L::SW, L::KV_PANEL, 8 * L::SW,
-                           L::MODE));
+  for (int kt = 0; kt < L::BN / 16; ++kt)
+#pragma unroll
+    for (int h = 0; h < D / L::PV_N; ++h)
+      Wgmma<L::PV_N>::rs(
+          o + h * (L::PV_N / 2), pf[kt],
+          make_desc(vb + h * (L::PV_N / L::COLS) * L::KV_PANEL +
+                        kt * 16 * L::SW,
+                    L::KV_PANEL, 8 * L::SW, L::MODE));
   wg_commit();
 }
 
 // A work item: the pair of units n_pairs - 1 - j / BH (late query tiles
-// first) of the (b, kv head) j % BH, and the key tiles some row of it can
-// see, [t_lo, t_lo + n_tiles).
+// first) of the (b, kv head) j % BH, and the key tiles of BN keys some row
+// of it can see, [t_lo, t_lo + n_tiles).
+template <int BN>
 struct Item {
   int bh;
   Unit u0, u1;
@@ -444,8 +466,8 @@ struct Item {
         u1(p, 2 * (p.n_pairs - 1 - j / p.bh) + 1) {
     const int begin = u1.ok ? min(u0.begin(p), u1.begin(p)) : u0.begin(p);
     const int end = u1.ok ? max(u0.end(p), u1.end(p)) : u0.end(p);
-    t_lo = begin / kBN;
-    n_tiles = (end + kBN - 1) / kBN - t_lo;
+    t_lo = begin / BN;
+    n_tiles = (end + BN - 1) / BN - t_lo;
   }
 };
 
@@ -458,16 +480,21 @@ __global__ void __launch_bounds__(kThreads, 1)
                        const __grid_constant__ CUtensorMap tv,
                        const Params p) {
   using L = Layout<D>;
-  constexpr int NS = kBN / 2;        // score registers a thread
+  constexpr int BN = L::BN;
+  constexpr int ST = L::STAGES;
+  constexpr int NS = BN / 2;         // score registers a thread
   constexpr int NO = D / 2;          // output registers a thread
   extern __shared__ unsigned char smem_raw[];
-  // q full, q empty, then full and empty of each ring stage
-  __shared__ __align__(8) uint64_t bars[2 + 2 * kStages];
+  // q full, q empty, then a barrier a stage in each of: K full, V full,
+  // K empty, V empty
+  __shared__ __align__(8) uint64_t bars[2 + 4 * ST];
   // 128-byte swizzled tiles need 1024-byte aligned bases
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = smem_u32(&bars[0]), bar_q_empty = bar_q + 8;
-  const uint32_t bar_full = bar_q + 16;
-  const uint32_t bar_empty = bar_full + 8 * kStages;
+  const uint32_t bar_k_full = bar_q + 16;
+  const uint32_t bar_v_full = bar_k_full + 8 * ST;
+  const uint32_t bar_k_empty = bar_v_full + 8 * ST;
+  const uint32_t bar_v_empty = bar_k_empty + 8 * ST;
 
   // round k's item: blocks take the items in a snake order (k even: block
   // b the b-th of the round, k odd: the b-th from its end), which levels
@@ -480,9 +507,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
     mbar_init(bar_q_empty, 2 * kWG);          // every consumer thread
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(bar_full + 8 * s, 1);
-      mbar_init(bar_empty + 8 * s, 2 * kWG);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar_k_full + 8 * s, 1);
+      mbar_init(bar_v_full + 8 * s, 1);
+      mbar_init(bar_k_empty + 8 * s, 2 * kWG);
+      mbar_init(bar_v_empty + 8 * s, 2 * kWG);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -495,7 +524,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == 0) {
       int it = 0;                    // ring tiles so far
       for (int k = 0, j; (j = item_of(k)) < p.n_items; ++k) {
-        const Item item(p, j);
+        const Item<BN> item(p, j);
         mbar_wait(bar_q_empty, (k & 1) ^ 1);  // the last item's Q is read
         mbar_expect_tx(bar_q, (item.u1.ok ? 2 : 1) * L::Q_BYTES);
 #pragma unroll
@@ -507,18 +536,24 @@ __global__ void __launch_bounds__(kThreads, 1)
                      c * L::COLS, item.u1.q0, item.bh * p.g + item.u1.g);
         }
         for (int i = 0; i < item.n_tiles; ++i, ++it) {
-          const int st = it % kStages;
-          mbar_wait(bar_empty + 8 * st, ((it / kStages) & 1) ^ 1);
-          mbar_expect_tx(bar_full + 8 * st, 2 * L::KV_BYTES);
+          const int st = it % ST;
+          const uint32_t phase = ((it / ST) & 1) ^ 1;
           const uint32_t kb = base + L::KV_OFF + st * 2 * L::KV_BYTES;
-          const int k0 = (item.t_lo + i) * kBN;
+          const int k0 = (item.t_lo + i) * BN;
+          // K and V of a stage are freed apart (K once S = Q K^T is done),
+          // so the next K tile loads while this tile's P V runs
+          mbar_wait(bar_k_empty + 8 * st, phase);
+          mbar_expect_tx(bar_k_full + 8 * st, L::KV_BYTES);
 #pragma unroll
-          for (int c = 0; c < D / L::COLS; ++c) {
-            tma_load(kb + c * L::KV_PANEL, &tk, bar_full + 8 * st,
+          for (int c = 0; c < D / L::COLS; ++c)
+            tma_load(kb + c * L::KV_PANEL, &tk, bar_k_full + 8 * st,
                      c * L::COLS, k0, item.bh);
+          mbar_wait(bar_v_empty + 8 * st, phase);
+          mbar_expect_tx(bar_v_full + 8 * st, L::KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < D / L::COLS; ++c)
             tma_load(kb + L::KV_BYTES + c * L::KV_PANEL, &tv,
-                     bar_full + 8 * st, c * L::COLS, k0, item.bh);
-          }
+                     bar_v_full + 8 * st, c * L::COLS, k0, item.bh);
         }
       }
     }
@@ -531,32 +566,40 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int gid = lane >> 2, tig = lane & 3;
     const uint32_t qa = base + w * L::Q_BYTES;
     int it = 0;                      // ring tiles before this item's
-    auto wait_full = [&](int i) {
-      mbar_wait(bar_full + 8 * ((it + i) % kStages),
-                ((it + i) / kStages) & 1);
+    auto wait_k = [&](int i) {
+      mbar_wait(bar_k_full + 8 * ((it + i) % ST), ((it + i) / ST) & 1);
     };
-    auto release = [&](int i) {
-      mbar_arrive(bar_empty + 8 * ((it + i) % kStages));
+    auto wait_v = [&](int i) {
+      mbar_wait(bar_v_full + 8 * ((it + i) % ST), ((it + i) / ST) & 1);
     };
-    auto kv_base = [&](int i) {
-      return base + L::KV_OFF + ((it + i) % kStages) * 2 * L::KV_BYTES;
+    auto free_k = [&](int i) {
+      mbar_arrive(bar_k_empty + 8 * ((it + i) % ST));
+    };
+    auto free_v = [&](int i) {
+      mbar_arrive(bar_v_empty + 8 * ((it + i) % ST));
+    };
+    auto k_base = [&](int i) {
+      return base + L::KV_OFF + ((it + i) % ST) * 2 * L::KV_BYTES;
+    };
+    auto skip = [&](int i) {         // a tile none of the unit's rows sees
+      wait_k(i);
+      wait_v(i);
+      free_k(i);
+      free_v(i);
     };
 
     for (int k = 0, j; (j = item_of(k)) < p.n_items; ++k) {
-      const Item item(p, j);
+      const Item<BN> item(p, j);
       const Unit u = w ? item.u1 : item.u0;
       const int row_a = u.q0 + warp * 16 + gid;   // rows of o[4j + 0, 1];
       const int pos_a = row_a + p.skv - p.sq;     // row_a + 8: o[4j + 2, 3]
       // the item's tiles this unit sees: [first, last]; others skipped
       const int n_tiles = item.n_tiles;
-      const int first = u.ok ? u.begin(p) / kBN - item.t_lo : n_tiles;
-      const int last = u.ok ? (u.end(p) - 1) / kBN - item.t_lo : n_tiles - 1;
+      const int first = u.ok ? u.begin(p) / BN - item.t_lo : n_tiles;
+      const int last = u.ok ? (u.end(p) - 1) / BN - item.t_lo : n_tiles - 1;
 
       mbar_wait(bar_q, k & 1);
-      for (int i = 0; i < first; ++i) {   // before the window: skipped
-        wait_full(i);
-        release(i);
-      }
+      for (int i = 0; i < first; ++i) skip(i);   // before the window
       float o[NO];
 #pragma unroll
       for (int e = 0; e < NO; ++e) o[e] = 0.f;
@@ -564,14 +607,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       float l[2] = {0.f, 0.f};           // this lane's share of row sums
       if (first <= last) {
         float s[NS], alpha[2], rs[2];
-        uint32_t pf[kBN / 16][4];
-        wait_full(first);
+        uint32_t pf[BN / 16][4];
+        wait_k(first);
         wg_fence();
-        issue_s<D>(s, qa, kv_base(first));
+        issue_s<D>(s, qa, k_base(first));
         wg_wait<0>();
 #pragma unroll
         for (int e = 0; e < NS; ++e) reg_fence(s[e]);
-        mask_scores<NS>(s, p, u, (item.t_lo + first) * kBN, pos_a, tig);
+        free_k(first);
+        mask_scores<BN>(s, p, u, (item.t_lo + first) * BN, pos_a, tig);
         softmax_step<NS>(s, m, alpha, rs, p.scale_log2);
         l[0] = rs[0];
         l[1] = rs[1];
@@ -579,40 +623,40 @@ __global__ void __launch_bounds__(kThreads, 1)
         // tile i's scores are formed while tile i - 1's P V runs; its
         // softmax runs under that product too
         for (int i = first + 1; i <= last; ++i) {
-          wait_full(i);
+          wait_k(i);
+          wait_v(i - 1);
           wg_fence();
-          issue_s<D>(s, qa, kv_base(i));
-          issue_pv<D>(o, pf, kv_base(i - 1) + L::KV_BYTES);
+          issue_s<D>(s, qa, k_base(i));
+          issue_pv<D>(o, pf, k_base(i - 1) + L::KV_BYTES);
           wg_wait<1>();
 #pragma unroll
           for (int e = 0; e < NS; ++e) reg_fence(s[e]);
-          mask_scores<NS>(s, p, u, (item.t_lo + i) * kBN, pos_a, tig);
+          free_k(i);
+          mask_scores<BN>(s, p, u, (item.t_lo + i) * BN, pos_a, tig);
           softmax_step<NS>(s, m, alpha, rs, p.scale_log2);
           wg_wait<0>();
 #pragma unroll
           for (int e = 0; e < NO; ++e) reg_fence(o[e]);
 #pragma unroll
-          for (int jj = 0; jj < kBN / 16; ++jj)
+          for (int jj = 0; jj < BN / 16; ++jj)
 #pragma unroll
             for (int e = 0; e < 4; ++e) reg_fence_u(pf[jj][e]);
-          release(i - 1);
+          free_v(i - 1);
 #pragma unroll
           for (int e = 0; e < NO; ++e) o[e] *= alpha[(e >> 1) & 1];
           l[0] = l[0] * alpha[0] + rs[0];
           l[1] = l[1] * alpha[1] + rs[1];
           pack_p<NS>(s, pf);
         }
+        wait_v(last);
         wg_fence();
-        issue_pv<D>(o, pf, kv_base(last) + L::KV_BYTES);
+        issue_pv<D>(o, pf, k_base(last) + L::KV_BYTES);
         wg_wait<0>();
 #pragma unroll
         for (int e = 0; e < NO; ++e) reg_fence(o[e]);
-        release(last);
+        free_v(last);
       }
-      for (int i = last + 1; i < n_tiles; ++i) {   // past the diagonal
-        wait_full(i);
-        release(i);
-      }
+      for (int i = last + 1; i < n_tiles; ++i) skip(i);   // past the diagonal
       mbar_arrive(bar_q_empty);       // the next item's Q may come in
       it += n_tiles;
 
@@ -674,8 +718,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
   err = tensor_map<D>(&tq, q, (long long)bh * g, sq, kRows);
-  if (err == cudaSuccess) err = tensor_map<D>(&tk, k, bh, skv, kBN);
-  if (err == cudaSuccess) err = tensor_map<D>(&tv, v, bh, skv, kBN);
+  if (err == cudaSuccess) err = tensor_map<D>(&tk, k, bh, skv, L::BN);
+  if (err == cudaSuccess) err = tensor_map<D>(&tv, v, bh, skv, L::BN);
   if (err != cudaSuccess) return err;
   Params p;
   p.out = static_cast<__nv_bfloat16*>(out);
@@ -698,56 +742,62 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace hop
 
+// route 1: flash_wgmma_kernel (bf16 only), 0: flash_fwd_kernel; a route
+// the dtype does not take is refused, never replaced by the other
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int bh, int g, int sq, int skv, int window,
+                   int bh, int g, int sq, int skv, int window, int route,
                    cudaStream_t st) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && D <= 128) {
-    return hop::launch<D>(q, k, v, out, bh, g, sq, skv, window, st);
-  } else {
-    constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
-    const cudaError_t err = set_smem_once<flash_fwd_kernel<T, D>>(bytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(bh * g, (unsigned)((sq + kBQ - 1) / kBQ));
-    flash_fwd_kernel<T, D><<<grid, kThreads, bytes, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), g, sq, skv, window,
-        (float)(1.0 / sqrt((double)D)));
-    return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (route == 1)
+      return hop::launch<D>(q, k, v, out, bh, g, sq, skv, window, st);
   }
+  if (route != 0) return cudaErrorInvalidValue;
+  constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
+  const cudaError_t err = set_smem_once<flash_fwd_kernel<T, D>>(bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh * g, (unsigned)((sq + kBQ - 1) / kBQ));
+  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), g, sq, skv, window,
+      (float)(1.0 / sqrt((double)D)));
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t by_dim(const void* q, const void* k, const void* v, void* out,
                    int bh, int g, int sq, int skv, int d, int window,
-                   cudaStream_t st) {
+                   int route, cudaStream_t st) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, out, bh, g, sq, skv, window, st);
-    case 64: return launch<T, 64>(q, k, v, out, bh, g, sq, skv, window, st);
+    case 32:
+      return launch<T, 32>(q, k, v, out, bh, g, sq, skv, window, route, st);
+    case 64:
+      return launch<T, 64>(q, k, v, out, bh, g, sq, skv, window, route, st);
     case 128:
-      return launch<T, 128>(q, k, v, out, bh, g, sq, skv, window, st);
+      return launch<T, 128>(q, k, v, out, bh, g, sq, skv, window, route, st);
     case 256:
-      return launch<T, 256>(q, k, v, out, bh, g, sq, skv, window, st);
+      return launch<T, 256>(q, k, v, out, bh, g, sq, skv, window, route, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype 0: float32, 1: bfloat16; 1 <= sq <= skv < 2^31
+// dtype 0: float32, 1: bfloat16; route 0: CUDA cores, 1: tensor cores
+// (bfloat16 only); 1 <= sq <= skv < 2^31
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int dtype,
                                       int b, int kvh, int g, long long sq,
                                       long long skv, int d, int window,
-                                      void* stream) {
+                                      int route, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (sq < 1 || sq > skv || skv > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)by_dim<float>(q, k, v, out, b * kvh, g, (int)sq, (int)skv, d,
-                              window, st);
+                              window, route, st);
   if (dtype == 1)
     return (int)by_dim<__nv_bfloat16>(q, k, v, out, b * kvh, g, (int)sq,
-                                      (int)skv, d, window, st);
+                                      (int)skv, d, window, route, st);
   return (int)cudaErrorInvalidValue;
 }

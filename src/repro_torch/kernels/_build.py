@@ -75,9 +75,10 @@ SIGNATURES = {
         "rle_group_accumulate_launch": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I,
                                         _I, _I, _I, _P)},
     "flash_attention": {
-        # (q, k, v, out, dtype, b, kvh, g, sq, skv, d, window, stream)
+        # (q, k, v, out, dtype, b, kvh, g, sq, skv, d, window, route,
+        #  stream)
         "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL,
-                                   _I, _I, _P)},
+                                   _I, _I, _I, _P)},
     "decode_attention": {
         # (dtype, b, kvh, g, s, d, plan: four int64 out)
         "decode_attention_plan": (_I, _I, _I, _I, _LL, _I, _P),

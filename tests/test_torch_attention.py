@@ -82,6 +82,27 @@ def test_flash_matches_reference(dtype, b, kvh, g, sq, skv, d):
         np.testing.assert_allclose(f32(got), f32(want_kernel), **tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 64])
+def test_flash_head_dim_256_matches_reference(dtype, window):
+    """recurrentgemma-2b's head dim (256) and group (G 10, one kv head),
+    windowed as its attention layers are: against the Pallas kernel in
+    interpret mode and the reference's ref."""
+    b, kvh, g, sq, skv, d = 1, 1, 10, 256, 256, 256
+    rng = np.random.default_rng(256 + window)
+    (jq, q), (jk, k), (jv, v) = (both(normal(rng, s), dtype) for s in (
+        (b, kvh, g, sq, d), (b, kvh, skv, d), (b, kvh, skv, d)))
+    want_kernel = jflash_kernel.flash_attention_fwd(jq, jk, jv, window=window,
+                                                    interpret=True)
+    want_ref = jflash_ref.attention_ref(jq, jk, jv, window=window)
+    got_ref = flash_ref.attention_ref(q, k, v, window=window)
+    got_op = flash_ops.flash5(q, k, v, window)
+    assert got_op.dtype == q.dtype and got_op.shape == q.shape
+    for got in (got_ref, got_op):
+        np.testing.assert_allclose(f32(got), f32(want_ref), **tol(dtype))
+        np.testing.assert_allclose(f32(got), f32(want_kernel), **tol(dtype))
+
+
 @pytest.mark.parametrize("window", [32, 128, 1024])
 def test_flash_sliding_window_matches_reference(window):
     rng = np.random.default_rng(7)
@@ -108,6 +129,18 @@ def test_flash_ragged_lengths_match_reference_ref(dtype, sq, skv, window):
         (1, 2, 2, sq, 64), (1, 2, skv, 64), (1, 2, skv, 64)))
     want = jflash_ref.attention_ref(jq, jk, jv, window=window)
     got = flash_ops.flash5(q, k, v, window)
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_ragged_head_dim_256_matches_reference_ref(dtype):
+    """A ragged prompt at head dim 256 and G 10, window 64: 37 query rows
+    over 300 keys, which no 64-key tile divides."""
+    rng = np.random.default_rng(37300)
+    (jq, q), (jk, k), (jv, v) = (both(normal(rng, s), dtype) for s in (
+        (1, 1, 10, 37, 256), (1, 1, 300, 256), (1, 1, 300, 256)))
+    want = jflash_ref.attention_ref(jq, jk, jv, window=64)
+    got = flash_ops.flash5(q, k, v, 64)
     np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
 
 
