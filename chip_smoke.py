@@ -344,6 +344,39 @@ monitor; no kernel of its own) adds:
              the traced replays stand in the {"kernels": ...} line as
              "launches_obs".
 
+The training slice (repro_torch.train: losses, AdamW, the train and eval
+steps; kernels 11 and 12 run forward under autograd, their backward
+differentiates the plain versions) runs after the Griffin / MoE phases:
+
+18. parity (train step) — internlm2, mamba2, recurrentgemma, mixtral and
+             moonshot (aux-free, its router_bias made nonzero) reduced,
+             head_dim 64 (256 for recurrentgemma), in bf16 and fp32, B x
+             S = 2 x 256: the kernel path (attn_impl="flash", the SSD
+             under auto) against the plain path (attn_impl="naive", the
+             SSD under torch_ref) on the same weights and batch. The
+             loss, ce and aux within LOSS_TOL; every gradient leaf by its
+             relative norm error (fp32: within GRAD_TOL of the plain
+             path; bf16: at most BF16_X times as far from an fp32 oracle
+             as the plain path, plus BF16_FLOOR); a trainable leaf with
+             no gradient on the kernel path (other than an aux-free
+             router_bias, which enters only the top-k) fails; one
+             apply_updates from identical gradients on two copies must
+             give equal parameters; two microbatches against their
+             halves' mean loss (and, without experts, one batch's global
+             norm).
+19. train internlm2 / train mamba2 — each model at its published widths
+             and depth, bf16, random weights: five steps of
+             make_train_step on one fixed 1 x 4096 (mamba2: 1 x 2048)
+             batch at TRAIN_FULL_OPT, the losses finite and the last
+             below the first; kernel 11 (12) must launch once a layer a
+             step. Prints each step, the median step of steps 2-5,
+             tokens/s, MetricsLogger's mfu, roofline step and gap on the
+             H100 row, peak device memory, an eval step's loss and one
+             profiled step's busy share with the device time by kernel.
+             One JSON line {"train": {...}} before the {"serve": ...}
+             line holds the slice's records; the train phases' launches
+             stand in the {"kernels": ...} line as "launches_train".
+
 After the tiered phases one JSON line {"tier": {...}} holds their
 records. The third-to-last line is one JSON object {"serve": {...}} (the
 mamba2, recurrentgemma, moonshot and mixtral records under their names,
@@ -355,6 +388,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -5191,6 +5225,338 @@ def obs_launches(obs: dict, name: str) -> dict:
     return {k: v[name] for k, v in runs.items() if v.get(name)}
 
 
+# --------------------------------------------------------------------------
+# the training slice: losses, AdamW, the train and eval steps; kernels 11
+# and 12 run forward under autograd, their backward differentiates the
+# plain versions
+# --------------------------------------------------------------------------
+
+TRAIN_OPT = dict(lr=5e-3, warmup_steps=1, decay_steps=100)   # as in
+                                     # tests/test_models_smoke.py
+# At full width Adam's first steps move every weight by about lr (its
+# update is a sign), and 5e-3 is a quarter of a fan-in-2048 weight's
+# standard deviation: on an H100 (bf16, 1 x 2048) mamba2-1.3b's loss
+# rose again after step 3 (11.13, 10.24, 8.05, 9.20, 12.43) and
+# internlm2-1.8b's swung.
+# The full-width phases take AdamWConfig's own peak rate instead.
+TRAIN_FULL_OPT = dict(lr=3e-4, warmup_steps=1, decay_steps=100)
+TRAIN_STEPS = 5
+TRAIN_PARITY = (("internlm2-1.8b", 64), ("mamba2-1.3b", 0),
+                ("recurrentgemma-2b", 256), ("mixtral-8x22b", 64),
+                ("moonshot-v1-16b-a3b", 64))   # (arch, head_dim: 0 = none)
+TRAIN_PARITY_BS = (2, 256)
+# Kernel path against plain path on the card, same weights and batch.
+# The loss, ce and aux: |kernel - plain| <= LOSS_TOL * max(1, |plain|).
+# Each gradient leaf, by its relative norm error err(g, o) = ||g - o|| /
+# ||o||:
+# - float32: err(kernel, plain) <= GRAD_TOL. Kernel 11's CUDA-core route
+#   and the naive path both compute in fp32 and differ by summation order
+#   (~1e-6); kernel 12's fp32 route sums its log-decays in another order
+#   than torch.cumsum, ~1e-4 of a weight at the reduced chunk of 32 (see
+#   SSD_TOL). 2e-3 leaves ten times that; a missing or wrong gradient
+#   term is of order 1.
+# - bfloat16: the two paths round differently by design (the kernels
+#   round their outputs to bf16; the naive path also rounds its
+#   probabilities and runs its backward products in bf16, where _Flash5
+#   and _SSD differentiate the fp32 plain versions), and a router's
+#   gradient, a difference of near-equal terms, keeps few of bf16's bits
+#   (its error reaches 0.2 of its norm on the plain path alone). So each
+#   bf16 path is held against an fp32 oracle, the plain path on the same
+#   weights cast to fp32: err(kernel, oracle) <= BF16_X * err(plain,
+#   oracle) + BF16_FLOOR. The kernel path may be at most twice as far
+#   from the oracle as bf16's plain arithmetic, plus a few bf16 units.
+LOSS_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+GRAD_TOL = 2e-3
+BF16_X, BF16_FLOOR = 2.0, 2.0 ** -6
+TRAIN_FULL = (("internlm2-1.8b", 4096), ("mamba2-1.3b", 2048))  # (arch, S)
+
+
+class plain_ssd:
+    """Every SSD op under mode="torch_ref" inside the block (ssm.apply's
+    mode= reaches one block; the step runs the whole stack)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.ssd_chunk import ops
+        self.ops, self.real = ops, ops.ssd
+        ops.ssd = lambda *a, mode=None, **k: self.real(*a, mode="torch_ref",
+                                                      **k)
+
+    def __exit__(self, *exc):
+        self.ops.ssd = self.real
+
+
+def train_config(arch: str):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), attn_impl="flash")
+
+
+def train_batch(cfg, b: int, s: int, seed: int) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {k: torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                             device="cuda", dtype=torch.int32)
+            for k in ("inputs", "labels")}
+
+
+def clone_state(state: dict) -> dict:
+    return {"params": copy.deepcopy(state["params"]),
+            "opt": {k: (v.clone() if torch.is_tensor(v) else
+                        {n: t.clone() for n, t in v.items()})
+                    for k, v in state["opt"].items()},
+            "step": state["step"].clone()}
+
+
+def train_parity_case(arch: str, head_dim: int, dtype) -> dict:
+    """One reduced family in one dtype: kernel path (attn_impl="flash",
+    the SSD under auto) against plain path (attn_impl="naive", the SSD
+    under torch_ref) on the same weights and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.train import optim, step
+    over = {"dtype": "bfloat16" if dtype == torch.bfloat16 else "float32"}
+    if head_dim:
+        over["head_dim"] = head_dim
+    cfg = dataclasses.replace(get_config(arch).reduced(**over),
+                              attn_impl="flash")
+    opt_cfg = optim.AdamWConfig(**TRAIN_OPT)
+    state, _ = step.init_state(SEED, cfg, opt_cfg, device="cuda")
+    model = state["params"]
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith("router_bias"):     # selection != weights
+                p.normal_(0.0, 0.05, generator=torch.Generator(
+                    device="cuda").manual_seed(SEED + 3))
+    b, s = TRAIN_PARITY_BS
+    batch = train_batch(cfg, b, s, SEED + 30)
+    fk.LAUNCHES = sk.LAUNCHES = 0
+    loss_k, parts_k, grads_k = step.value_and_grad(model, cfg, batch)
+    torch.cuda.synchronize()
+    launched = {"flash_attention": fk.LAUNCHES, "ssd_chunk": sk.LAUNCHES}
+    want = {"flash_attention": any(k in ("attn", "swa")
+                                   for k in cfg.block_pattern),
+            "ssd_chunk": "ssd" in cfg.block_pattern}
+    label = f"{arch} {over['dtype']}"
+    for name, needed in want.items():
+        if needed and not launched[name]:
+            fail(f"train parity {label}: {name} never launched on the "
+                 f"kernel path")
+    unused = sorted(n for n, g in grads_k.items() if g is None)
+    if any(not n.endswith("router_bias") for n in unused):
+        fail(f"train parity {label}: trainable leaves with no gradient on "
+             f"the kernel path: {unused}")
+    with plain_ssd():
+        loss_p, parts_p, grads_p = step.value_and_grad(
+            model, dataclasses.replace(cfg, attn_impl="naive"), batch)
+    rec = {"launches": launched, "no_grad": unused}
+    for k, got, ref in (("loss", loss_k, loss_p),
+                        ("ce", parts_k["ce"], parts_p["ce"]),
+                        ("aux", parts_k["aux"], parts_p["aux"])):
+        got, ref = float(got), float(ref)
+        rec[k] = [got, ref]
+        if not (math.isfinite(got) and abs(got - ref)
+                <= LOSS_TOL[dtype] * max(1.0, abs(ref))):
+            fail(f"train parity {label}: {k} {got} on the kernel path, "
+                 f"{ref} on the plain path")
+    def err(a, o):
+        return float((a.float() - o.float()).norm()
+                     / o.float().norm().clamp_min(1e-30))
+
+    if dtype == torch.float32:
+        errs = {n: err(g, grads_p[n]) for n, g in grads_k.items()
+                if g is not None}
+        limits = dict.fromkeys(errs, GRAD_TOL)
+    else:
+        with plain_ssd():
+            _, _, grads_o = step.value_and_grad(
+                copy.deepcopy(model).float(),
+                dataclasses.replace(cfg, dtype="float32",
+                                    attn_impl="naive"), batch)
+        errs = {n: err(g, grads_o[n]) for n, g in grads_k.items()
+                if g is not None}
+        limits = {n: BF16_X * err(grads_p[n], grads_o[n]) + BF16_FLOOR
+                  for n in errs}
+        del grads_o
+    worst = max(errs, key=lambda n: errs[n] / limits[n])
+    rec["grad_rel_err"] = {n: [errs[n], limits[n]] for n in errs}
+    rec["grad_worst_leaf"] = worst
+    if not errs[worst] <= limits[worst]:
+        fail(f"train parity {label}: gradient of {worst} differs by "
+             f"{errs[worst]} of its norm (limit {limits[worst]})")
+    # one AdamW step from identical gradients on two copies: equal
+    zeros = {n: torch.zeros_like(p) if grads_p[n] is None else grads_p[n]
+             for n, p in model.named_parameters()}
+    twin = clone_state(state)
+    optim.apply_updates(model, zeros, state["opt"], opt_cfg)
+    optim.apply_updates(twin["params"], zeros, twin["opt"], opt_cfg)
+    if not all(torch.equal(p, q) for p, q in zip(
+            model.parameters(), twin["params"].parameters())):
+        fail(f"train parity {label}: apply_updates from identical "
+             f"gradients gave different parameters")
+    # two microbatches against their halves (and, without experts, one
+    # whole batch: an MoE aux loss is a product of batch means)
+    del twin
+    two = clone_state(state)
+    _, m2 = step.make_train_step(cfg, opt_cfg, 2)(two, batch)
+    halves = [step.value_and_grad(model, cfg, {k: v[i:i + 1] for k, v in
+                                               batch.items()})[0]
+              for i in range(b)]
+    mean = float(sum(halves)) / b
+    rec["microbatch_loss"] = [float(m2["loss"]), mean]
+    if abs(float(m2["loss"]) - mean) > LOSS_TOL[dtype] * max(1.0, mean):
+        fail(f"train parity {label}: two microbatches' loss "
+             f"{float(m2['loss'])}, their halves' mean {mean}")
+    if not cfg.num_experts:
+        _, m1 = step.make_train_step(cfg, opt_cfg, 1)(state, batch)
+        rec["microbatch_grad_norm"] = [float(m2["grad_norm"]),
+                                       float(m1["grad_norm"])]
+        if abs(float(m2["grad_norm"]) - float(m1["grad_norm"])) > \
+                LOSS_TOL[dtype] * float(m1["grad_norm"]):
+            fail(f"train parity {label}: global norm over two "
+                 f"microbatches {float(m2['grad_norm'])}, one batch "
+                 f"{float(m1['grad_norm'])}")
+    print(f"{label:34s} loss {rec['loss'][0]:.6f} / {rec['loss'][1]:.6f} "
+          f"aux {rec['aux'][0]:.6f} / {rec['aux'][1]:.6f}  worst grad "
+          f"{worst} {errs[worst]:.3e} (limit {limits[worst]:.3e})  "
+          f"microbatches {rec['microbatch_loss'][0]:.6f} / "
+          f"{rec['microbatch_loss'][1]:.6f}  launches {launched}  no "
+          f"gradient: {unused}", flush=True)
+    return rec
+
+
+def train_parity_phase() -> dict:
+    phase("parity (train step)")
+    out = {}
+    for arch, head_dim in TRAIN_PARITY:
+        for dtype in (torch.bfloat16, torch.float32):
+            out[f"{arch} {dtype}"] = train_parity_case(arch, head_dim, dtype)
+            release()
+    return out
+
+
+def train_phase(arch: str, s: int, dev: dict) -> dict:
+    """`arch` at its published widths and depth, bf16, attn_impl="flash",
+    random weights from a seeded generator on the card: TRAIN_STEPS steps
+    of make_train_step (TRAIN_FULL_OPT) on one fixed batch of 1 x s
+    seeded random tokens,
+    then one eval step and one profiled step. The losses must be finite
+    and fall; kernel 11 (attention) or 12 (SSD) must launch once a layer a
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.train import metrics, optim, step
+    label = arch.split("-")[0]
+    phase(f"train {label}")
+    cfg = train_config(arch)
+    opt_cfg = optim.AdamWConfig(**TRAIN_FULL_OPT)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _ = step.init_state(SEED, cfg, opt_cfg, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    print(f"{cfg.name}: {cfg.num_layers} layers {cfg.block_pattern}, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+          f"{n_params} trainable parameters with fp32 m, v and master "
+          f"made in {time.perf_counter() - t0:.2f} s; batch 1 x {s}",
+          flush=True)
+    if n_params != cfg.param_count():
+        fail("parameter count differs from the config's analytic count")
+    batch = train_batch(cfg, 1, s, SEED + 40)
+    fn = step.make_train_step(cfg, opt_cfg)
+    shape = ShapeSpec(f"train_smoke_{s}", "train", s, 1)
+    log_path = Path(__file__).resolve().parent / "build" / \
+        f"train_metrics_{label}.jsonl"
+    log_path.unlink(missing_ok=True)
+    logger = metrics.MetricsLogger(log_path, cfg, shape, chips=1)
+    kernel = "ssd_chunk" if "ssd" in cfg.block_pattern else \
+        "flash_attention"
+    mod = sk if kernel == "ssd_chunk" else fk
+    losses, recs = [], []
+    mod.LAUNCHES = 0
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fn(state, batch)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        recs.append(logger.log(i + 1, sec, m))
+        losses.append(recs[-1]["loss"])
+        print(f"step {i + 1}: loss {recs[-1]['loss']:.6f} ce "
+              f"{recs[-1]['ce']:.6f} grad_norm {recs[-1]['grad_norm']:.4f} "
+              f"lr {recs[-1]['lr']:.3e} {sec * 1e3:.3f} ms", flush=True)
+    launches = mod.LAUNCHES
+    logger.close()
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"train {label}: losses {losses} are not finite and falling")
+    want = cfg.num_layers * TRAIN_STEPS
+    if launches != want:
+        fail(f"train {label}: {kernel} launched {launches} times in "
+             f"{TRAIN_STEPS} steps, not {want} (once a layer a step)")
+    peak = torch.cuda.max_memory_allocated()
+    steady = recs[1:]
+    step_s = statistics.median(r["step_s"] for r in steady)
+    ev = step.make_eval_step(cfg)(state["params"], batch)
+    if not math.isfinite(float(ev["loss"])):
+        fail(f"train {label}: eval loss {float(ev['loss'])}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # the wall excludes the profiler's start and stop
+        t0 = time.perf_counter()
+        state, _ = fn(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.self_cpu_time_total == 0 and e.self_device_time_total > 0]
+    busy_us = sum(r[0] for r in rows)
+    names = SSD_KERNELS if kernel == "ssd_chunk" else \
+        tuple(FLASH_KERNELS.values())
+    ours_us = sum(r[0] for r in rows if any(k in r[2] for k in names))
+    rec = {"arch": cfg.name, "batch": [1, s], "losses": losses,
+           "eval_loss": float(ev["loss"]),
+           "step_s": [r["step_s"] for r in recs],
+           "step_s_median_2_5": step_s, "tokens_per_s": s / step_s,
+           "mfu": statistics.median(r["mfu"] for r in steady),
+           "roofline_step_s": logger.roofline_step_s,
+           "roofline_gap": step_s / logger.roofline_step_s,
+           "peak_gib": peak / 2**30, "launches": {kernel: launches},
+           "profiled_step_ms": wall_us / 1e3, "busy_share": busy_us / wall_us,
+           "kernel_ms": ours_us / 1e3, "card": dev["smi"]}
+    print(f"train {label} [{dev['smi']}]: step {step_s * 1e3:.3f} ms "
+          f"(median of steps 2-{TRAIN_STEPS}), {rec['tokens_per_s']:.1f} "
+          f"tokens/s, mfu {rec['mfu']:.4f}, roofline step "
+          f"{logger.roofline_step_s * 1e3:.3f} ms (H100 row), roofline gap "
+          f"{rec['roofline_gap']:.2f}; eval loss {rec['eval_loss']:.6f}; "
+          f"peak device memory {rec['peak_gib']:.3f} GiB; {kernel} launches "
+          f"{launches}", flush=True)
+    print(f"profiled step: wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms, busy share {rec['busy_share']:.4f}; "
+          f"{kernel} {ours_us / 1e3:.3f} ms", flush=True)
+    for us, count, key in sorted(rows, reverse=True)[:10]:
+        print(f"  device {us / 1e3:10.3f} ms  x{count:5d}  {key[:100]}")
+    return rec
+
+
+def train_phases(dev: dict, kernels: list) -> dict:
+    """The training slice after the serving phases: the reduced families'
+    parity, then each full-width model's steps, each dropped before the
+    next; the main path's launches go into the kernels' records."""
+    out = {"parity": train_parity_phase()}
+    for arch, s in TRAIN_FULL:
+        label = arch.split("-")[0]
+        out[label] = train_phase(arch, s, dev)
+        release()
+        for k in kernels:
+            if k["name"] in out[label]["launches"]:
+                k.setdefault("launches_train", {})[label] = \
+                    out[label]["launches"][k["name"]]
+    return out
+
+
 def main() -> None:
     dev = device_phase()
     sys.path.insert(0, str(SRC))
@@ -5307,6 +5673,8 @@ def main() -> None:
     mamba["ssd_parity"] = ssd_check
     serve["mamba2"] = mamba
     griffin_moe_phases(dev, kernels, serve)
+    train = train_phases(dev, kernels)
+    print(json.dumps({"train": train}, default=str))
     print(json.dumps({"serve": serve}, default=str))
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))

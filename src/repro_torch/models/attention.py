@@ -160,7 +160,13 @@ def fill_cache(cache, k, v, positions):
     segment if it is longer than the ring), in place; returns `cache`.
 
     k/v arrive in model layout (B, Sq, KVH, D); only this segment is
-    transposed into the ring's kernel-native (B, KVH, S, D) layout."""
+    transposed into the ring's kernel-native (B, KVH, S, D) layout. The
+    write is in place, so it refuses to run under autograd: training
+    passes no caches."""
+    if torch.is_grad_enabled() and (k.requires_grad or v.requires_grad):
+        raise RuntimeError("fill_cache writes the ring in place; run "
+                           "decode and cached prefill under "
+                           "torch.no_grad() (training passes caches=None)")
     size = cache["k"].shape[2]
     if k.shape[1] > size:
         k, v, positions = k[:, -size:], v[:, -size:], positions[:, -size:]

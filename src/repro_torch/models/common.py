@@ -1,7 +1,7 @@
 """Shared model building blocks (counterpart of repro/models/common.py):
-dtypes, initialisation on an explicit torch.Generator, RMSNorm and rotary
-position embeddings. The reference's logical-axes helpers (sharding) and
-its losses (training) are not ported yet."""
+dtypes, initialisation on an explicit torch.Generator, RMSNorm, rotary
+position embeddings and the training losses. The reference's
+logical-axes helpers (sharding) are not ported yet."""
 from __future__ import annotations
 
 import functools
@@ -13,8 +13,11 @@ import torch
 class Params(torch.nn.Module):
     """An nn.Module whose parameters and sub-modules are also read by name
     (`params["wq"]`), so the model code reads as the reference's pytree
-    code does. Parameters are made with requires_grad=False: the port
-    serves; training is not ported yet."""
+    code does. Parameters are made with requires_grad=False, as serving
+    wants them; training makes its model trainable itself
+    (repro_torch.train.step.init_state and
+    repro_torch.models.convert.state_from_reference call
+    requires_grad_(True))."""
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -84,3 +87,33 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits, labels):
+    """Mean next-token CE; logits (B, S, V) any float dtype, labels (B, S)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()
+
+
+def chunked_cross_entropy(x, head_w, labels, num_chunks: int = 8):
+    """CE computed sequence chunk by chunk, so the (B, S, V) logits are
+    made one chunk at a time: x (B, S, D) hidden, head_w (D, V). The mean
+    over B * S of the chunks' sums."""
+    b, s, _ = x.shape
+    assert s % num_chunks == 0, (s, num_chunks)
+    n = s // num_chunks
+    totals = []
+    for i in range(num_chunks):
+        logits = torch.einsum("bsd,dv->bsv", x[:, i * n:(i + 1) * n],
+                              head_w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels[:, i * n:(i + 1) * n].long()[..., None])
+        totals.append((lse - gold[..., 0]).sum())
+    return torch.stack(totals).sum() / (b * s)

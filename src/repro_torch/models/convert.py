@@ -12,6 +12,14 @@ config has no "lm_head". bf16 arrays (ml_dtypes.bfloat16, which
 torch.from_numpy rejects) go through float32, which holds them exactly.
 This module imports no JAX: the caller hands it numpy arrays
 (`jax.tree.map(np.asarray, params)`).
+
+Training carries trees both ways leaf for leaf: `leaf_map` gives each
+port parameter's reference path and group index, `from_reference` takes
+a reference-shaped tree (parameters, gradients, the optimizer's m, v and
+master) to a dict by port name, `to_reference` stacks such a dict back
+into the reference's layout, and `state_from_reference` builds a
+trainable train state (repro_torch.train.step's layout) from a
+reference one.
 """
 from __future__ import annotations
 
@@ -78,3 +86,102 @@ def params_from_reference(params_np, cfg, device=None) -> lm.LM:
         lm_head=(_tensor(params_np["lm_head"], device)
                  if "lm_head" in params_np else None),
         final_norm=_tensor(params_np["final_norm"], device), layers=layers)
+
+
+# --------------------------------------------------------------------------
+# leaf for leaf, both ways
+# --------------------------------------------------------------------------
+
+def leaf_map(model: lm.LM) -> dict:
+    """Each parameter name of `model` -> (its path in the reference's
+    params pytree, the group index into that leaf's leading axis or None
+    for an unstacked leaf): "blocks.5.mixer.wq" of a one-block pattern is
+    (("groups", 0, "mixer", "wq"), 5); a tail block's leaf is
+    (("tail", j, ...), None)."""
+    cfg = model.cfg
+    p = len(cfg.block_pattern)
+    stacked = cfg.num_layers // p * p
+    out = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] != "blocks":
+            out[name] = (tuple(parts), None)
+            continue
+        i, rest = int(parts[1]), tuple(parts[2:])
+        if i < stacked:
+            g, slot = divmod(i, p)
+            out[name] = (("groups", slot) + rest, g)
+        else:
+            out[name] = (("tail", i - stacked) + rest, None)
+    return out
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def from_reference(tree_np, leaves: dict, device=None) -> dict:
+    """A reference-shaped tree of numpy arrays -> {port name: tensor} on
+    `device` (the card unless device="cpu"); `leaves` is leaf_map's."""
+    device = resolve_device(device)
+    out = {}
+    for name, (path, g) in leaves.items():
+        a = np.asarray(_at(tree_np, path))
+        out[name] = _tensor(a if g is None else a[g], device).data
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def to_reference(named: dict, leaves: dict):
+    """{port name: tensor} -> the reference's pytree of numpy arrays (the
+    inverse of from_reference): group leaves stacked over the groups,
+    dicts and tuples as lm.init makes them."""
+    stacks: dict = {}
+    for name, (path, g) in leaves.items():
+        stacks.setdefault(path, {})[g] = _numpy(named[name])
+    root: dict = {}
+    for path, by_g in stacks.items():
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = (by_g[None] if None in by_g else
+                          np.stack([by_g[g] for g in sorted(by_g)]))
+
+    def tuples(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(isinstance(k, int) for k in node):
+            return tuple(tuples(node[i]) for i in range(len(node)))
+        return {k: tuples(v) for k, v in node.items()}
+
+    root = tuples(root)
+    root.setdefault("groups", ())
+    root.setdefault("tail", ())
+    return root
+
+
+def state_from_reference(state_np, cfg, device=None) -> dict:
+    """A reference train state ({"params", "opt": {"m", "v", "count",
+    "master"?}, "step"}, numpy leaves) -> the port's, trainable: the LM
+    with requires_grad set, m / v / master as {port name: fp32 tensor}."""
+    device = resolve_device(device)
+    model = params_from_reference(state_np["params"], cfg, device)
+    model.requires_grad_(True)
+    leaves = leaf_map(model)
+    ref_opt = state_np["opt"]
+    opt = {k: from_reference(ref_opt[k], leaves, device)
+           for k in ("m", "v", "master") if k in ref_opt}
+    opt["count"] = torch.tensor(int(np.asarray(ref_opt["count"])),
+                                dtype=torch.int32, device=device)
+    step = torch.tensor(int(np.asarray(state_np["step"])),
+                        dtype=torch.int32, device=device)
+    return {"params": model, "opt": opt, "step": step}
