@@ -344,9 +344,39 @@ monitor; no kernel of its own) adds:
              the traced replays stand in the {"kernels": ...} line as
              "launches_obs".
 
+The launchers (repro_torch.launch.train and .serve, with the data
+pipeline, the checkpoint store and the supervisor) run after the Griffin
+/ MoE phases, before the training slice, at mamba2-1.3b's published
+widths and depth, bf16 (the launchers' attn_impl="auto" reaches no
+attention kernel; every SSD layer's forward is kernel 12):
+
+18a. train launcher mamba2 — launch.train.main with --seq-len 2048
+             --global-batch 1 --steps 5 --checkpoint-every 3 and a
+             checkpoint, heartbeat and metrics directory under
+             build/launch; the built step's 4th call raises once after
+             the real step updated the state, so the supervisor restores
+             step 3 in place and finishes at 5 after one restart. Then an
+             uninterrupted 5-step run without checkpoints, the first
+             run's state dropped before it: every leaf of its final state
+             must equal the supervised run's final checkpoint bit for
+             bit, read leaf by leaf. Kernel 12 must launch 48 x 6 and 48
+             x 5 times. Prints the losses, the median step, each save's
+             snapshot and write ms, the restore's wait, read and load
+             ms, the checkpoint's bytes and write GB/s, peak device GiB
+             and peak host RSS, the heartbeat and the straggler flags;
+             deletes build/launch afterwards.
+18b. serve launcher mamba2 — launch.serve.main(["--arch", "mamba2-1.3b",
+             "--no-reduced"]) at the reference's defaults (8 requests, 16
+             new tokens, 4 slots): every request answered with 16 tokens
+             in the vocabulary; kernel 12 launches once a layer a
+             prefill. Prints p50 / p95 / p99 and tok/s.
+             One JSON line {"launch": {...}} before the {"train": ...}
+             line holds both records; their launches stand in the
+             {"kernels": ...} line as "launches_launch".
+
 The training slice (repro_torch.train: losses, AdamW, the train and eval
 steps; kernels 11 and 12 run forward under autograd, their backward
-differentiates the plain versions) runs after the Griffin / MoE phases:
+differentiates the plain versions) runs after the launchers:
 
 18. parity (train step) — internlm2, mamba2, recurrentgemma, mixtral and
              moonshot (aux-free, its router_bias made nonzero) reduced,
@@ -3509,6 +3539,13 @@ def ssd_cases():
                   bf16, False))
     cases.append(("path widths, Q 192: one chunk, inbound state", 1, 192,
                   64, 64, 128, 192, bf16, True))
+    # the launchers' shapes: a train step's 1 x 2048 and the serve
+    # launcher's prompts of 4 to 16 tokens, each one chunk
+    cases.append(("train launcher: 1 x 2048, Q 256", 1, 2048, 64, 64, 128,
+                  256, bf16, False))
+    for q in (4, 11, 16):
+        cases.append((f"serve launcher: a {q}-token prompt, one chunk", 1,
+                      q, 64, 64, 128, q, bf16, False))
     return cases
 
 
@@ -5557,6 +5594,380 @@ def train_phases(dev: dict, kernels: list) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the launchers: data pipeline, checkpoints and the supervisor under
+# python -m repro_torch.launch.train, and launch.serve, at mamba2-1.3b's
+# published widths
+# --------------------------------------------------------------------------
+
+LAUNCH_ARCH = "mamba2-1.3b"        # 48 SSD layers: kernel 12 a layer
+LAUNCH_TRAIN = ["--seq-len", "2048", "--global-batch", "1", "--steps", "5"]
+LAUNCH_STEPS = 5
+LAUNCH_EVERY = 3                   # checkpoints at steps 3 and 5
+LAUNCH_CRASH_CALL = 4              # the step call that raises, once
+LAUNCH_DIR = Path(__file__).resolve().parent / "build" / "launch"
+LAUNCH_SERVE = ["--arch", LAUNCH_ARCH, "--no-reduced"]
+LAUNCH_REQUESTS, LAUNCH_NEW = 8, 16     # launch.serve's defaults
+RSS_PERIOD_S = 0.05
+
+
+class RssPeak:
+    """The process's resident set, sampled every RSS_PERIOD_S on a thread
+    while the block runs: its peak in bytes."""
+
+    def __enter__(self):
+        import threading
+        self.peak, self._stop = self._rss(), threading.Event()
+        self._t = threading.Thread(target=self._loop, daemon=True)
+        self._t.start()
+        return self
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _loop(self):
+        while not self._stop.wait(RSS_PERIOD_S):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join(5.0)
+        self.peak = max(self.peak, self._rss())
+
+
+class CheckpointClock:
+    """Times the checkpoint store inside the launcher: each save() (the
+    snapshot to host memory; the launcher hands it the state in the
+    reference's layout, stacked on the card), each background write, each
+    wait, each read of a checkpoint and each load into the state."""
+
+    def __enter__(self):
+        from repro_torch.checkpoint import store
+        from repro_torch.models import convert
+        self.rec = {"snapshot_ms": [], "write_ms": [], "wait_ms": [],
+                    "read_ms": [], "load_ms": [], "bytes": []}
+        self.patched = [(store.CheckpointManager, n) for n in
+                        ("save", "_write", "wait", "restore")]
+        self.patched.append((convert, "load_reference_state"))
+        self.real = {n: getattr(o, n) for o, n in self.patched}
+        keys = {"save": "snapshot_ms", "_write": "write_ms",
+                "wait": "wait_ms", "restore": "read_ms",
+                "load_reference_state": "load_ms"}
+        for owner, name in self.patched:
+            setattr(owner, name, self._timed(self.real[name], keys[name]))
+        return self
+
+    def _timed(self, fn, key):
+        # the writer thread's time is host work alone: it does not wait
+        # for the card
+        sync = torch.cuda.synchronize if key != "write_ms" else (
+            lambda: None)
+
+        def timed(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            if key == "write_ms":
+                self.rec["bytes"].append(sum(
+                    x[0].nbytes for x in a[-2].values()))
+            if key != "wait_ms" or ms > 1.0:
+                self.rec[key].append(ms)
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for owner, name in self.patched:
+            setattr(owner, name, self.real[name])
+
+
+class CrashOnce:
+    """Wraps the launcher's built step: call number `at` runs the real
+    step, which updates the state in place, and then raises, once."""
+
+    def __init__(self, at: int):
+        self.at, self.calls = at, 0
+
+    def __call__(self, fn):
+        def step(state, batch):
+            self.calls += 1
+            out = fn(state, batch)
+            if self.calls == self.at:
+                torch.cuda.synchronize()
+                del out
+                raise RuntimeError("injected host failure after the step")
+            return out
+        return step
+
+
+class Tee:
+    """Standard output that is also kept."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_launcher(fn, argv, **kw) -> tuple:
+    """(fn(argv, **kw), the lines it printed as it printed them)."""
+    import contextlib
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = fn(argv, **kw)
+    sys.stdout.flush()
+    return out, "".join(tee.parts).splitlines()
+
+
+def checkpoint_diff(state, ck: Path, step: int) -> dict:
+    """Every leaf of the port state `state`, in the reference's layout,
+    against checkpoint `step` in `ck`, bit for bit, one leaf at a time:
+    each stored array is read into host memory by the store's own
+    restore and compared on the card with the state's slices of it.
+    Returns the leaf count and {leaf: max |difference|} of the leaves
+    that differ."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import convert
+    named = dict(state["params"].named_parameters())
+    parts: dict = {}                  # leaf -> [(group or None, tensor)]
+    for name, (path, g) in convert.leaf_map(state["params"]).items():
+        tail = ".".join(map(str, path))
+        parts.setdefault(f"params.{tail}", []).append((g, named[name]))
+        for k in ("m", "v", "master"):
+            if k in state["opt"]:
+                parts.setdefault(f"opt.{k}.{tail}", []).append(
+                    (g, state["opt"][k][name]))
+    parts["opt.count"] = [(None, state["opt"]["count"])]
+    parts["step"] = [(None, state["step"])]
+    mgr = CheckpointManager(ck)
+    leaves = mgr.metadata(step)["leaves"]
+    if sorted(leaves) != sorted(parts):
+        fail(f"checkpoint {step} holds {len(leaves)} leaves, the state "
+             f"{len(parts)}: {sorted(set(leaves) ^ set(parts))[:8]}")
+
+    def bits(t):
+        return t.view({2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+
+    differ = {}
+    for key, info in leaves.items():
+        dtype = next(iter(parts[key]))[1].dtype
+        host = torch.empty(info["shape"], dtype=dtype)
+        skeleton: dict = {}
+        node = skeleton
+        *heads, last = key.split(".")
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = host
+        mgr.restore(skeleton, step=step)
+        stored = host.to(state["step"].device)
+        pairs = [(t.detach(), stored if g is None else stored[g])
+                 for g, t in parts[key]]
+        bad = [(t, w) for t, w in pairs if not torch.equal(bits(t), bits(w))]
+        if bad:
+            differ[key] = max(float((t.float() - w.float()).abs().max())
+                              for t, w in bad)
+        del host, stored, skeleton, pairs, bad
+    return {"leaves": len(leaves), "differ": differ}
+
+
+def launch_train_phase(dev: dict) -> dict:
+    """The train launcher at mamba2-1.3b's published widths and depth,
+    supervised, crashing once after the step-3 checkpoint; then one
+    uninterrupted run, compared leaf by leaf with the first run's final
+    checkpoint."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import convert
+    phase("train launcher mamba2")
+    cfg = get_config(LAUNCH_ARCH)
+    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    LAUNCH_DIR.mkdir(parents=True)
+    n = cfg.param_count()
+    # about: bf16 parameters (a few small fp32 ones) and fp32 m, v and
+    # master
+    about = n * (2 + 3 * 4)
+    free = shutil.disk_usage(LAUNCH_DIR).free
+    print(f"{cfg.name}: {n} parameters, a checkpoint about {about} bytes; "
+          f"{free} bytes free under build/", flush=True)
+    if free < 2 * about + (1 << 30):
+        fail(f"two checkpoints of about {about} bytes do not fit in the "
+             f"{free} bytes free under build/")
+    ck, hb = LAUNCH_DIR / "ck", LAUNCH_DIR / "hb"
+    metrics = LAUNCH_DIR / "metrics.jsonl"
+    argv = ["--arch", LAUNCH_ARCH, *LAUNCH_TRAIN, "--device", "cuda"]
+    crash = CrashOnce(LAUNCH_CRASH_CALL)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with CheckpointClock() as clock, RssPeak() as rss:
+        state, lines = run_launcher(
+            launcher.main, argv + [
+                "--checkpoint-dir", str(ck), "--checkpoint-every",
+                str(LAUNCH_EVERY), "--heartbeat-dir", str(hb),
+                "--metrics-file", str(metrics)], wrap_step=crash)
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = sk.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    recs = [json.loads(line) for line in metrics.read_text().splitlines()]
+    losses = [r["loss"] for r in recs]
+    restarts = [ln for ln in lines if ln.startswith("done at step")]
+    beat = json.loads((hb / "host-0.heartbeat").read_text())
+    stragglers = [ln for ln in lines if ln.startswith("[straggler]")]
+    cr = clock.rec
+    rec = {"arch": cfg.name, "batch": [1, 2048], "steps": LAUNCH_STEPS,
+           "losses": losses, "step_ms": [r["step_s"] * 1e3 for r in recs],
+           "step_ms_median": statistics.median(r["step_s"] for r in recs)
+           * 1e3, "done": restarts, "calls": crash.calls,
+           "checkpoint_steps": sorted(int(p.name.split("_")[1]) for p in
+                                      ck.glob("step_*")),
+           "snapshot_ms": cr["snapshot_ms"], "write_ms": cr["write_ms"],
+           "wait_ms": cr["wait_ms"], "read_ms": cr["read_ms"],
+           "load_ms": cr["load_ms"], "checkpoint_bytes": cr["bytes"],
+           "write_gbps": [b / (ms * 1e-3) / 1e9 for b, ms in
+                          zip(cr["bytes"], cr["write_ms"])],
+           "peak_gib": peak / 2**30, "peak_host_rss_gib": rss.peak / 2**30,
+           "heartbeat": beat, "stragglers": stragglers,
+           "wall_s": wall_s, "launches": {"ssd_chunk_supervised": launches},
+           "card": dev["smi"]}
+    print(f"train launcher [{dev['smi']}]: losses {losses}; median step "
+          f"{rec['step_ms_median']:.3f} ms; {restarts}; snapshot ms "
+          f"{cr['snapshot_ms']}, write ms {cr['write_ms']} "
+          f"({rec['write_gbps']} GB/s of {cr['bytes']} bytes), wait ms "
+          f"{cr['wait_ms']}, read ms {cr['read_ms']}, load ms "
+          f"{cr['load_ms']}; peak device {rec['peak_gib']:.3f} GiB, peak "
+          f"host RSS {rec['peak_host_rss_gib']:.3f} GiB; heartbeat {beat}; "
+          f"stragglers {stragglers}; wall {wall_s:.3f} s", flush=True)
+    want = cfg.num_layers * (LAUNCH_STEPS + 1)
+    if restarts != [f"done at step {LAUNCH_STEPS} (restarts: 1)"] or \
+            crash.calls != LAUNCH_STEPS + 1:
+        fail(f"train launcher: {restarts}, {crash.calls} step calls; one "
+             f"restart and {LAUNCH_STEPS + 1} calls expected")
+    if not any(ln == f"[restore] resumed from step {LAUNCH_EVERY}"
+               for ln in lines):
+        fail(f"train launcher: no restore from step {LAUNCH_EVERY}")
+    if rec["checkpoint_steps"] != [LAUNCH_EVERY, LAUNCH_STEPS]:
+        fail(f"train launcher: checkpoints {rec['checkpoint_steps']}")
+    if beat["host"] != "host-0" or beat["step"] != LAUNCH_STEPS:
+        fail(f"train launcher: heartbeat {beat}")
+    if len(losses) != LAUNCH_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"train launcher: losses {losses}")
+    if launches != want:
+        fail(f"train launcher: ssd_chunk launched {launches} times, not "
+             f"{want} ({cfg.num_layers} layers x {LAUNCH_STEPS + 1} step "
+             f"calls)")
+    ck_bytes = sum(t.numel() * t.element_size() for t in
+                   torch.utils._pytree.tree_leaves(
+                       convert.state_to_reference(state, device="meta")))
+    if cr["bytes"] != [ck_bytes, ck_bytes]:
+        fail(f"train launcher: checkpoints of {cr['bytes']} bytes; the "
+             f"state holds {ck_bytes}")
+    del state
+    release()
+
+    phase("train launcher mamba2 (uninterrupted)")
+    sk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    state, _ = run_launcher(launcher.main, argv)
+    torch.cuda.synchronize()
+    launches = sk.LAUNCHES
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    diff = checkpoint_diff(state, ck, LAUNCH_STEPS)
+    cmp_s = time.perf_counter() - t0
+    del state
+    release()
+    shutil.rmtree(LAUNCH_DIR)
+    rec["uninterrupted"] = {"wall_s": plain_s, "compare_s": cmp_s,
+                            "leaves": diff["leaves"],
+                            "differ": diff["differ"]}
+    rec["launches"]["ssd_chunk_uninterrupted"] = launches
+    print(f"uninterrupted run {plain_s:.3f} s; its final state against the "
+          f"supervised run's step-{LAUNCH_STEPS} checkpoint: "
+          f"{diff['leaves']} leaves, {len(diff['differ'])} differ "
+          f"{json.dumps(diff['differ'])} (compared in {cmp_s:.3f} s)",
+          flush=True)
+    if launches != cfg.num_layers * LAUNCH_STEPS:
+        fail(f"train launcher (uninterrupted): ssd_chunk launched "
+             f"{launches} times, not {cfg.num_layers * LAUNCH_STEPS}")
+    if diff["differ"]:
+        fail(f"the resumed run differs from the uninterrupted run in "
+             f"{len(diff['differ'])} leaves, max |difference| by leaf "
+             f"{json.dumps(diff['differ'])}")
+    return rec
+
+
+def launch_serve_phase(dev: dict) -> dict:
+    """launch.serve at mamba2-1.3b's published widths, the reference's
+    defaults otherwise."""
+    import re
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.launch import serve as launcher
+    phase("serve launcher mamba2")
+    cfg = get_config(LAUNCH_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    done, lines = run_launcher(launcher.main, LAUNCH_SERVE)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = sk.LAUNCHES
+    text = "\n".join(lines)
+    pcts = {k: float(v) for k, v in re.findall(r"(p\d\d)=([\d.]+)", text)}
+    tok_s = float(re.search(r"throughput: ([\d.]+) tok/s", text).group(1))
+    rec = {"arch": cfg.name, "requests": len(done),
+           "tokens": sum(len(r.generated) for r in done),
+           "step_ms": pcts, "tokens_per_s": tok_s, "wall_s": wall_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": {"ssd_chunk": launches}, "card": dev["smi"]}
+    print(f"serve launcher [{dev['smi']}]: {rec['requests']} requests, "
+          f"{rec['tokens']} tokens; step ms {pcts}; {tok_s} tok/s; peak "
+          f"device {rec['peak_gib']:.3f} GiB; ssd_chunk launches "
+          f"{launches}; wall {wall_s:.3f} s", flush=True)
+    bad = [r.rid for r in done if len(r.generated) != LAUNCH_NEW
+           or not all(0 <= t < cfg.vocab_size for t in r.generated)]
+    if sorted(r.rid for r in done) != list(range(LAUNCH_REQUESTS)) or bad:
+        fail(f"serve launcher: requests {sorted(r.rid for r in done)}, "
+             f"wrong answers {bad}")
+    if launches != cfg.num_layers * LAUNCH_REQUESTS:
+        fail(f"serve launcher: ssd_chunk launched {launches} times, not "
+             f"{cfg.num_layers * LAUNCH_REQUESTS} (once a layer a "
+             f"prefill)")
+    return rec
+
+
+def launch_phases(dev: dict, kernels: list) -> dict:
+    out = {"train": launch_train_phase(dev)}
+    release()
+    out["serve"] = launch_serve_phase(dev)
+    release()
+    runs = {"train_supervised":
+            out["train"]["launches"]["ssd_chunk_supervised"],
+            "train_uninterrupted":
+            out["train"]["launches"]["ssd_chunk_uninterrupted"],
+            "serve": out["serve"]["launches"]["ssd_chunk"]}
+    for k in kernels:
+        if k["name"] == "ssd_chunk":
+            k["launches_launch"] = runs
+    return out
+
+
 def main() -> None:
     dev = device_phase()
     sys.path.insert(0, str(SRC))
@@ -5673,7 +6084,9 @@ def main() -> None:
     mamba["ssd_parity"] = ssd_check
     serve["mamba2"] = mamba
     griffin_moe_phases(dev, kernels, serve)
+    launch = launch_phases(dev, kernels)
     train = train_phases(dev, kernels)
+    print(json.dumps({"launch": launch}, default=str))
     print(json.dumps({"train": train}, default=str))
     print(json.dumps({"serve": serve}, default=str))
     torch.cuda.synchronize()

@@ -1,6 +1,8 @@
-"""Launchers of the port: the paper model's command line (`advisor`) and
-meshes of virtual shards on one device (`mesh.make_mesh`).
+"""Launchers of the port: the paper model's command line (`advisor`),
+meshes of virtual shards on one device (`mesh.make_mesh`), and the train
+and serve launchers (`train`, `serve`) on one device.
 
-The reference's production mesh, dry-run, train and serve launchers are
-ROADMAP.md's step 10 ("Modules to port").
+Not ported: the reference's per-cell sharding specs (`specs.py`), its
+256-chip production mesh (`mesh.make_production_mesh`) and the multi-pod
+dry run (`dryrun.py`): ROADMAP.md, 'Modules to port', steps 10c-10e.
 """

@@ -6,8 +6,9 @@ mesh position maps onto the same device, and a table sharded over an
 axis holds its shards as the leading batch axis of the batched kernels
 (repro_torch.query.sharded). A mesh over more than one distinct device is
 ROADMAP.md's queue-1 item 5b (a shard per card over torch.distributed).
-The reference's 256-chip training mesh (`make_production_mesh`) comes
-with the training stack, queue-1 step 10.
+The train and serve launchers run on a one-position mesh of this kind.
+The reference's 256-chip training mesh (`make_production_mesh`) is
+queue-1 step 10d, with the launchers' per-cell specs.
 """
 from __future__ import annotations
 

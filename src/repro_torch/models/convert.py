@@ -19,7 +19,10 @@ a reference-shaped tree (parameters, gradients, the optimizer's m, v and
 master) to a dict by port name, `to_reference` stacks such a dict back
 into the reference's layout, and `state_from_reference` builds a
 trainable train state (repro_torch.train.step's layout) from a
-reference one.
+reference one. Checkpoints cross over in place: `state_to_reference`
+gives a port state in the reference's layout as tensors, and
+`load_reference_state` writes such a tree, as read from disk, back into
+an existing port state; neither goes through numpy's bfloat16.
 """
 from __future__ import annotations
 
@@ -145,16 +148,23 @@ def to_reference(named: dict, leaves: dict):
     """{port name: tensor} -> the reference's pytree of numpy arrays (the
     inverse of from_reference): group leaves stacked over the groups,
     dicts and tuples as lm.init makes them."""
+    return _assemble({n: _numpy(t) for n, t in named.items()}, leaves,
+                     np.stack)
+
+
+def _assemble(named: dict, leaves: dict, stack):
+    """{port name: leaf} -> the reference's pytree, group leaves joined by
+    `stack` in group order."""
     stacks: dict = {}
     for name, (path, g) in leaves.items():
-        stacks.setdefault(path, {})[g] = _numpy(named[name])
+        stacks.setdefault(path, {})[g] = named[name]
     root: dict = {}
     for path, by_g in stacks.items():
         node = root
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = (by_g[None] if None in by_g else
-                          np.stack([by_g[g] for g in sorted(by_g)]))
+                          stack([by_g[g] for g in sorted(by_g)]))
 
     def tuples(node):
         if not isinstance(node, dict):
@@ -185,3 +195,46 @@ def state_from_reference(state_np, cfg, device=None) -> dict:
     step = torch.tensor(int(np.asarray(state_np["step"])),
                         dtype=torch.int32, device=device)
     return {"params": model, "opt": opt, "step": step}
+
+
+def state_to_reference(state: dict, device=None) -> dict:
+    """The port's train state as the reference's tree of tensors,
+    {"params", "opt": {"m", "v", "count", "master"?}, "step"}, on `device`
+    (by default where the state lives): each group leaf stacked over its
+    groups as leaf_map says (a copy), every other leaf the state's own
+    tensor, detached, when it already lives there. This is the layout the
+    reference checkpoints, so a CheckpointManager writes the reference's
+    files from it."""
+    model = state["params"]
+    leaves = leaf_map(model)
+    dev = state["step"].device if device is None else torch.device(device)
+
+    def tree(named):
+        return _assemble({n: t.detach().to(dev) for n, t in named.items()},
+                         leaves, torch.stack)
+
+    opt = state["opt"]
+    ref_opt = {k: tree(opt[k]) for k in ("m", "v", "master") if k in opt}
+    ref_opt["count"] = opt["count"].detach().to(dev)
+    return {"params": tree(dict(model.named_parameters())), "opt": ref_opt,
+            "step": state["step"].detach().to(dev)}
+
+
+@torch.no_grad()
+def load_reference_state(state: dict, tree) -> dict:
+    """Write a reference-shaped train state of tensors (as
+    CheckpointManager.restore reads it from disk) into the port's `state`
+    in place: every parameter and its m, v and master slice, the count and
+    the step. Returns `state`."""
+    model = state["params"]
+    opt = state["opt"]
+    named = dict(model.named_parameters())
+    for name, (path, g) in leaf_map(model).items():
+        for dst, src in [(named[name], tree["params"])] + [
+                (opt[k][name], tree["opt"][k]) for k in ("m", "v", "master")
+                if k in opt]:
+            leaf = _at(src, path)
+            dst.copy_(leaf if g is None else leaf[g])
+    opt["count"].copy_(tree["opt"]["count"])
+    state["step"].copy_(tree["step"])
+    return state

@@ -53,6 +53,41 @@ def test_importing_the_engine_loads_no_jax_and_builds_nothing():
     assert out.stdout.strip() == "clean"
 
 
+def test_checkpoint_path_loads_no_ml_dtypes(tmp_path):
+    """The launchers' checkpoints store and read bf16 by its bit patterns:
+    a train launcher run that saves and resumes a bf16 state loads neither
+    ml_dtypes nor JAX nor the reference."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import serve, train\n"
+        "argv = ['--arch', 'mamba2-1.3b', '--reduced', '--seq-len', '8',\n"
+        "        '--global-batch', '1', '--device', 'cpu',\n"
+        f"        '--checkpoint-dir', {str(tmp_path)!r},\n"
+        "        '--checkpoint-every', '1']\n"
+        "train.main(argv + ['--steps', '1'])\n"
+        "state = train.main(argv + ['--steps', '2'])\n"
+        "assert int(state['step']) == 2\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('ml_dtypes',)!r})\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "clean"
+    assert "[restore] resumed from step 1" in out.stdout
+
+
+@pytest.mark.parametrize(
+    "path", [p for d in ("data", "checkpoint", "dist")
+             for p in sorted((PORT / d).glob("*.py"))]
+    + [PORT / "launch" / "train.py", PORT / "launch" / "serve.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_checkpoint_path_files_import_no_ml_dtypes(path):
+    assert "ml_dtypes" not in imported_roots(path)
+
+
 @pytest.mark.parametrize(
     "package", sorted(p.parent.name for p in PORT.glob("*/__init__.py")))
 def test_each_package_imports_first(package):
