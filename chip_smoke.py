@@ -374,6 +374,47 @@ attention kernel; every SSD layer's forward is kernel 12):
              line holds both records; their launches stand in the
              {"kernels": ...} line as "launches_launch".
 
+The distribution slice (logical-axis sharding over virtual positions of
+the card, repro_torch.dist and repro_torch.launch.specs): every position
+of a mesh lives on the one device, so a sharded step must give the same
+bits as the one-position step.
+
+18c. sharded serve mixtral — after mixtral's serve phase, on its weights
+             (8 of 56 layers, attn_impl="flash"): specs.build_prefill and
+             build_serve on a (2, 4) mesh, a 2048-token prompt and 8
+             greedy steps, logits and tokens equal to
+             engine.make_prefill_step / make_serve_step's bit for bit;
+             kernels 11 and 10 launch once a layer a prefill and a step.
+18d. sharded train mamba2 — between the train launcher phases and the
+             serve launcher: launch.train.main with --mesh 2,4 on the
+             uninterrupted run's batches; every leaf of its final state
+             equal to that run's (still held) bit for bit; 49
+             logical_constraint calls a step; kernel 12 48 x 5. Prints
+             the median step beside the one-position run's and MFU
+             against the card and a position.
+18e. pipeline and compression: compressed psum — compressed_psum_pod on
+             a (4, 2) ("pod", "data") mesh over the sharded run's full
+             gradient tree from one step, each leaf within 2e-2 of 4x
+             the leaf; error_feedback_compress over 50 steps of one leaf
+             within 1e-2. Prints int8 against fp32 bytes.
+18f. elastic resume mamba2 — a second process (python -c over
+             launch.train.main) resumes the supervised run's step-3
+             checkpoint with --mesh 8,1 and runs to step 5; its step-5
+             checkpoint equal to the uninterrupted run's state bit for
+             bit; kernel 12 48 x 2. build/launch is deleted after it.
+18g. pipeline and compression: gpipe — after the serve launcher: 4
+             virtual stages x 8 microbatches of (1, 4096, 2048) bf16,
+             stage tanh(x @ w), against the sequential composition and
+             an fp32 oracle (PIPE_X, PIPE_FLOOR); bubble_fraction(8, 4)
+             = 3/11; pipelined and sequential ms.
+18h. production-mesh bytes — per-position bytes of the train state
+             under megatron on make_production_mesh() and the multi-pod
+             mesh for internlm2-1.8b, mamba2-1.3b and llama3-405b, equal
+             to PROD_BYTES (tests/test_torch_specs.py computes the same).
+             One JSON line {"dist": {...}} before the {"launch": ...}
+             line; kernel 12's launches stand in the {"kernels": ...}
+             line as "launches_dist", kernels 10 and 11's too.
+
 The training slice (repro_torch.train: losses, AdamW, the train and eval
 steps; kernels 11 and 12 run forward under autograd, their backward
 differentiates the plain versions) runs after the launchers:
@@ -4296,17 +4337,27 @@ def recurrentgemma_times(dev: dict) -> dict:
     return out
 
 
-def griffin_moe_phases(dev: dict, kernels: list, serve: dict) -> None:
+def griffin_moe_phases(dev: dict, kernels: list, serve: dict,
+                       dist: dict) -> None:
     """The Griffin and MoE slice after the mamba2 phases: block parity,
     then each model's serve phase and teacher-forced check (recurrentgemma
     followed by kernels 10 and 11 at its shapes), each model dropped before
-    the next; records into `serve` and the kernel 10 / 11 entries."""
+    the next; records into `serve` and the kernel 10 / 11 entries. The
+    mixtral weights also serve the distribution slice's sharded serve
+    phase (into `dist`) before they are dropped."""
     serve["block_parity"] = block_parity_phase()
     times = None
     for arch, max_len in ((RG_ARCH, SERVE_MAX_LEN),
                           (MOON_ARCH, MOON_MAX_LEN),
                           (MIX_ARCH, SERVE_MAX_LEN)):
         model, rec = lm_serve_phase(arch, max_len, dev)
+        if arch == MIX_ARCH:
+            dist["serve_mixtral"] = sharded_serve_phase(
+                dev, model, griffin_moe_config(arch))
+            for k in kernels:
+                if k["name"] in dist["serve_mixtral"]["launches"]:
+                    k["launches_dist"] = {"serve_mixtral_sharded": dist[
+                        "serve_mixtral"]["launches"][k["name"]]}
         del model
         release()
         label = arch.split("-")[0]
@@ -5779,11 +5830,12 @@ def checkpoint_diff(state, ck: Path, step: int) -> dict:
     return {"leaves": len(leaves), "differ": differ}
 
 
-def launch_train_phase(dev: dict) -> dict:
+def launch_train_phase(dev: dict) -> tuple:
     """The train launcher at mamba2-1.3b's published widths and depth,
     supervised, crashing once after the step-3 checkpoint; then one
     uninterrupted run, compared leaf by leaf with the first run's final
-    checkpoint."""
+    checkpoint. Returns (the record, the uninterrupted run's state); the
+    checkpoints stay under LAUNCH_DIR for the distribution phases."""
     import shutil
 
     from repro_torch.configs import get_config
@@ -5880,20 +5932,25 @@ def launch_train_phase(dev: dict) -> dict:
 
     phase("train launcher mamba2 (uninterrupted)")
     sk.LAUNCHES = 0
+    plain_metrics = LAUNCH_DIR / "uninterrupted.jsonl"
     t0 = time.perf_counter()
-    state, _ = run_launcher(launcher.main, argv)
+    state, _ = run_launcher(launcher.main, argv + [
+        "--metrics-file", str(plain_metrics)])
     torch.cuda.synchronize()
     launches = sk.LAUNCHES
     plain_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     diff = checkpoint_diff(state, ck, LAUNCH_STEPS)
     cmp_s = time.perf_counter() - t0
-    del state
-    release()
-    shutil.rmtree(LAUNCH_DIR)
+    plain_recs = [json.loads(line) for line in
+                  plain_metrics.read_text().splitlines()]
     rec["uninterrupted"] = {"wall_s": plain_s, "compare_s": cmp_s,
                             "leaves": diff["leaves"],
-                            "differ": diff["differ"]}
+                            "differ": diff["differ"],
+                            "step_ms": [r["step_s"] * 1e3
+                                        for r in plain_recs],
+                            "step_ms_median": statistics.median(
+                                r["step_s"] for r in plain_recs) * 1e3}
     rec["launches"]["ssd_chunk_uninterrupted"] = launches
     print(f"uninterrupted run {plain_s:.3f} s; its final state against the "
           f"supervised run's step-{LAUNCH_STEPS} checkpoint: "
@@ -5907,7 +5964,7 @@ def launch_train_phase(dev: dict) -> dict:
         fail(f"the resumed run differs from the uninterrupted run in "
              f"{len(diff['differ'])} leaves, max |difference| by leaf "
              f"{json.dumps(diff['differ'])}")
-    return rec
+    return rec, state
 
 
 def launch_serve_phase(dev: dict) -> dict:
@@ -5952,9 +6009,17 @@ def launch_serve_phase(dev: dict) -> dict:
     return rec
 
 
-def launch_phases(dev: dict, kernels: list) -> dict:
-    out = {"train": launch_train_phase(dev)}
+def launch_phases(dev: dict, kernels: list, dist: dict) -> dict:
+    """The launchers, with the distribution slice's train phases between
+    them: they hold the uninterrupted run's state and read the supervised
+    run's step-3 checkpoint before both are dropped."""
+    import shutil
+    out = {}
+    out["train"], state = launch_train_phase(dev)
+    dist_train_phases(dev, state, out["train"], dist, kernels)
+    del state
     release()
+    shutil.rmtree(LAUNCH_DIR)
     out["serve"] = launch_serve_phase(dev)
     release()
     runs = {"train_supervised":
@@ -5965,6 +6030,470 @@ def launch_phases(dev: dict, kernels: list) -> dict:
     for k in kernels:
         if k["name"] == "ssd_chunk":
             k["launches_launch"] = runs
+    return out
+
+
+# --------------------------------------------------------------------------
+# the distribution slice: logical-axis sharding over virtual positions of
+# the card, the launchers' sharded step, the elastic resume, the compressed
+# psum and GPipe over virtual positions, and the production meshes' bytes
+# --------------------------------------------------------------------------
+
+DIST_MESH = "2,4"                  # the sharded train run's (data, model)
+ELASTIC_MESH = "8,1"               # the second process's mesh
+ELASTIC_TIMEOUT_S = 600
+PIPE_STAGES, PIPE_MICRO = 4, 8
+PIPE_MB = (1, 4096, 2048)          # a microbatch at internlm2-1.8b's d_model
+# GPipe in bf16 against the sequential composition: each stage's product
+# and tanh round to bf16, and the pipelined ticks batch the four stages'
+# products into one call, whose summation order may differ from four
+# calls'. Both are held to an fp32 oracle of the same composition: the
+# pipelined run may sit at most PIPE_X times as far from it as the
+# sequential run, plus PIPE_FLOOR (one bf16 unit at 1.0, 2^-7).
+PIPE_X, PIPE_FLOOR = 2.0, 2.0 ** -7
+COMPRESS_MESH = ((4, 2), ("pod", "data"))
+COMPRESS_BOUND = 2e-2              # tests/multidevice_child.py's int8 bound
+EF_STEPS, EF_BOUND = 50, 1e-2      # ... and its error-feedback bound
+PROD_ARCHS = ("internlm2-1.8b", "mamba2-1.3b", "llama3-405b")
+# Bytes one position of make_production_mesh() (16 x 16) and of the
+# multi-pod mesh (2 x 16 x 16) holds of the train state (AdamW with fp32
+# master), megatron rules at train_4k: arithmetic over the meta state that
+# tests/test_torch_specs.py recomputes from both packages' specs.
+PROD_BYTES = {
+    "internlm2-1.8b": {"single": 185980936, "multi": 92990472},
+    "mamba2-1.3b": {"single": 1189683208, "multi": 602337288},
+    "llama3-405b": {"single": 25667190792, "multi": 12833595400},
+}
+MIX_SHARDED_PROMPT, MIX_SHARDED_NEW = 2048, 8
+
+
+def state_diff(a: dict, b: dict) -> dict:
+    """Two port train states, every leaf bit for bit on the card: the leaf
+    count and {leaf: max |difference|} of the leaves that differ."""
+    def bits(t):
+        t = t.detach()
+        return t.view({2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+
+    pairs = [(f"params.{n}", p, dict(b["params"].named_parameters())[n])
+             for n, p in a["params"].named_parameters()]
+    for k in ("m", "v", "master"):
+        pairs += [(f"opt.{k}.{n}", t, b["opt"][k][n])
+                  for n, t in a["opt"][k].items()]
+    pairs += [("opt.count", a["opt"]["count"], b["opt"]["count"]),
+              ("step", a["step"], b["step"])]
+    differ = {}
+    for name, x, y in pairs:
+        if x.dtype != y.dtype or x.shape != y.shape or \
+                not torch.equal(bits(x), bits(y)):
+            differ[name] = float((x.detach().float()
+                                  - y.detach().float()).abs().max())
+    return {"leaves": len(pairs), "differ": differ}
+
+
+def sharded_train_phase(dev: dict, ref_state: dict, base: dict) -> tuple:
+    """launch.train.main at mamba2-1.3b's published widths with --mesh 2,4
+    on the same SyntheticLM batches as the one-position uninterrupted run:
+    its final state must equal that run's bit for bit. Returns (the
+    record, its state)."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.launch import train as launcher
+    phase("sharded train mamba2")
+    cfg = get_config(LAUNCH_ARCH)
+    metrics = LAUNCH_DIR / "sharded.jsonl"
+    argv = ["--arch", LAUNCH_ARCH, *LAUNCH_TRAIN, "--device", "cuda",
+            "--mesh", DIST_MESH, "--metrics-file", str(metrics)]
+    torch.cuda.synchronize()
+    sk.LAUNCHES = 0
+    sharding.CONSTRAINT_CALLS = 0
+    t0 = time.perf_counter()
+    state, lines = run_launcher(launcher.main, argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, calls = sk.LAUNCHES, sharding.CONSTRAINT_CALLS
+    recs = [json.loads(line) for line in metrics.read_text().splitlines()]
+    chips = math.prod(int(d) for d in DIST_MESH.split(","))
+    t0 = time.perf_counter()
+    diff = state_diff(state, ref_state)
+    cmp_s = time.perf_counter() - t0
+    rec = {"arch": cfg.name, "mesh": DIST_MESH, "batch": [1, 2048],
+           "losses": [r["loss"] for r in recs],
+           "step_ms": [r["step_s"] * 1e3 for r in recs],
+           "step_ms_median": statistics.median(r["step_s"] for r in recs)
+           * 1e3,
+           "one_position_step_ms_median":
+           base["uninterrupted"]["step_ms_median"],
+           "constraint_calls_a_step": calls / LAUNCH_STEPS,
+           "mfu_per_position": statistics.median(r["mfu"] for r in recs),
+           "mfu_one_card": statistics.median(r["mfu"] for r in recs) * chips,
+           "positions": chips, "wall_s": wall_s, "compare_s": cmp_s,
+           "leaves": diff["leaves"], "differ": diff["differ"],
+           "launches": {"ssd_chunk": launches}, "card": dev["smi"]}
+    print(f"sharded train [{dev['smi']}]: mesh {DIST_MESH} ({chips} "
+          f"positions on one card); losses {rec['losses']}; median step "
+          f"{rec['step_ms_median']:.3f} ms against the one-position run's "
+          f"{rec['one_position_step_ms_median']:.3f} ms; "
+          f"{rec['constraint_calls_a_step']} logical_constraint calls a "
+          f"step; mfu {rec['mfu_one_card']:.5f} of the card "
+          f"({rec['mfu_per_position']:.6f} a position, chips = positions); "
+          f"ssd_chunk launches {launches}; against the one-position state: "
+          f"{diff['leaves']} leaves, {len(diff['differ'])} differ "
+          f"{json.dumps(diff['differ'])} (compared in {cmp_s:.3f} s); wall "
+          f"{wall_s:.3f} s", flush=True)
+    if launches != cfg.num_layers * LAUNCH_STEPS:
+        fail(f"sharded train: ssd_chunk launched {launches} times, not "
+             f"{cfg.num_layers * LAUNCH_STEPS}")
+    if calls != (cfg.num_layers + 1) * LAUNCH_STEPS:
+        fail(f"sharded train: {calls} logical_constraint calls, not "
+             f"{(cfg.num_layers + 1) * LAUNCH_STEPS} (the embedding and one "
+             f"residual a layer, a step)")
+    if not any(ln.startswith(f"step {LAUNCH_STEPS:5d}") for ln in lines):
+        fail("sharded train: the run did not reach its last step")
+    if diff["differ"]:
+        fail(f"the (2, 4) run differs from the one-position run in "
+             f"{len(diff['differ'])} leaves: {json.dumps(diff['differ'])}")
+    return rec, state
+
+
+def compression_phase(dev: dict, state: dict) -> dict:
+    """compressed_psum_pod on a (4, 2) ("pod", "data") mesh over mamba2's
+    full gradient tree from one step, each leaf within the int8 bound of
+    4x the leaf; error_feedback_compress over EF_STEPS steps of one
+    leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist import compression
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import step as step_lib
+    phase("pipeline and compression: compressed psum")
+    cfg = get_config(LAUNCH_ARCH)
+    ds = SyntheticLM(DataConfig(seed=1234, vocab_size=cfg.vocab_size,
+                                seq_len=2048, global_batch=1))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+             for k, v in ds.batch(0).items()}
+    _, _, grads = step_lib.value_and_grad(state["params"], cfg, batch)
+    grads = {n: g for n, g in grads.items() if g is not None}
+    torch.cuda.synchronize()
+    shape, axes = COMPRESS_MESH
+    mesh = make_mesh(shape, axes)
+    ms = time_ms(lambda: compression.compressed_psum_pod(grads, mesh,
+                                                         axis="pod"))
+    out = compression.compressed_psum_pod(grads, mesh, axis="pod")
+    pods = mesh.shape["pod"]
+    worst, worst_leaf = 0.0, None
+    for n, g in grads.items():
+        want = pods * g.float()
+        rel = float((out[n] - want).abs().max()
+                    / (want.abs().max() + 1e-9))
+        if rel > worst:
+            worst, worst_leaf = rel, n
+    del out
+    numel = sum(g.numel() for g in grads.values())
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads.values())
+    # error feedback on one leaf, fp32 as the reference's check
+    leaf = next(n for n in grads if n.endswith("mixer.in_proj"))
+    g = {"w": grads[leaf].float()}
+    res, acc_sent = None, torch.zeros_like(g["w"])
+    for _ in range(EF_STEPS):
+        sent, res = compression.error_feedback_compress(g, res)
+        acc_sent += sent["w"]
+    acc_true = EF_STEPS * g["w"]
+    ef = float((acc_sent - acc_true).abs().max() / acc_true.abs().max())
+    rec = {"mesh": list(shape), "axes": list(axes), "leaves": len(grads),
+           "elements": numel, "grad_bytes": grad_bytes,
+           "int8_bytes_a_position": numel, "fp32_bytes_a_position": 4 * numel,
+           "ms": ms, "max_rel_err": worst, "worst_leaf": worst_leaf,
+           "bound": COMPRESS_BOUND, "ef_leaf": leaf,
+           "ef_shape": list(g["w"].shape), "ef_steps": EF_STEPS,
+           "ef_rel_err": ef, "ef_bound": EF_BOUND, "card": dev["smi"]}
+    print(f"compressed psum [{dev['smi']}]: {len(grads)} gradient leaves, "
+          f"{numel} elements ({grad_bytes} bytes as the step made them) "
+          f"over {pods} virtual pods of a {shape} mesh in {ms:.3f} ms; int8 "
+          f"{numel} bytes a position against fp32 {4 * numel}; worst "
+          f"|out - {pods} g| / max|{pods} g| {worst:.6f} ({worst_leaf}), "
+          f"bound {COMPRESS_BOUND}; error feedback over {EF_STEPS} steps "
+          f"of {leaf} {tuple(g['w'].shape)}: {ef:.3e}, bound {EF_BOUND}",
+          flush=True)
+    if not worst < COMPRESS_BOUND:
+        fail(f"compressed psum: {worst} of the leaf's scale at "
+             f"{worst_leaf}, over {COMPRESS_BOUND}")
+    if not ef < EF_BOUND:
+        fail(f"error feedback: {ef} after {EF_STEPS} steps, over "
+             f"{EF_BOUND}")
+    del grads, g, res, acc_sent, acc_true
+    release()
+    return rec
+
+
+def elastic_phase(dev: dict, ref_state: dict) -> dict:
+    """A second process resumes the supervised run's step-3 checkpoint
+    with --mesh 8,1 and runs to step 5; its final checkpoint must equal
+    the uninterrupted run's state bit for bit."""
+    import shutil
+    from repro_torch.configs import get_config
+    phase("elastic resume mamba2")
+    cfg = get_config(LAUNCH_ARCH)
+    ck = LAUNCH_DIR / "ck"
+    # the supervised run's step-5 file has been compared; the resumed run
+    # writes its own step 5 there, so the disk holds two checkpoints
+    shutil.rmtree(ck / f"step_{LAUNCH_STEPS:010d}")
+    argv = ["--arch", LAUNCH_ARCH, *LAUNCH_TRAIN, "--device", "cuda",
+            "--mesh", ELASTIC_MESH, "--checkpoint-dir", str(ck),
+            "--checkpoint-every", str(LAUNCH_EVERY)]
+    code = ("import json\n"
+            "from repro_torch.kernels.ssd_chunk import kernel as sk\n"
+            "from repro_torch.launch import train\n"
+            f"state = train.main({argv!r})\n"
+            "print('ELASTIC ' + json.dumps({'step': int(state['step']), "
+            "'launches': sk.LAUNCHES}))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True,
+                         timeout=ELASTIC_TIMEOUT_S,
+                         cwd=str(SRC.parent))
+    wall_s = time.perf_counter() - t0
+    lines = run.stdout.splitlines()
+    print("\n".join(lines[-12:]), flush=True)
+    if run.returncode != 0:
+        fail(f"elastic resume: the second process exited "
+             f"{run.returncode}: {run.stderr[-3000:]}")
+    child = json.loads(next(ln for ln in lines if ln.startswith(
+        "ELASTIC "))[len("ELASTIC "):])
+    t0 = time.perf_counter()
+    diff = checkpoint_diff(ref_state, ck, LAUNCH_STEPS)
+    cmp_s = time.perf_counter() - t0
+    rec = {"arch": cfg.name, "mesh": ELASTIC_MESH, "from_step": LAUNCH_EVERY,
+           "to_step": child["step"], "process_wall_s": wall_s,
+           "compare_s": cmp_s, "leaves": diff["leaves"],
+           "differ": diff["differ"],
+           "launches": {"ssd_chunk": child["launches"]},
+           "card": dev["smi"]}
+    print(f"elastic resume [{dev['smi']}]: a second process on a "
+          f"{ELASTIC_MESH} mesh resumed step {LAUNCH_EVERY} and ended at "
+          f"{child['step']} in {wall_s:.3f} s (start-up, restore, "
+          f"{LAUNCH_STEPS - LAUNCH_EVERY} steps, the final save); "
+          f"ssd_chunk launches {child['launches']}; its step-"
+          f"{LAUNCH_STEPS} checkpoint against the uninterrupted run: "
+          f"{diff['leaves']} leaves, {len(diff['differ'])} differ "
+          f"{json.dumps(diff['differ'])} (compared in {cmp_s:.3f} s)",
+          flush=True)
+    if f"[restore] resumed from step {LAUNCH_EVERY}" not in lines:
+        fail(f"elastic resume: no restore from step {LAUNCH_EVERY}")
+    want = cfg.num_layers * (LAUNCH_STEPS - LAUNCH_EVERY)
+    if child["step"] != LAUNCH_STEPS or child["launches"] != want:
+        fail(f"elastic resume: step {child['step']}, ssd_chunk launched "
+             f"{child['launches']} times, not {want}")
+    if diff["differ"]:
+        fail(f"the elastic resume differs from the uninterrupted run in "
+             f"{len(diff['differ'])} leaves: {json.dumps(diff['differ'])}")
+    return rec
+
+
+def dist_train_phases(dev: dict, ref_state: dict, base: dict, dist: dict,
+                      kernels: list) -> None:
+    """Between the train and serve launchers: the sharded run, the
+    compressed psum over its gradients, then the elastic resume."""
+    dist["sharded_train"], state = sharded_train_phase(dev, ref_state, base)
+    dist["compression"] = compression_phase(dev, state)
+    del state
+    release()
+    dist["elastic"] = elastic_phase(dev, ref_state)
+    for k in kernels:
+        if k["name"] == "ssd_chunk":
+            k["launches_dist"] = {
+                "sharded_train":
+                dist["sharded_train"]["launches"]["ssd_chunk"],
+                "elastic": dist["elastic"]["launches"]["ssd_chunk"]}
+
+
+def pipeline_phase(dev: dict) -> dict:
+    """gpipe with PIPE_STAGES virtual stages on a ("pod",) mesh over
+    PIPE_MICRO microbatches, stage tanh(x @ w) in bf16, against the
+    sequential composition and an fp32 oracle."""
+    from repro_torch.dist import pipeline_parallel as pp
+    from repro_torch.launch.mesh import make_mesh
+    phase("pipeline and compression: gpipe")
+    g = torch.Generator("cuda").manual_seed(SEED + 28)
+    d = PIPE_MB[-1]
+    xs = torch.randn((PIPE_MICRO,) + PIPE_MB, generator=g, device="cuda",
+                     dtype=torch.float32).to(torch.bfloat16)
+    ws = (torch.randn((PIPE_STAGES, d, d), generator=g, device="cuda",
+                      dtype=torch.float32) / math.sqrt(d)).to(torch.bfloat16)
+    mesh = make_mesh((PIPE_STAGES,), ("pod",))
+
+    def stage(w, x):
+        return torch.tanh(x @ w)
+
+    def pipelined():
+        return pp.gpipe(stage, ws, xs, mesh=mesh, axis="pod")
+
+    def sequential(dtype=torch.bfloat16):
+        out = []
+        for m in range(PIPE_MICRO):
+            x = xs[m].to(dtype)
+            for s in range(PIPE_STAGES):
+                x = stage(ws[s].to(dtype), x)
+            out.append(x)
+        return torch.stack(out)
+
+    got, want = pipelined(), sequential()
+    oracle = sequential(torch.float32)
+    err_pipe = float((got.float() - oracle).abs().max())
+    err_seq = float((want.float() - oracle).abs().max())
+    gap = float((got.float() - want.float()).abs().max())
+    limit = PIPE_X * err_seq + PIPE_FLOOR
+    pipe_ms, seq_ms = time_ms(pipelined), time_ms(sequential)
+    bubble = pp.bubble_fraction(PIPE_MICRO, PIPE_STAGES)
+    rec = {"stages": PIPE_STAGES, "microbatches": PIPE_MICRO,
+           "microbatch": list(PIPE_MB), "dtype": "bfloat16",
+           "ticks": PIPE_MICRO + PIPE_STAGES - 1, "bubble_fraction": bubble,
+           "pipelined_ms": pipe_ms, "sequential_ms": seq_ms,
+           "max_err_pipelined": err_pipe, "max_err_sequential": err_seq,
+           "max_pipelined_vs_sequential": gap, "limit": limit,
+           "card": dev["smi"]}
+    print(f"gpipe [{dev['smi']}]: {PIPE_STAGES} virtual stages x "
+          f"{PIPE_MICRO} microbatches of {PIPE_MB} bf16, stage tanh(x @ w) "
+          f"with w ({d}, {d}); bubble_fraction({PIPE_MICRO}, {PIPE_STAGES})"
+          f" = {bubble:.6f} (3/11 = {3 / 11:.6f}); pipelined "
+          f"{pipe_ms:.3f} ms ({PIPE_MICRO + PIPE_STAGES - 1} ticks, one "
+          f"batched call a tick), sequential {seq_ms:.3f} ms; max |error| "
+          f"against the fp32 oracle: pipelined {err_pipe:.6f}, sequential "
+          f"{err_seq:.6f} (limit {limit:.6f}); pipelined against "
+          f"sequential {gap:.6f}", flush=True)
+    if abs(bubble - 3 / 11) > 1e-12 and (PIPE_MICRO, PIPE_STAGES) == (8, 4):
+        fail(f"bubble_fraction(8, 4) = {bubble}, not 3/11")
+    if not (math.isfinite(err_pipe) and err_pipe <= limit):
+        fail(f"gpipe: {err_pipe} from the fp32 oracle, over {limit}")
+    del xs, ws, got, want, oracle
+    release()
+    return rec
+
+
+def sharded_serve_phase(dev: dict, model, cfg) -> dict:
+    """mixtral at PR 24's cut through specs.build_prefill / build_serve on
+    a (2, 4) virtual mesh: one prompt, MIX_SHARDED_NEW greedy decode
+    steps; logits and tokens must equal engine.make_prefill_step /
+    make_serve_step's with the same weights bit for bit, and kernels 10
+    and 11 must launch on the sharded path."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    phase("sharded serve mixtral")
+    mesh = make_mesh((2, 4), ("data", "model"))
+    p, new = MIX_SHARDED_PROMPT, MIX_SHARDED_NEW
+    max_len = p + new
+    prefill, _ = specs.build_prefill(
+        cfg, ShapeSpec("sharded_prefill", "prefill", p, 1), mesh)
+    serve, _ = specs.build_serve(
+        cfg, ShapeSpec("sharded_decode", "decode", max_len, 1), mesh)
+    g = torch.Generator("cuda").manual_seed(SEED + 29)
+    prompt = torch.randint(0, cfg.vocab_size, (1, p), generator=g,
+                           device="cuda", dtype=torch.int32)
+    key = torch.zeros(2, dtype=torch.uint32, device="cuda")
+
+    def run(sharded: bool):
+        caches = lm.init_caches(cfg, 1, max_len)
+        with torch.no_grad():
+            if sharded:
+                logits, caches = prefill(model, prompt, caches)
+            else:
+                logits, caches = engine.make_prefill_step(cfg)(
+                    model, prompt, caches)
+            out = [logits.float()]
+            nxt = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+            toks = [nxt]
+            cache_len = torch.full((1,), p, dtype=torch.int32,
+                                   device="cuda")
+            for _ in range(new):
+                if sharded:
+                    nxt, logits, caches = serve(model, nxt[:, None],
+                                                cache_len, caches, key)
+                else:
+                    nxt, logits, caches = engine.make_serve_step(cfg)(
+                        model, nxt[:, None], cache_len, caches, None)
+                out.append(logits)
+                toks.append(nxt)
+                cache_len = cache_len + 1
+        torch.cuda.synchronize()
+        return out, toks
+
+    from repro_torch.dist import sharding
+    run(False)                      # first calls: warm both paths' caches
+    t0 = time.perf_counter()
+    o_logits, o_toks = run(False)
+    o_wall = time.perf_counter() - t0
+    dk.LAUNCHES = fk.LAUNCHES = 0
+    sharding.CONSTRAINT_CALLS = 0
+    t0 = time.perf_counter()
+    s_logits, s_toks = run(True)
+    s_wall = time.perf_counter() - t0
+    launches = {"decode_attention": dk.LAUNCHES,
+                "flash_attention": fk.LAUNCHES}
+    calls = sharding.CONSTRAINT_CALLS
+    same_logits = all(torch.equal(a, b) for a, b in zip(s_logits, o_logits))
+    same_toks = all(torch.equal(a, b) for a, b in zip(s_toks, o_toks))
+    gap = max(float((a - b).abs().max()) for a, b in zip(s_logits,
+                                                         o_logits))
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "window": cfg.window,
+           "mesh": [2, 4], "prompt": p, "new": new,
+           "tokens": [int(t) for t in torch.cat(s_toks).tolist()],
+           "logits_equal": same_logits, "tokens_equal": same_toks,
+           "max_logit_gap": gap, "constraint_calls": calls,
+           "sharded_wall_s": s_wall, "one_position_wall_s": o_wall,
+           "launches": launches, "card": dev["smi"]}
+    print(f"sharded serve [{dev['smi']}]: {cfg.name} at {cfg.num_layers} "
+          f"layers, window {cfg.window}, on a (2, 4) virtual mesh: a "
+          f"{p}-token prefill and {new} greedy steps, tokens "
+          f"{rec['tokens']}; logits equal to the one-position steps "
+          f"{same_logits} (max |gap| {gap}), tokens equal {same_toks}; "
+          f"{calls} logical_constraint calls; kernel launches {launches}; "
+          f"{s_wall:.3f} s sharded, {o_wall:.3f} s one position",
+          flush=True)
+    n_attn = cfg.num_layers
+    if launches != {"decode_attention": n_attn * new,
+                    "flash_attention": n_attn}:
+        fail(f"sharded serve: launches {launches}, not {n_attn * new} "
+             f"decode and {n_attn} prefill")
+    if not (same_logits and same_toks):
+        fail(f"sharded serve differs from the one-position steps: max "
+             f"|logit gap| {gap}")
+    return rec
+
+
+def production_bytes_phase() -> dict:
+    """Per-position bytes of the train state under megatron on
+    make_production_mesh() and the multi-pod mesh, from shard_shape over
+    the meta state; must equal PROD_BYTES."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.dist import sharding, strategies
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.train import optim
+    phase("production-mesh bytes")
+    out = {}
+    meshes = {"single": make_production_mesh(),
+              "multi": make_production_mesh(multi_pod=True)}
+    shape = SHAPES["train_4k"]
+    for arch in PROD_ARCHS:
+        cfg = get_config(arch)
+        state, axes = specs.state_specs(cfg, optim.AdamWConfig())
+        extra, _, _ = strategies.strategy_for(cfg, shape, "megatron")
+        rules = specs.rules_for(cfg, shape, extra)
+        out[arch] = {k: sharding.position_bytes(
+            state, sharding.sharding_tree(state, axes, m, rules))
+            for k, m in meshes.items()}
+        del state
+    print(f"train-state bytes a position under megatron at train_4k "
+          f"(16 x 16; 2 x 16 x 16): {json.dumps(out)}", flush=True)
+    if out != PROD_BYTES:
+        fail(f"production-mesh bytes {out}, the CPU test's {PROD_BYTES}")
     return out
 
 
@@ -6083,9 +6612,13 @@ def main() -> None:
     kernels += ssd_times(dev, mamba["launches"], parity_err)
     mamba["ssd_parity"] = ssd_check
     serve["mamba2"] = mamba
-    griffin_moe_phases(dev, kernels, serve)
-    launch = launch_phases(dev, kernels)
+    dist: dict = {}
+    griffin_moe_phases(dev, kernels, serve, dist)
+    launch = launch_phases(dev, kernels, dist)
+    dist["pipeline"] = pipeline_phase(dev)
+    dist["production_bytes"] = production_bytes_phase()
     train = train_phases(dev, kernels)
+    print(json.dumps({"dist": dist}, default=str))
     print(json.dumps({"launch": launch}, default=str))
     print(json.dumps({"train": train}, default=str))
     print(json.dumps({"serve": serve}, default=str))

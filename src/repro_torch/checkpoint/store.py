@@ -183,17 +183,20 @@ def _read_leaf(f, zf: zipfile.ZipFile, key: str, dtype: str, into):
 
 
 def _mesh_device(sharding):
-    """The device a sharding puts a leaf on: the port's shardings are its
-    meshes, every position of which lives on one device."""
-    if not (hasattr(sharding, "device") and hasattr(sharding, "size")):
-        raise TypeError(f"a sharding is one of the port's meshes "
-                        f"(repro_torch.launch.mesh.Mesh), not {sharding!r}")
-    if sharding.size > 1:
+    """The device a sharding puts a leaf on. A sharding is one of the
+    port's meshes or NamedShardings (repro_torch.launch.mesh.Mesh,
+    repro_torch.dist.sharding.NamedSharding): its positions, however
+    many, live on one device, which holds the leaf whole."""
+    devices = getattr(sharding, "device_set", None)
+    if devices is None:
+        raise TypeError(f"a sharding is one of the port's meshes or "
+                        f"NamedShardings, not {sharding!r}")
+    if len(devices) > 1:
         raise NotImplementedError(
-            f"restoring a leaf split over the {sharding.size} positions of "
+            f"restoring a leaf split over the {len(devices)} devices of "
             f"{sharding} is not ported: a shard per card over "
             f"torch.distributed is ROADMAP.md, 'Modules to port', item 5b")
-    return sharding.device
+    return next(iter(devices))
 
 
 def _placed(leaf, device, dtype: str):
@@ -284,12 +287,13 @@ class CheckpointManager:
         reference casts to the skeleton's. Returns (the tree in
         `skeleton`'s structure, the manifest).
 
-        `shardings` is one of the port's meshes, or a tree of them (None
-        where a leaf needs none) matching `skeleton`: a non-tensor leaf
-        becomes a tensor on that mesh's device, a tensor leaf must
-        already live there. A mesh of more than one position raises
-        NotImplementedError (ROADMAP item 5b). `mesh` is accepted and
-        unused, as in the reference."""
+        `shardings` is one of the port's meshes or NamedShardings, or a
+        tree of them (None where a leaf needs none) matching `skeleton`:
+        a non-tensor leaf becomes a tensor on that sharding's device, a
+        tensor leaf must already live there. A mesh of any number of
+        positions on one device restores each leaf whole; a sharding
+        over more than one device raises NotImplementedError (ROADMAP
+        item 5b). `mesh` is accepted and unused, as in the reference."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")

@@ -1,8 +1,8 @@
 """Launchers of the port: the paper model's command line (`advisor`),
-meshes of virtual shards on one device (`mesh.make_mesh`), and the train
-and serve launchers (`train`, `serve`) on one device.
+meshes of virtual positions on one device (`mesh.make_mesh`,
+`mesh.make_production_mesh`), the per-cell sharding specs and step
+builders (`specs`), and the train and serve launchers (`train`, `serve`).
 
-Not ported: the reference's per-cell sharding specs (`specs.py`), its
-256-chip production mesh (`mesh.make_production_mesh`) and the multi-pod
-dry run (`dryrun.py`): ROADMAP.md, 'Modules to port', steps 10c-10e.
+Not ported: the reference's multi-pod dry run (`dryrun.py`, with
+`core/hlo.py`): ROADMAP.md, 'Modules to port', step 10e.
 """

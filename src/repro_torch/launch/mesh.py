@@ -1,14 +1,17 @@
-"""Meshes of the port: named axes of virtual shards on one device
-(counterpart of repro/launch/mesh.py's `make_mesh`).
+"""Meshes of the port: named axes of virtual positions on one device
+(counterpart of repro/launch/mesh.py's `make_mesh` and
+`make_production_mesh`).
 
-On one card the shards of a sharded table are not separate chips: every
-mesh position maps onto the same device, and a table sharded over an
-axis holds its shards as the leading batch axis of the batched kernels
-(repro_torch.query.sharded). A mesh over more than one distinct device is
-ROADMAP.md's queue-1 item 5b (a shard per card over torch.distributed).
-The train and serve launchers run on a one-position mesh of this kind.
-The reference's 256-chip training mesh (`make_production_mesh`) is
-queue-1 step 10d, with the launchers' per-cell specs.
+On one card the positions of a mesh are not separate chips: every mesh
+position maps onto the same device. A table sharded over an axis holds its
+shards as the leading batch axis of the batched kernels
+(repro_torch.query.sharded); a model or train state sharded by logical
+axes (repro_torch.dist.sharding) stays whole on the device, and its
+NamedShardings record what each position would hold. The production
+meshes are the reference's shapes, (16, 16) over ("data", "model") and
+(2, 16, 16) with a leading "pod", as virtual positions on one device. A
+mesh over more than one distinct device is ROADMAP.md's queue-1 item 5b
+(a shard per card over torch.distributed).
 """
 from __future__ import annotations
 
@@ -20,8 +23,9 @@ from repro_torch.device import resolve_device
 
 
 class Mesh:
-    """Named axes over one device: `shape` maps axis -> size, `axes` keeps
-    their order, `device` is where every position lives."""
+    """Named axes over one device: `shape` maps axis -> size, `axes` (and
+    `axis_names`, as the reference's meshes read) keeps their order,
+    `device` is where every position lives."""
 
     def __init__(self, shape, axes, device: torch.device):
         shape, axes = tuple(int(n) for n in shape), tuple(axes)
@@ -38,8 +42,17 @@ class Mesh:
         self.device = torch.empty(0, device=device).device
 
     @property
+    def axis_names(self) -> tuple:
+        return self.axes
+
+    @property
     def size(self) -> int:
         return math.prod(self.shape.values())
+
+    @property
+    def device_set(self) -> set:
+        """The distinct devices of the positions: always one."""
+        return {self.device}
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, device={self.device})"
@@ -59,3 +72,12 @@ def make_mesh(shape, axes, device=None) -> Mesh:
                 f"to port', item 5b")
         device = next(iter(distinct)) if distinct else None
     return Mesh(shape, axes, resolve_device(device))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """16x16 = 256 positions per pod; the multi-pod mesh stacks 2 pods on
+    a leading "pod" axis (512 positions). Virtual positions on one device
+    (the card unless the caller passes one)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)

@@ -1,22 +1,25 @@
 """Production training launcher (counterpart of repro/launch/train.py).
 
-Wires the substrates together: the train step (with optional microbatch
-accumulation), the deterministic data pipeline with prefetch, versioned
-async checkpoints, heartbeats, straggler detection, and crash-restart
-supervision.
+Wires the substrates together: mesh + logical-rule shardings, the
+sharded train step (with optional microbatch accumulation), the
+deterministic data pipeline with prefetch, versioned async checkpoints,
+heartbeats, straggler detection, and crash-restart supervision.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
       --reduced --steps 20 --seq-len 128 --global-batch 8 --device cpu
 
-It runs on the card unless `--device` names another device. The port has
+`--mesh d,m` lays a (data, model) mesh of virtual positions over the one
+device (repro_torch.launch.mesh): the state stays whole on it, its
+shardings record what each position would hold, and the step gives the
+same bits on any mesh shape. It runs on the card unless `--device` names
+another device. The port has
 one train state and updates it in place: a restart after a crash reads
 the latest checkpoint back into that state (the loop may have left it
 half-updated), or, with no checkpoint yet, drops it and draws a fresh one.
 Checkpoints are written in the reference's layout
 (`convert.state_to_reference`), so either package can resume the other's
-run (the reference reads a bf16 leaf back only through the port).
-Sharded training over a mesh of more than one position is ROADMAP.md's
-step 10c.
+run (the reference reads a bf16 leaf back only through the port), and a
+run resumes on another mesh shape.
 """
 from __future__ import annotations
 
@@ -36,6 +39,9 @@ from repro_torch.device import resolve_device
 from repro_torch.dist.fault_tolerance import (Heartbeat, RestartPolicy,
                                               StragglerDetector,
                                               run_supervised)
+from repro_torch.dist.sharding import (PartitionSpec as P, check_placed,
+                                       sharding_tree)
+from repro_torch.launch import specs
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import convert
 from repro_torch.train import optim, step as step_lib
@@ -72,11 +78,6 @@ def build(args):
     device = resolve_device(args.device)
     if args.mesh:
         dims = tuple(int(x) for x in args.mesh.split(","))
-        if any(d != 1 for d in dims):
-            raise NotImplementedError(
-                f"--mesh {args.mesh}: training over a mesh of more than "
-                f"one position (sharded state and data) is not ported; it "
-                f"is ROADMAP.md, 'Modules to port', step 10c")
         mesh = make_mesh(dims, ("data", "model")[:len(dims)], device)
     else:
         mesh = make_mesh((1,), ("data",), device)
@@ -84,7 +85,8 @@ def build(args):
                       microbatch=args.microbatches)
     opt_cfg = optim.AdamWConfig(lr=args.lr, warmup_steps=10,
                                 decay_steps=max(args.steps, 100))
-    step_fn = step_lib.make_train_step(cfg, opt_cfg, args.microbatches)
+    step_fn, _ = specs.build_train(cfg, shape, mesh, opt_cfg=opt_cfg,
+                                   num_microbatches=args.microbatches)
     return cfg, mesh, shape, opt_cfg, step_fn
 
 
@@ -101,6 +103,7 @@ def main(argv=None, *, wrap_step=None):
     cfg, mesh, shape, opt_cfg, step_fn = build(args)
     if wrap_step is not None:
         step_fn = wrap_step(step_fn)
+    rules = specs.rules_for(cfg, shape)
 
     ds = SyntheticLM(DataConfig(
         seed=1234, vocab_size=cfg.vocab_size, seq_len=args.seq_len,
@@ -123,8 +126,10 @@ def main(argv=None, *, wrap_step=None):
     def fresh_state():
         state.clear()                 # drop the crashed state first
         _release(mesh.device)
-        state.update(step_lib.init_state(0, cfg, opt_cfg,
-                                         device=mesh.device)[0])
+        fresh, axes = step_lib.init_state(0, cfg, opt_cfg,
+                                          device=mesh.device)
+        state.update(check_placed(fresh, sharding_tree(fresh, axes, mesh,
+                                                       rules)))
         return state
 
     def restore():
@@ -143,7 +148,7 @@ def main(argv=None, *, wrap_step=None):
             return state
         return fresh_state()
 
-    batch_spec = {"inputs": ("data",), "labels": ("data",)}
+    batch_spec = {"inputs": P("data"), "labels": P("data")}
 
     def loop(state):
         step0 = int(state["step"])

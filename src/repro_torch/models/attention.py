@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.sharding import logical_constraint
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.common import Params, apply_rope, dense_init
@@ -32,6 +33,11 @@ INF_POS = 1 << 30    # "never written" marker in the pos plane
 
 
 class Attention(Params):
+    AXES = {"wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed")}
+
     def __init__(self, wq, wk, wv, wo):
         super().__init__()
         self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
@@ -132,6 +138,12 @@ def attend(params, x, positions, cfg, *, window: int = 0, impl: str = "auto",
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     q = q.reshape(b, sq, kvh, group, hd)
+    # context-parallel hooks: "cp_seq"/"kv_full" are absent from the default
+    # rules (no-ops); the cp strategy defines them so q stays seq-sharded
+    # while K/V replicate over the model axis
+    q = logical_constraint(q, (None, "cp_seq", None, None, None))
+    k = logical_constraint(k, (None, "kv_full", None, None))
+    v = logical_constraint(v, (None, "kv_full", None, None))
 
     if kv_cache is None or sq > 1:
         # train / prefill: attend over the segment's own K/V; the ring is
@@ -182,6 +194,11 @@ def fill_cache(cache, k, v, positions):
     cache["pos"][torch.arange(b, device=dev)[:, None], slots] = \
         positions.to(cache["pos"].dtype)
     return cache
+
+
+CACHE_AXES = {"k": ("batch", "kv_heads", "kv_seq", "head_dim"),
+              "v": ("batch", "kv_heads", "kv_seq", "head_dim"),
+              "pos": ("batch", "kv_seq")}
 
 
 def init_cache(cfg, batch: int, size: int, dtype, device) -> dict:

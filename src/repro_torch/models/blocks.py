@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.sharding import logical_constraint
 from repro_torch.models import attention, mlp, moe, rglru, ssm
 from repro_torch.models.common import Params, rms_norm, zeros_init
 
@@ -27,6 +28,8 @@ def _check_kind(kind: str) -> None:
 
 class Block(Params):
     """`ffn` (SwiGLU) or `moe` (routed experts), the reference's keys."""
+
+    AXES = {"norm1": ("embed",), "norm2": ("embed",)}
 
     def __init__(self, kind: str, norm1, mixer, norm2=None, ffn=None,
                  moe=None):
@@ -80,6 +83,7 @@ def block_apply(params, x, positions, cfg, kind: str, *,
             params["mixer"], h, positions, cfg, window=window,
             impl=getattr(cfg, "attn_impl", "auto"), kv_cache=cache)
     x = x + out
+    x = logical_constraint(x, ("batch", "seq", "embed"))
     aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     if has_ffn(cfg, kind):
         h = rms_norm(x, params["norm2"], cfg.norm_eps)
@@ -89,6 +93,7 @@ def block_apply(params, x, positions, cfg, kind: str, *,
         else:
             out = mlp.apply(params["ffn"], h)
         x = x + out
+        x = logical_constraint(x, ("batch", "seq", "embed"))
     return x, new_cache, aux_loss
 
 
@@ -105,3 +110,15 @@ def block_cache_init(cfg, kind: str, batch: int, max_len: int, dtype,
         return rglru.init_state(cfg, batch, dtype, device)
     size = min(cfg.window, max_len) if kind == "swa" else max_len
     return attention.init_cache(cfg, batch, size, dtype, device)
+
+
+def block_cache_axes(kind: str) -> dict:
+    """Logical axes of one block's decode cache (block_cache_init's)."""
+    _check_kind(kind)
+    if kind == "ssd":
+        return ssm.STATE_AXES
+    if kind == "rglru":
+        return rglru.STATE_AXES
+    ax = dict(attention.CACHE_AXES)
+    ax["pos"] = ("batch", "kv_seq")
+    return ax

@@ -20,12 +20,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import logical_constraint
 from repro_torch.models import blocks
-from repro_torch.models.common import (Params, dense_init, dtype_of,
-                                       rms_norm, zeros_init)
+from repro_torch.models.common import (MetaDraws, Params, dense_init,
+                                       dtype_of, map_axes_tree,
+                                       param_axes_of, rms_norm, zeros_init)
 
 
 class LM(Params):
+    AXES = {"embed": ("vocab", "embed"), "lm_head": ("embed", "vocab"),
+            "final_norm": ("embed",)}
+
     def __init__(self, cfg, *, embed=None, lm_head=None, final_norm=None,
                  layers=()):
         super().__init__()
@@ -46,9 +51,13 @@ def init(cfg, generator: torch.Generator | None = None, *, seed: int = 0,
          device=None) -> LM:
     """Random weights drawn on `generator` (default: a generator seeded
     with `seed` on `device`, the card unless device="cpu"), in the order
-    embedding, head, then each block."""
+    embedding, head, then each block. device="meta" draws nothing: every
+    parameter is an empty meta tensor of its shape and dtype, the port's
+    jax.eval_shape of the init."""
     if generator is None:
-        generator = torch.Generator(resolve_device(device)).manual_seed(seed)
+        device = resolve_device(device)
+        generator = (MetaDraws() if device.type == "meta" else
+                     torch.Generator(device).manual_seed(seed))
     dev = generator.device
     dtype = dtype_of(cfg.dtype)
     embed = lm_head = None
@@ -64,6 +73,17 @@ def init(cfg, generator: torch.Generator | None = None, *, seed: int = 0,
               layers=layers)
 
 
+def param_axes(model_or_cfg) -> dict:
+    """{parameter name: logical axes string} of an LM, or of the LM a
+    config builds (made on the meta device): what the reference's init
+    gives each leaf, without the "layers" axis it prepends to a stacked
+    group (the port's blocks are not stacked; convert.leaf_map names
+    each parameter's stacked reference leaf)."""
+    model = (model_or_cfg if isinstance(model_or_cfg, LM)
+             else init(model_or_cfg, device="meta"))
+    return param_axes_of(model)
+
+
 # --------------------------------------------------------------------------
 # caches
 # --------------------------------------------------------------------------
@@ -76,6 +96,13 @@ def init_caches(cfg, batch: int, max_len: int, dtype=None,
     dtype = dtype or dtype_of(cfg.dtype)
     return [blocks.block_cache_init(cfg, cfg.pattern_at(i), batch, max_len,
                                     dtype, device)
+            for i in range(cfg.num_layers)]
+
+
+def cache_axes(cfg) -> list[dict]:
+    """Logical axes of init_caches' caches, layer by layer (without the
+    reference's "layers" axis of a stacked group)."""
+    return [map_axes_tree(blocks.block_cache_axes(cfg.pattern_at(i)))
             for i in range(cfg.num_layers)]
 
 
@@ -117,6 +144,7 @@ def apply(params, cfg, inputs, positions, caches=None, decode=False,
         x = params["embed"][inputs.long()]
     else:
         x = inputs.to(dtype_of(cfg.dtype))
+    x = logical_constraint(x, ("batch", "seq", "act_embed"))
     x, new_caches, aux = _stack_apply(params, cfg, x, positions, caches,
                                       decode)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -9,6 +9,9 @@ from repro_torch.models.common import Params, dense_init
 
 
 class MLP(Params):
+    AXES = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")}
+
     def __init__(self, w_gate, w_up, w_down):
         super().__init__()
         self.w_gate, self.w_up, self.w_down = w_gate, w_up, w_down

@@ -36,6 +36,12 @@ LEAVES = ("router", "w_gate", "w_up", "w_down")
 
 
 class MoE(Params):
+    AXES = {"router": ("embed", "experts"),
+            "w_gate": ("experts", "embed", "expert_mlp"),
+            "w_up": ("experts", "embed", "expert_mlp"),
+            "w_down": ("experts", "expert_mlp", "embed"),
+            "router_bias": ("experts",)}
+
     def __init__(self, router, w_gate, w_up, w_down, router_bias=None):
         super().__init__()
         self.router = router

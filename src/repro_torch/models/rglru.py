@@ -18,7 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import Params, dense_init, zeros_init
+from repro_torch.models.common import Params, dense_init, uniform, zeros_init
 
 C_EXP = 8.0
 
@@ -28,6 +28,12 @@ LEAVES = ("proj_x", "proj_gate", "w_r", "b_r", "w_i", "b_i", "lam",
 
 
 class RGLRU(Params):
+    AXES = {"proj_x": ("embed", "lru"), "proj_gate": ("embed", "lru"),
+            "w_r": ("lru", "lru_gate"), "b_r": ("lru_gate",),
+            "w_i": ("lru", "lru_gate"), "b_i": ("lru_gate",),
+            "lam": ("lru",), "conv_w": ("conv_k", "lru"),
+            "out_proj": ("lru", "embed")}
+
     def __init__(self, proj_x, proj_gate, w_r, b_r, w_i, b_i, lam, conv_w,
                  out_proj):
         super().__init__()
@@ -47,8 +53,7 @@ def init(cfg, dtype, generator: torch.Generator) -> RGLRU:
     proj_gate = dense_init((cfg.d_model, w), dtype, generator)
     w_r = dense_init((w, w), dtype, generator)
     w_i = dense_init((w, w), dtype, generator)
-    u = torch.empty((w,), dtype=torch.float32, device=dev).uniform_(
-        0.9, 0.999, generator=generator)
+    u = uniform((w,), 0.9, 0.999, generator)
     lam = torch.log(u ** 2 / (1 - u ** 2)) / 2.0
     conv_w = dense_init((cfg.ssm_conv, w), dtype, generator, scale=0.5)
     out_proj = dense_init((w, cfg.d_model), dtype, generator)
@@ -143,6 +148,9 @@ def decode_step(params, x, cfg, state):
     y = h[:, None].to(x.dtype) * gate
     out = torch.einsum("bsw,wd->bsd", y, params["out_proj"])
     return out, {"h": h, "conv": new_tail}
+
+
+STATE_AXES = {"h": ("batch", "lru"), "conv": ("batch", "conv_k", "lru")}
 
 
 def init_state(cfg, batch: int, dtype, device) -> dict:

@@ -22,6 +22,12 @@ LEAVES = ("in_proj", "conv_w", "A_log", "dt_bias", "D", "gate_norm",
 
 
 class SSM(Params):
+    AXES = {"in_proj": ("embed", "ssm_proj"),
+            "conv_w": ("conv_k", "ssm_conv_dim"),
+            "A_log": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+            "D": ("ssm_heads",), "gate_norm": ("ssm_inner",),
+            "out_proj": ("ssm_inner", "embed")}
+
     def __init__(self, in_proj, conv_w, A_log, dt_bias, D, gate_norm,
                  out_proj):
         super().__init__()
@@ -143,6 +149,10 @@ def decode_step(params, x, cfg, state):
                  cfg.norm_eps)
     out = torch.einsum("bse,ed->bsd", y, params["out_proj"])
     return out, {"ssm": new, "conv": new_tail}
+
+
+STATE_AXES = {"ssm": ("batch", "ssm_heads", "ssm_state", "ssm_head_dim"),
+              "conv": ("batch", "conv_k", "ssm_conv_dim")}
 
 
 def init_state(cfg, batch: int, dtype, device) -> dict:

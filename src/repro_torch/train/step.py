@@ -141,16 +141,18 @@ def make_eval_step(cfg):
 def init_state(seed: int, cfg, opt_cfg: optim.AdamWConfig, device=None):
     """Returns (state, axes): random weights drawn from a generator seeded
     with `seed` on `device` (the card unless device="cpu"), made
-    trainable. The port has no logical axes yet (sharding is ROADMAP step
-    10c): each parameter's axes are None, and the tree mirrors the
-    state's."""
+    trainable; device="meta" gives the abstract state, no draw and no
+    arithmetic (the port's jax.eval_shape of the reference's init_state).
+    `axes` mirrors the state: each parameter's logical axes as the
+    reference's init gives them (lm.param_axes, keyed by parameter name),
+    the optimizer's trees the same (optim.opt_axes)."""
     params = lm.init(cfg, seed=seed, device=device)
     params.requires_grad_(True)
     opt = optim.init(params, opt_cfg)
     state = {"params": params, "opt": opt,
              "step": torch.zeros((), dtype=torch.int32,
                                  device=opt["count"].device)}
-    axes = {n: None for n, _ in params.named_parameters()}
+    axes = lm.param_axes(params)
     state_axes = {"params": axes, "opt": optim.opt_axes(axes, opt_cfg),
                   "step": "_scalar_"}
     return state, state_axes

@@ -185,11 +185,27 @@ def test_restore_onto_the_one_device_mesh(tmp_path):
 
 
 def test_restore_over_mesh_positions_names_5b(tmp_path):
+    """A mesh of many positions on one device restores each leaf whole, as
+    does a tree of NamedShardings over it; a sharding whose positions span
+    more than one device raises, naming ROADMAP item 5b."""
+    from types import SimpleNamespace
+
+    from repro_torch.dist.sharding import NamedSharding, PartitionSpec
     mgr = CheckpointManager(tmp_path)
-    mgr.save(1, torch_tree(np_tree()))
-    mesh = make_mesh((2,), ("data",), device="cpu")
+    tree = torch_tree(np_tree())
+    mgr.save(1, tree)
+    mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
+    restored, _ = mgr.restore(skeleton_of(np_tree()), shardings=mesh)
+    assert_tree_equal(restored, tree)
+    named = _map(lambda _: NamedSharding(mesh, PartitionSpec("data")), tree)
+    restored, _ = mgr.restore(np_tree(seed=9), shardings=named)
+    for (k, got), (_, want) in zip(leaves(restored), leaves(tree)):
+        assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+        assert bits(got) == bits(want), k
+    two = SimpleNamespace(device_set={torch.device("cpu"),
+                                      torch.device("meta")})
     with pytest.raises(NotImplementedError, match="5b"):
-        mgr.restore(skeleton_of(np_tree()), shardings=mesh)
+        mgr.restore(skeleton_of(np_tree()), shardings=two)
     with pytest.raises(TypeError):
         mgr.restore(skeleton_of(np_tree()), shardings="data")
 
