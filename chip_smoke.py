@@ -414,6 +414,28 @@ bits as the one-position step.
              One JSON line {"dist": {...}} before the {"launch": ...}
              line; kernel 12's launches stand in the {"kernels": ...}
              line as "launches_dist", kernels 10 and 11's too.
+18i. dry run — repro_torch.launch.dryrun, its record under
+             dist["dryrun"]. (a) The grid on the host: every arch at
+             train_4k and decode_32k on the single production mesh
+             (256 positions), without probes, and internlm2-1.8b and
+             mamba2-1.3b at train_4k with probes, in DRYRUN_WORKERS
+             spawned processes with no card visible, each running
+             repro_torch.launch.dryrun.main a cell; each cell's status,
+             memory and seconds; a cell in error fails. (b) The card
+             check: the train phases' full-width cells (internlm2 1 x
+             4096, mamba2 1 x 2048, attn_impl="flash") on a one-position
+             mesh, the dry run on meta (with probes) beside the same
+             step through specs.build_train on the card: argument bytes
+             equal to the bytes the real state and batch request of the
+             caching allocator, and torch.cuda.memory_allocated() within
+             its rounding (512-byte blocks; a block past 1 MiB may keep
+             an unsplit tail of at most 1 MiB), the temp peak beside
+             max_memory_allocated() over one step, flops beside
+             torch.profiler's with_flops count of a step, the H100
+             roofline step beside the median step and MetricsLogger's
+             roofline_step_s. No kernel launch counter moves during the
+             meta runs; kernel 12 launches once a layer a step in the
+             mamba2 run. Prints the phase's seconds.
 
 The training slice (repro_torch.train: losses, AdamW, the train and eval
 steps; kernels 11 and 12 run forward under autograd, their backward
@@ -6065,6 +6087,13 @@ PROD_BYTES = {
     "llama3-405b": {"single": 25667190792, "multi": 12833595400},
 }
 MIX_SHARDED_PROMPT, MIX_SHARDED_NEW = 2048, 8
+DRYRUN_SHAPES = ("train_4k", "decode_32k")   # the grid's shapes, single mesh
+DRYRUN_PROBED = ("internlm2-1.8b", "mamba2-1.3b")   # train_4k with probes
+DRYRUN_WORKERS = 5                 # grid worker processes (8 host cores)
+DRYRUN_GRID_TIMEOUT_S = 600
+DRYRUN_STEPS = 3                   # card-check steps before the profiled one
+ALLOC_BLOCK = 512                  # the caching allocator's rounding
+ALLOC_SMALL = 1 << 20              # past this a block keeps a tail <= it
 
 
 def state_diff(a: dict, b: dict) -> dict:
@@ -6497,6 +6526,247 @@ def production_bytes_phase() -> dict:
     return out
 
 
+def launch_counters() -> dict:
+    """Every kernel's launch counters: (family, attribute) -> count."""
+    import importlib
+
+    from repro_torch.kernels import dispatch
+    out = {}
+    for fam in dispatch._OP_MODULES:
+        mod = importlib.import_module(f"repro_torch.kernels.{fam}.kernel")
+        for attr in dir(mod):
+            if attr.endswith("LAUNCHES"):
+                out[(fam, attr)] = getattr(mod, attr)
+    return out
+
+
+def dryrun_grid_phase() -> dict:
+    """(a) The dry run's grid on the host, in DRYRUN_WORKERS worker
+    processes (spawned, with no card visible; each imports the port once
+    and runs `repro_torch.launch.dryrun.main` a cell): every arch at
+    DRYRUN_SHAPES on the single mesh without probes, DRYRUN_PROBED at
+    train_4k with probes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor, as_completed
+
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch import dryrun
+    phase("dry run (grid)")
+    t0 = time.perf_counter()
+    todo = []
+    for arch in ARCH_IDS:
+        for shape in DRYRUN_SHAPES:
+            probed = arch in DRYRUN_PROBED and shape == "train_4k"
+            todo.append((arch, shape, probed))
+    # the longest first, so the workers end together
+    todo.sort(key=lambda c: (c[1] != "train_4k", not c[2]))
+    cells = {}
+    saved = {k: os.environ.get(k) for k in ("CUDA_VISIBLE_DEVICES",
+                                            "PYTHONPATH")}
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""       # the workers see no card
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC), saved["PYTHONPATH"] or ""])
+    try:
+        with ProcessPoolExecutor(
+                DRYRUN_WORKERS,
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            jobs = {pool.submit(dryrun.main, [
+                "--arch", arch, "--shape", shape, "--mesh", "single",
+                "--force"] + ([] if probed else ["--no-probes"])):
+                    (arch, shape, probed) for arch, shape, probed in todo}
+            for job in as_completed(jobs, timeout=DRYRUN_GRID_TIMEOUT_S):
+                arch, shape, probed = jobs[job]
+                try:
+                    job.result()
+                except SystemExit:     # the cell's file records the error
+                    pass
+                path = dryrun.cell_path(arch, shape, "single")
+                rec = json.loads(path.read_text())
+                rec["done_s"] = time.perf_counter() - t0
+                cells[f"{arch}/{shape}"] = rec
+                mem = rec.get("memory", {})
+                sched = {k: v["count"] for k, v in
+                         rec.get("collective_schedule", {}).items()}
+                print(f"{arch:22s} {shape:11s} {rec['status']:17s} "
+                      f"{'probes' if probed else '      '} "
+                      f"build {rec.get('lower_s', 0):6.2f} s meta run "
+                      f"{rec.get('compile_s', 0):6.2f} s, done at "
+                      f"{rec['done_s']:6.1f} s; a position: arguments "
+                      f"{mem.get('argument_size_in_bytes')} alias "
+                      f"{mem.get('alias_size_in_bytes')} temp peak "
+                      f"{mem.get('temp_size_in_bytes')} B; collectives "
+                      f"{sched} unruled {rec.get('unruled_ops', {})}",
+                      flush=True)
+                if rec["status"] == "error":
+                    print(rec.get("traceback", rec.get("error", "")))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    seconds = time.perf_counter() - t0
+    bad = sorted(k for k, r in cells.items() if r["status"] == "error")
+    unruled: dict = {}
+    for r in cells.values():
+        for k, n in r.get("unruled_ops", {}).items():
+            unruled[k] = unruled.get(k, 0) + n
+    print(f"dry run grid: {len(cells)} cells in {seconds:.1f} s "
+          f"({DRYRUN_WORKERS} worker processes); unruled ops over the grid "
+          f"{unruled}", flush=True)
+    if bad:
+        fail(f"dry run cells in error: {bad}")
+    for arch in DRYRUN_PROBED:
+        r = cells[f"{arch}/train_4k"]
+        print(f"{arch} train_4k (256 positions): flops a position "
+              f"{r['probe_costs']['est_full']['flops']:.6e} (model "
+              f"{r['utilization']['model_flops_per_device']:.6e}), roofline "
+              f"step {r['roofline']['step_time_s'] * 1e3:.3f} ms "
+              f"({r['roofline']['dominant']}) on the H100 row", flush=True)
+    return {"seconds": seconds, "unruled_ops": unruled, "cells": {
+        k: {key: r.get(key) for key in (
+            "status", "memory", "collective_schedule", "unruled_ops",
+            "lower_s", "compile_s", "done_s", "roofline", "utilization")}
+        for k, r in cells.items()}}
+
+
+def dryrun_card_check(arch: str, s: int, dev: dict) -> dict:
+    """(b) One train phase cell: the dry run on a one-position meta mesh
+    beside the same step on the card through specs.build_train."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist import strategies
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch._trace import tensors_of
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import metrics, optim, step
+    label = arch.split("-")[0]
+    cfg = train_config(arch)
+    shape = ShapeSpec(f"train_smoke_{s}", "train", s, 1)
+    extra, cfg, strat = strategies.strategy_for(cfg, shape)
+    counters = launch_counters()
+    t0 = time.perf_counter()
+    est = dryrun.estimate({"arch": arch}, cfg, shape, make_mesh(
+        (1, 1), ("data", "model"), device="meta"), extra, strat)
+    meta_s = time.perf_counter() - t0
+    if launch_counters() != counters:
+        fail(f"dry run {label}: kernel launch counters moved during the "
+             f"meta runs")
+    opt_cfg = optim.AdamWConfig(**TRAIN_FULL_OPT)
+    fn, abstract = specs.build_train(cfg, shape, make_mesh(
+        (1, 1), ("data", "model")), opt_cfg=opt_cfg, rules_extra=extra)
+    rounded = sum(-(-t.numel() * t.element_size() // ALLOC_BLOCK)
+                  * ALLOC_BLOCK for t in tensors_of(abstract))
+    del abstract
+    release()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    base_req = requested_bytes()
+    state, _ = step.init_state(SEED, cfg, opt_cfg, device="cuda")
+    batch = train_batch(cfg, 1, s, SEED + 40)
+    torch.cuda.synchronize()
+    args_bytes = torch.cuda.memory_allocated() - base
+    args_req = requested_bytes() - base_req
+    n_large = sum(t.numel() * t.element_size() > ALLOC_SMALL
+                  for t in tensors_of((state, batch)))
+    logger = metrics.MetricsLogger(
+        Path(__file__).resolve().parent / "build" /
+        f"dryrun_metrics_{label}.jsonl", cfg, shape, chips=1)
+    logger.close()
+    sk.LAUNCHES = 0
+    times, peak = [], 0
+    for i in range(DRYRUN_STEPS):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        state, m = fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        peak = max(peak, torch.cuda.max_memory_allocated() - before)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_flops=True) as prof:
+        state, m = fn(state, batch)
+        torch.cuda.synchronize()
+    flops = sum(e.flops for e in prof.key_averages() if e.flops)
+    launches = sk.LAUNCHES
+    if "ssd" in cfg.block_pattern and \
+            launches != cfg.num_layers * (DRYRUN_STEPS + 1):
+        fail(f"dry run {label}: ssd_chunk launched {launches} times in "
+             f"{DRYRUN_STEPS + 1} steps, not once a layer a step")
+    if not math.isfinite(float(m["loss"])):
+        fail(f"dry run {label}: loss {float(m['loss'])}")
+    del state, batch, fn
+    release()
+    mem = est["memory"]
+    step_s = statistics.median(times[1:])
+    roof = est["roofline"]["step_time_s"]
+    rec = {"arch": arch, "batch": [1, s], "meta_s": meta_s,
+           "predicted": {"argument_bytes": mem["argument_size_in_bytes"],
+                         "argument_bytes_rounded": rounded,
+                         "temp_peak_bytes": mem["temp_size_in_bytes"],
+                         "flops": est["costs"]["flops"],
+                         "flops_probes": est["probe_costs"]["est_full"][
+                             "flops"],
+                         "roofline_step_s": roof,
+                         "roofline_dominant": est["roofline"]["dominant"]},
+           "measured": {"argument_bytes_requested": args_req,
+                        "argument_bytes": args_bytes,
+                        "step_peak_bytes": peak,
+                        "profiler_flops": flops, "step_s": times,
+                        "step_s_median": step_s,
+                        "metrics_roofline_step_s": logger.roofline_step_s,
+                        "ssd_chunk_launches": launches},
+           "unruled_ops": est["unruled_ops"], "card": dev["smi"]}
+    print(f"dry run card check {label} 1 x {s} [{dev['smi']}]: meta run "
+          f"with probes {meta_s:.2f} s", flush=True)
+    print(f"  argument bytes: predicted {mem['argument_size_in_bytes']}, "
+          f"requested of the allocator {args_req}; in {ALLOC_BLOCK}-byte "
+          f"blocks {rounded}, memory_allocated {args_bytes} (+"
+          f"{args_bytes - rounded}: blocks past {ALLOC_SMALL} B keep a "
+          f"segment's unsplit tail, at most {ALLOC_SMALL} B each of "
+          f"{n_large})", flush=True)
+    print(f"  temp peak: predicted {mem['temp_size_in_bytes']} B, "
+          f"max_memory_allocated over a step {peak} B (ratio "
+          f"{peak / max(mem['temp_size_in_bytes'], 1):.4f})", flush=True)
+    print(f"  flops a step: predicted {est['costs']['flops']:.6e} (probes "
+          f"{rec['predicted']['flops_probes']:.6e}), profiler with_flops "
+          f"{flops:.6e} (ratio {flops / est['costs']['flops']:.4f})",
+          flush=True)
+    print(f"  step: H100 roofline {roof * 1e3:.3f} ms "
+          f"({est['roofline']['dominant']}), MetricsLogger roofline "
+          f"{logger.roofline_step_s * 1e3:.3f} ms, measured median "
+          f"{step_s * 1e3:.3f} ms (steps 2-{DRYRUN_STEPS}; "
+          f"{step_s / roof:.2f}x the dry run's roofline); ssd_chunk "
+          f"launches {launches}", flush=True)
+    if args_req != mem["argument_size_in_bytes"] or not \
+            rounded <= args_bytes <= rounded + ALLOC_SMALL * n_large:
+        fail(f"dry run {label}: the real state and batch request "
+             f"{args_req} bytes and take {args_bytes}, the dry run's "
+             f"arguments {mem['argument_size_in_bytes']} ({rounded} in "
+             f"{ALLOC_BLOCK}-byte blocks)")
+    return rec
+
+
+def requested_bytes() -> int:
+    """Bytes the live tensors asked the caching allocator for, before its
+    rounding."""
+    return torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+
+
+def dryrun_phase(dev: dict) -> dict:
+    t0 = time.perf_counter()
+    out = {"grid": dryrun_grid_phase()}
+    phase("dry run (card check)")
+    for arch, s in TRAIN_FULL:
+        out[arch.split("-")[0]] = dryrun_card_check(arch, s, dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"dry run phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     dev = device_phase()
     sys.path.insert(0, str(SRC))
@@ -6617,6 +6887,7 @@ def main() -> None:
     launch = launch_phases(dev, kernels, dist)
     dist["pipeline"] = pipeline_phase(dev)
     dist["production_bytes"] = production_bytes_phase()
+    dist["dryrun"] = dryrun_phase(dev)
     train = train_phases(dev, kernels)
     print(json.dumps({"dist": dist}, default=str))
     print(json.dumps({"launch": launch}, default=str))

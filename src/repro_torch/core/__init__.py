@@ -9,6 +9,8 @@ provisioning (counterpart of repro.core).
 - `advisor`: the paper's "when to use" question answered for accelerator
   clusters and for the query engine's measured scans.
 - `sweep`: the model vectorized and differentiable on torch tensors.
+- `hlo`: collective ops and their ring bytes, parsed from HLO text or
+  built by the dry run's tracer (repro_torch.launch.dryrun).
 """
 from repro_torch.core.model import ClusterDesign, Workload, capacity_chips
 from repro_torch.core.provisioning import (power_crossover_sla,

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.sharding import PartitionSpec, mesh_constraint
+
 
 def bubble_fraction(microbatches: int, stages: int) -> float:
     """Idle fraction of the position-tick grid for a drained GPipe
@@ -38,6 +40,7 @@ def gpipe(stage, weights, xs, *, mesh, axis: str):
     out = torch.zeros(xs.shape, dtype=xs.dtype, device=xs.device)
     y = torch.zeros((s,) + tuple(xs.shape[1:]), dtype=xs.dtype,
                     device=xs.device)
+    y = mesh_constraint(y, PartitionSpec(axis))  # a stage a position
     for t in range(m + s - 1):
         x = torch.roll(y, 1, dims=0)             # the ppermute i -> i + 1
         x[0] = xs[min(max(t, 0), m - 1)]         # position 0 ingests

@@ -19,11 +19,13 @@ what each position *would* hold (`shard_shape`); a "sharded" tensor stays
 whole on `mesh.device`, and nothing is copied, split or gathered to
 satisfy a spec. `logical_constraint` is therefore the identity: under
 `use_rules(mesh, rules)` it resolves the spec (so a rule that cannot apply
-fails here as it would in the reference) and checks that the tensor lives
-on the mesh's device; outside a `use_rules` context it does nothing, so
-model code runs with zero distribution setup. Numerically, sharding is a
-deployment detail: the same step on a (2, 4) mesh and on a one-position
-mesh gives the same bits.
+fails here as it would in the reference), checks that the tensor lives
+on the mesh's device and hands the spec to `mesh_constraint`, whose
+subscribers (the dry run's cost tracer) see the layout change; outside a
+`use_rules` context it does nothing, so model code runs with zero
+distribution setup. Numerically, sharding is a deployment detail: the
+same step on a (2, 4) mesh and on a one-position mesh gives the same
+bits.
 """
 from __future__ import annotations
 
@@ -263,4 +265,20 @@ def logical_constraint(x, names):
     if x.device != mesh.device:
         raise ValueError(f"a tensor on {x.device} under a mesh on "
                          f"{mesh.device} ({spec})")
+    if spec == PartitionSpec():
+        return x      # the reference constrains nothing fully replicated
+    return mesh_constraint(x, spec)
+
+
+# subscribers to layout changes: callables hook(x, spec); the dry run's
+# cost tracer (repro_torch.launch._trace) subscribes while it runs
+CONSTRAINT_HOOKS: list = []
+
+
+def mesh_constraint(x, spec):
+    """`x` is laid out as `spec` (a PartitionSpec of mesh axes) from here
+    on. Returns `x` itself: on one card nothing moves; each subscriber of
+    CONSTRAINT_HOOKS sees the layout change."""
+    for hook in CONSTRAINT_HOOKS:
+        hook(x, spec)
     return x

@@ -39,8 +39,8 @@ STRATEGIES: dict = {
 }
 
 # Hillclimbed winners per (arch, shape) cell — populated by sweeps over the
-# dry-run grid (the reference's launch/dryrun --opt; not ported, ROADMAP
-# 10e); absent cells use "megatron".
+# dry-run grid (repro_torch.launch.dryrun --opt); absent cells use
+# "megatron".
 OPTIMIZED: dict = {}
 
 

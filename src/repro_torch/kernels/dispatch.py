@@ -11,6 +11,11 @@ from the mode and the device of the tensor the op was given:
              the kernel, or raises when the device is not Hopper or the
              build fails. AUTO never falls back to the plain version on a
              CUDA tensor.
+
+A tensor on the meta device (the dry run's abstract values,
+repro_torch.launch.dryrun) takes the plain version under AUTO and
+TORCH_REF: nothing is computed there, only shapes and dtypes flow, so no
+kernel is hidden. Under CUDA it raises, as a CPU tensor does.
 """
 from __future__ import annotations
 
@@ -36,16 +41,18 @@ def resolve(mode, tensor) -> bool:
     if mode is KernelMode.TORCH_REF:
         return False
     device = tensor.device
-    if device.type == "cpu":
+    if device.type in ("cpu", "meta"):
         if mode is KernelMode.CUDA:
+            where = "the CPU" if device.type == "cpu" else "the meta device"
             raise ValueError(
-                "mode='cuda' launches the Hopper kernel, but the tensor lies "
-                "on the CPU; move the table to a CUDA device or use "
-                "mode='auto' / 'torch_ref'")
+                f"mode='cuda' launches the Hopper kernel, but the tensor "
+                f"lies on {where}; move it to a CUDA device or use "
+                f"mode='auto' / 'torch_ref'")
         return False
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}; the port runs on "
-                         f"'cuda' (kernels) or 'cpu' (plain versions)")
+                         f"'cuda' (kernels), 'cpu' (plain versions) or "
+                         f"'meta' (shapes only)")
     from repro_torch.kernels import _build
     _build.require_hopper(device)
     return True

@@ -11,7 +11,10 @@ of the mesh lives on one device, so `fn` does what the reference's
 in_shardings and donation do there: it checks each argument against its
 sharding (on `mesh.device`, each spec dividing the tensor's shape), runs
 the port's step under `use_rules(mesh, rules)`, and updates the train
-state or the caches in place where the reference donates them.
+state or the caches in place where the reference donates them. `fn`
+carries the reference's jit arguments as attributes: `in_shardings` (one
+sharding tree an argument) and `donate_argnums` (the arguments updated in
+place), which the dry run (repro_torch.launch.dryrun) reads.
 """
 from __future__ import annotations
 
@@ -127,6 +130,7 @@ def build_train(cfg, shape, mesh, opt_cfg=None, num_microbatches: int = 1,
         state.update(new)
         return state, metrics
 
+    fn.in_shardings, fn.donate_argnums = (state_sh, batch_sh), (0,)
     return fn, (state, batch)
 
 
@@ -150,6 +154,7 @@ def build_prefill(cfg, shape, mesh, rules_extra: dict | None = None):
             logits, new = step(params, inputs, caches)
         return logits, _refill(caches, new)
 
+    fn.in_shardings, fn.donate_argnums = (p_sh, in_sh, c_sh), (2,)
     return fn, (params, batch["inputs"], caches)
 
 
@@ -183,6 +188,8 @@ def build_serve(cfg, shape, mesh, rules_extra: dict | None = None):
             nxt, logits, new = step(params, inputs, cache_len, caches, key)
         return nxt, logits, _refill(caches, new)
 
+    fn.in_shardings = (p_sh, in_sh, len_sh, c_sh, replicated(mesh))
+    fn.donate_argnums = (3,)
     return fn, (params, inputs, cache_len, caches, key)
 
 

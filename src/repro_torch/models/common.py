@@ -172,6 +172,8 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
 def _frequencies_on(head_dim: int, theta: float, device) -> torch.Tensor:
     # one host-to-device copy per (head_dim, theta, device): a copy from
     # pageable host memory on every call would stall the stream each layer
+    if torch.device(device).type == "meta":     # shapes only: no host table
+        return torch.empty(head_dim // 2, dtype=torch.float32, device=device)
     return torch.from_numpy(rope_frequencies(head_dim, theta)).to(device)
 
 
