@@ -359,8 +359,8 @@ attention kernel; every SSD layer's forward is kernel 12):
              uninterrupted 5-step run without checkpoints, the first
              run's state dropped before it: every leaf of its final state
              must equal the supervised run's final checkpoint bit for
-             bit, read leaf by leaf. Kernel 12 must launch 48 x 6 and 48
-             x 5 times. Prints the losses, the median step, each save's
+             bit, read leaf by leaf. Kernel 12 must launch 96 x 6 and 96
+             x 5 times (remat "block": twice a layer a step). Prints the losses, the median step, each save's
              snapshot and write ms, the restore's wait, read and load
              ms, the checkpoint's bytes and write GB/s, peak device GiB
              and peak host RSS, the heartbeat and the straggler flags;
@@ -389,7 +389,8 @@ bits as the one-position step.
              serve launcher: launch.train.main with --mesh 2,4 on the
              uninterrupted run's batches; every leaf of its final state
              equal to that run's (still held) bit for bit; 49
-             logical_constraint calls a step; kernel 12 48 x 5. Prints
+             logical_constraint calls a step (the recompute counts
+             none); kernel 12 96 x 5. Prints
              the median step beside the one-position run's and MFU
              against the card and a position.
 18e. pipeline and compression: compressed psum — compressed_psum_pod on
@@ -401,7 +402,7 @@ bits as the one-position step.
              launch.train.main) resumes the supervised run's step-3
              checkpoint with --mesh 8,1 and runs to step 5; its step-5
              checkpoint equal to the uninterrupted run's state bit for
-             bit; kernel 12 48 x 2. build/launch is deleted after it.
+             bit; kernel 12 96 x 2. build/launch is deleted after it.
 18g. pipeline and compression: gpipe — after the serve launcher: 4
              virtual stages x 8 microbatches of (1, 4096, 2048) bf16,
              stage tanh(x @ w), against the sequential composition and
@@ -423,8 +424,9 @@ bits as the one-position step.
              repro_torch.launch.dryrun.main a cell; each cell's status,
              memory and seconds; a cell in error fails. (b) The card
              check: the train phases' full-width cells (internlm2 1 x
-             4096, mamba2 1 x 2048, attn_impl="flash") on a one-position
-             mesh, the dry run on meta (with probes) beside the same
+             4096, mamba2 1 x 2048, attn_impl="flash") and REMAT_LONG
+             (mamba2 4 x 4096), under the config's remat ("block"), on a
+             one-position mesh, the dry run on meta (with probes) beside the same
              step through specs.build_train on the card: argument bytes
              equal to the bytes the real state and batch request of the
              caching allocator, and torch.cuda.memory_allocated() within
@@ -434,12 +436,16 @@ bits as the one-position step.
              torch.profiler's with_flops count of a step, the H100
              roofline step beside the median step and MetricsLogger's
              roofline_step_s. No kernel launch counter moves during the
-             meta runs; kernel 12 launches once a layer a step in the
-             mamba2 run. Prints the phase's seconds.
+             meta runs; kernel 12 launches launches_a_step() times a
+             step in the mamba2 runs (twice a layer: the forward and the
+             recompute). Prints the phase's seconds.
 
 The training slice (repro_torch.train: losses, AdamW, the train and eval
 steps; kernels 11 and 12 run forward under autograd, their backward
-differentiates the plain versions) runs after the launchers:
+differentiates the plain versions; under remat "block", the configs'
+default, every block's forward runs again in the backward, so a train
+step launches the kernel twice a layer; every launch check of a train
+path is launches_a_step(cfg) x steps) runs after the launchers:
 
 18. parity (train step) — internlm2, mamba2, recurrentgemma, mixtral and
              moonshot (aux-free, its router_bias made nonzero) reduced,
@@ -461,11 +467,26 @@ differentiates the plain versions) runs after the launchers:
              and depth, bf16, random weights: five steps of
              make_train_step on one fixed 1 x 4096 (mamba2: 1 x 2048)
              batch at TRAIN_FULL_OPT, the losses finite and the last
-             below the first; kernel 11 (12) must launch once a layer a
-             step. Prints each step, the median step of steps 2-5,
+             below the first; kernel 11 (12) must launch twice a layer
+             a step (remat "block"). Prints each step, the median step of steps 2-5,
              tokens/s, MetricsLogger's mfu, roofline step and gap on the
              H100 row, peak device memory, an eval step's loss and one
              profiled step's busy share with the device time by kernel.
+19a. train remat internlm2 / train remat mamba2 — on the phase's state
+             and batch, REMAT_STEPS steps: each of REMAT_MODES ("none",
+             "block", "dots") computes the loss and gradients from the
+             same state, then one AdamW update; every loss, part and
+             gradient leaf must be bit-identical across the modes, and
+             the kernel must launch layers times a step under "none",
+             twice that under the others. Prints each mode's peak over
+             what was allocated before it, median forward + backward ms
+             and launches a step.
+19b. train remat mamba2 4x4096 — REMAT_LONG on the mamba2 phase's
+             state under "block": the dry run's temp peak under "none"
+             and "block" for the cell, "none" (not run) beyond the card's
+             memory and "block" within it, then REMAT_LONG_STEPS steps
+             of make_train_step; losses finite, kernel 12 launches 2 x 48
+             x REMAT_LONG_STEPS, the peak beside the dry run's.
              One JSON line {"train": {...}} before the {"serve": ...}
              line holds the slice's records; the train phases' launches
              stand in the {"kernels": ...} line as "launches_train".
@@ -3606,6 +3627,9 @@ def ssd_cases():
     # launcher's prompts of 4 to 16 tokens, each one chunk
     cases.append(("train launcher: 1 x 2048, Q 256", 1, 2048, 64, 64, 128,
                   256, bf16, False))
+    # the train remat phase's 4 x 4096 mamba2 batch
+    cases.append(("train remat: 4 x 4096, Q 256", 4, 4096, 64, 64, 128, 256,
+                  bf16, False))
     for q in (4, 11, 16):
         cases.append((f"serve launcher: a {q}-token prompt, one chunk", 1,
                       q, 64, 64, 128, q, bf16, False))
@@ -5379,6 +5403,22 @@ LOSS_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 GRAD_TOL = 2e-3
 BF16_X, BF16_FLOOR = 2.0, 2.0 ** -6
 TRAIN_FULL = (("internlm2-1.8b", 4096), ("mamba2-1.3b", 2048))  # (arch, S)
+# The reference's remat modes, each run on a train phase's state and batch
+# (`train remat`): the forward and backward of every mode from the same
+# state, bit for bit alike, then one update; REMAT_STEPS such steps.
+REMAT_MODES = ("none", "block", "dots")
+REMAT_STEPS = 3
+# mamba2-1.3b at the reference's train_4k sequence length under "block":
+# a batch that keeping every activation ("none") cannot hold on the card
+REMAT_LONG = ("mamba2-1.3b", 4, 4096)       # (arch, B, S)
+REMAT_LONG_STEPS = 3
+
+
+def launches_a_step(cfg) -> int:
+    """Kernel 11 or 12 launches of one train step: once a layer in the
+    forward, and once more in the recompute of a rematerialised block
+    (every remat mode but "none"; repro_torch.models.remat)."""
+    return cfg.num_layers * (1 if cfg.remat == "none" else 2)
 
 
 class plain_ssd:
@@ -5548,9 +5588,11 @@ def train_phase(arch: str, s: int, dev: dict) -> dict:
     random weights from a seeded generator on the card: TRAIN_STEPS steps
     of make_train_step (TRAIN_FULL_OPT) on one fixed batch of 1 x s
     seeded random tokens,
-    then one eval step and one profiled step. The losses must be finite
-    and fall; kernel 11 (attention) or 12 (SSD) must launch once a layer a
-    step."""
+    then one eval step and one profiled step, under the config's remat
+    (the reference's default, "block"). The losses must be finite and
+    fall; kernel 11 (attention) or 12 (SSD) must launch twice a layer a
+    step (the forward and the recompute). Returns (the record, the state,
+    the batch) for the remat phases."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import ShapeSpec
@@ -5569,8 +5611,8 @@ def train_phase(arch: str, s: int, dev: dict) -> dict:
     print(f"{cfg.name}: {cfg.num_layers} layers {cfg.block_pattern}, "
           f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}, "
           f"{n_params} trainable parameters with fp32 m, v and master "
-          f"made in {time.perf_counter() - t0:.2f} s; batch 1 x {s}",
-          flush=True)
+          f"made in {time.perf_counter() - t0:.2f} s; batch 1 x {s}; "
+          f"remat {cfg.remat}", flush=True)
     if n_params != cfg.param_count():
         fail("parameter count differs from the config's analytic count")
     batch = train_batch(cfg, 1, s, SEED + 40)
@@ -5601,10 +5643,11 @@ def train_phase(arch: str, s: int, dev: dict) -> dict:
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         fail(f"train {label}: losses {losses} are not finite and falling")
-    want = cfg.num_layers * TRAIN_STEPS
+    want = launches_a_step(cfg) * TRAIN_STEPS
     if launches != want:
         fail(f"train {label}: {kernel} launched {launches} times in "
-             f"{TRAIN_STEPS} steps, not {want} (once a layer a step)")
+             f"{TRAIN_STEPS} steps, not {want} ({launches_a_step(cfg)} a "
+             f"step under remat {cfg.remat!r})")
     peak = torch.cuda.max_memory_allocated()
     steady = recs[1:]
     step_s = statistics.median(r["step_s"] for r in steady)
@@ -5626,7 +5669,8 @@ def train_phase(arch: str, s: int, dev: dict) -> dict:
     names = SSD_KERNELS if kernel == "ssd_chunk" else \
         tuple(FLASH_KERNELS.values())
     ours_us = sum(r[0] for r in rows if any(k in r[2] for k in names))
-    rec = {"arch": cfg.name, "batch": [1, s], "losses": losses,
+    rec = {"arch": cfg.name, "batch": [1, s], "remat": cfg.remat,
+           "losses": losses,
            "eval_loss": float(ev["loss"]),
            "step_s": [r["step_s"] for r in recs],
            "step_s_median_2_5": step_s, "tokens_per_s": s / step_s,
@@ -5648,22 +5692,231 @@ def train_phase(arch: str, s: int, dev: dict) -> dict:
           f"{kernel} {ours_us / 1e3:.3f} ms", flush=True)
     for us, count, key in sorted(rows, reverse=True)[:10]:
         print(f"  device {us / 1e3:10.3f} ms  x{count:5d}  {key[:100]}")
+    return rec, state, batch
+
+
+def bits_of(t):
+    t = t.detach()
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def train_remat_phase(cfg, state, batch, dev: dict) -> dict:
+    """The train phase's model, state and batch under each of REMAT_MODES
+    for REMAT_STEPS steps: at each step every mode's loss and gradients
+    from the same state (the first mode's kept to compare), then one
+    AdamW update with them. Every loss, part and gradient leaf must be
+    bit-identical across the modes (the recompute runs the same kernels
+    on the same inputs), and kernel 11 or 12 must launch
+    launches_a_step() times a step in each mode. Per mode: the peak of
+    the forward and backward over what was allocated before it, and the
+    median time of the forward and backward (the update, the same for
+    every mode, is outside it)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.train import optim, step
+    label = cfg.name.split("-")[0]
+    phase(f"train remat {label}")
+    mod, kernel = ((sk, "ssd_chunk") if "ssd" in cfg.block_pattern
+                   else (fk, "flash_attention"))
+    opt_cfg = optim.AdamWConfig(**TRAIN_FULL_OPT)
+    named = dict(state["params"].named_parameters())
+    per = {m: {"ms": [], "peak_bytes": [], "launches": []}
+           for m in REMAT_MODES}
+    losses, differ = [], {}
+    for i in range(REMAT_STEPS):
+        first = None
+        for mode in REMAT_MODES:
+            c = dataclasses.replace(cfg, remat=mode)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            n0 = mod.LAUNCHES
+            t0 = time.perf_counter()
+            loss, parts, grads = step.value_and_grad(state["params"], c,
+                                                     batch)
+            torch.cuda.synchronize()
+            per[mode]["ms"].append((time.perf_counter() - t0) * 1e3)
+            per[mode]["peak_bytes"].append(
+                torch.cuda.max_memory_allocated() - before)
+            per[mode]["launches"].append(mod.LAUNCHES - n0)
+            if first is None:
+                first = (loss, parts, grads)
+                losses.append(float(loss))
+                continue
+            pairs = [("loss", loss, first[0])] + [
+                (k, parts[k], first[1][k]) for k in parts] + [
+                (n, g, first[2][n]) for n, g in grads.items()]
+            for name, a, b in pairs:
+                if (a is None) != (b is None) or (a is not None and not
+                                                  torch.equal(bits_of(a),
+                                                              bits_of(b))):
+                    differ.setdefault(mode, []).append(name)
+            del loss, parts, grads, pairs
+        grads = {n: torch.zeros_like(named[n]) if g is None else g
+                 for n, g in first[2].items()}
+        optim.apply_updates(state["params"], grads, state["opt"], opt_cfg)
+        state["step"] = state["step"] + 1
+        del first, grads
+    rec = {"arch": cfg.name, "batch": list(batch["labels"].shape),
+           "steps": REMAT_STEPS, "losses": losses, "kernel": kernel,
+           "differ": differ, "card": dev["smi"], "modes": {}}
+    print(f"train remat {label} [{dev['smi']}]: batch "
+          f"{rec['batch'][0]} x {rec['batch'][1]}, {REMAT_STEPS} steps, "
+          f"losses {losses}; forward and backward by mode:", flush=True)
+    for mode in REMAT_MODES:
+        r = per[mode]
+        m = {"fwd_bwd_ms": r["ms"],
+             "fwd_bwd_ms_median": statistics.median(r["ms"]),
+             "peak_bytes": max(r["peak_bytes"]),
+             "launches_a_step": r["launches"]}
+        rec["modes"][mode] = m
+        print(f"  {mode:5s}: median {m['fwd_bwd_ms_median']:10.3f} ms "
+              f"(steps {[round(x, 3) for x in r['ms']]}), peak over the "
+              f"arguments {m['peak_bytes']} B "
+              f"({m['peak_bytes'] / 2**30:.3f} GiB), {kernel} launches a "
+              f"step {r['launches']}", flush=True)
+    for mode in REMAT_MODES:
+        want = launches_a_step(dataclasses.replace(cfg, remat=mode))
+        if per[mode]["launches"] != [want] * REMAT_STEPS:
+            fail(f"train remat {label}: {kernel} launched "
+                 f"{per[mode]['launches']} times a step under {mode!r}, "
+                 f"not {want}")
+    if differ:
+        fail(f"train remat {label}: not bit-identical to "
+             f"{REMAT_MODES[0]!r}: {json.dumps(differ)[:2000]}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"train remat {label}: losses {losses}")
     return rec
 
 
-def train_phases(dev: dict, kernels: list) -> dict:
+def dryrun_temp(cfg, b: int, s: int) -> dict:
+    """The dry run of `cfg`'s train step at b x s on a one-position meta
+    mesh (no probes): its memory record."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist import strategies
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    shape = ShapeSpec(f"train_smoke_{b}x{s}", "train", s, b)
+    extra, cfg, strat = strategies.strategy_for(cfg, shape)
+    rec = dryrun.estimate({"arch": cfg.name}, cfg, shape, make_mesh(
+        (1, 1), ("data", "model"), device="meta"), extra, strat,
+        probes=False)
+    return rec["memory"]
+
+
+def train_remat_long_phase(state, dev: dict, block=None) -> dict:
+    """REMAT_LONG under "block" on the train phase's mamba2 state:
+    REMAT_LONG_STEPS steps of make_train_step on one seeded batch. First
+    the dry run's reckoning of the same step keeping every activation
+    ("none", which is not run: it would not fit) and under "block"
+    (`block`: the dry run phase's memory record of the cell, when it
+    ran)."""
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.train import optim, step
+    arch, b, s = REMAT_LONG
+    label = arch.split("-")[0]
+    phase(f"train remat {label} {b}x{s}")
+    cfg = train_config(arch)
+    args = sum(t.numel() * t.element_size() for t in
+               torch.utils._pytree.tree_leaves(
+                   {"p": list(state["params"].parameters()),
+                    "o": state["opt"]}) if torch.is_tensor(t))
+    t0 = time.perf_counter()
+    meta = {"none": dryrun_temp(dataclasses.replace(cfg, remat="none"), b,
+                                s),
+            "block": block or dryrun_temp(cfg, b, s)}
+    meta_s = time.perf_counter() - t0
+    need = {m: meta[m]["argument_size_in_bytes"] + meta[m][
+        "temp_size_in_bytes"] for m in meta}
+    card = torch.cuda.get_device_properties(0).total_memory
+    print(f"{cfg.name} {b} x {s} [{dev['smi']}]: the dry run's temp peak "
+          f"keeping every activation ('none') "
+          f"{meta['none']['temp_size_in_bytes']} B, under 'block' "
+          f"{meta['block']['temp_size_in_bytes']} B, beside "
+          f"{meta['none']['argument_size_in_bytes']} B of arguments: "
+          f"{need['none']} and {need['block']} B against the card's "
+          f"{card} B (meta runs {meta_s:.2f} s); 'none' is not run",
+          flush=True)
+    if not need["none"] > card >= need["block"]:
+        fail(f"train remat {label} {b} x {s}: the dry run puts 'none' at "
+             f"{need['none']} B and 'block' at {need['block']} B beside "
+             f"the card's {card} B")
+    opt_cfg = optim.AdamWConfig(**TRAIN_FULL_OPT)
+    fn = step.make_train_step(cfg, opt_cfg)
+    batch = train_batch(cfg, b, s, SEED + 41)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sk.LAUNCHES = 0
+    losses, times = [], []
+    for i in range(REMAT_LONG_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        print(f"step {i + 1}: loss {losses[-1]:.6f} {times[-1] * 1e3:.3f} "
+              f"ms", flush=True)
+    launches = sk.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    rec = {"arch": cfg.name, "batch": [b, s], "remat": cfg.remat,
+           "losses": losses, "step_s": times,
+           "step_s_median": statistics.median(times),
+           "tokens_per_s": b * s / statistics.median(times),
+           "peak_bytes": peak, "peak_over_arguments": peak - before,
+           "state_bytes": args, "card_bytes": card,
+           "dryrun": {m: meta[m] for m in meta}, "dryrun_s": meta_s,
+           "launches": {"ssd_chunk": launches}, "card": dev["smi"]}
+    print(f"train remat {label} {b} x {s} [{dev['smi']}]: median step "
+          f"{rec['step_s_median'] * 1e3:.3f} ms, {rec['tokens_per_s']:.1f} "
+          f"tokens/s; peak device memory {peak} B ({peak / 2**30:.3f} GiB),"
+          f" {peak - before} B over what the state and batch held (dry "
+          f"run under 'block': {meta['block']['temp_size_in_bytes']} B); "
+          f"ssd_chunk launches {launches}", flush=True)
+    want = launches_a_step(cfg) * REMAT_LONG_STEPS
+    if launches != want:
+        fail(f"train remat {label} {b} x {s}: ssd_chunk launched "
+             f"{launches} times, not {want}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"train remat {label} {b} x {s}: losses {losses}")
+    return rec
+
+
+def train_phases(dev: dict, kernels: list, dryrun=None) -> dict:
     """The training slice after the serving phases: the reduced families'
-    parity, then each full-width model's steps, each dropped before the
-    next; the main path's launches go into the kernels' records."""
+    parity, then each full-width model's steps, its remat modes on the
+    same state and batch, and (mamba2) REMAT_LONG on that state, each
+    model dropped before the next; the main path's launches go into the
+    kernels' records. `dryrun`: the dry run phase's record, whose
+    REMAT_LONG cell the last phase reads."""
     out = {"parity": train_parity_phase()}
     for arch, s in TRAIN_FULL:
         label = arch.split("-")[0]
-        out[label] = train_phase(arch, s, dev)
+        out[label], state, batch = train_phase(arch, s, dev)
+        out[label]["remat"] = train_remat_phase(state["params"].cfg, state,
+                                                batch, dev)
+        del batch
+        if arch == REMAT_LONG[0]:
+            release()
+            arch, b, s = REMAT_LONG
+            cell = (dryrun or {}).get(f"{label}_{b}x{s}")
+            out[label]["remat_long"] = train_remat_long_phase(
+                state, dev, cell and cell["memory"])
+        del state
         release()
         for k in kernels:
             if k["name"] in out[label]["launches"]:
                 k.setdefault("launches_train", {})[label] = \
                     out[label]["launches"][k["name"]]
+            if k["name"] == out[label]["remat"]["kernel"]:
+                k.setdefault("launches_train_remat", {})[label] = {
+                    m: r["launches_a_step"] for m, r in
+                    out[label]["remat"]["modes"].items()}
+            if "remat_long" in out[label] and k["name"] == "ssd_chunk":
+                k["launches_train_remat_long"] = \
+                    out[label]["remat_long"]["launches"]["ssd_chunk"]
     return out
 
 
@@ -5826,10 +6079,6 @@ def checkpoint_diff(state, ck: Path, step: int) -> dict:
         fail(f"checkpoint {step} holds {len(leaves)} leaves, the state "
              f"{len(parts)}: {sorted(set(leaves) ^ set(parts))[:8]}")
 
-    def bits(t):
-        return t.view({2: torch.int16, 4: torch.int32,
-                       8: torch.int64}[t.element_size()])
-
     differ = {}
     for key, info in leaves.items():
         dtype = next(iter(parts[key]))[1].dtype
@@ -5844,7 +6093,8 @@ def checkpoint_diff(state, ck: Path, step: int) -> dict:
         stored = host.to(state["step"].device)
         pairs = [(t.detach(), stored if g is None else stored[g])
                  for g, t in parts[key]]
-        bad = [(t, w) for t, w in pairs if not torch.equal(bits(t), bits(w))]
+        bad = [(t, w) for t, w in pairs
+               if not torch.equal(bits_of(t), bits_of(w))]
         if bad:
             differ[key] = max(float((t.float() - w.float()).abs().max())
                               for t, w in bad)
@@ -5925,7 +6175,7 @@ def launch_train_phase(dev: dict) -> tuple:
           f"{cr['load_ms']}; peak device {rec['peak_gib']:.3f} GiB, peak "
           f"host RSS {rec['peak_host_rss_gib']:.3f} GiB; heartbeat {beat}; "
           f"stragglers {stragglers}; wall {wall_s:.3f} s", flush=True)
-    want = cfg.num_layers * (LAUNCH_STEPS + 1)
+    want = launches_a_step(cfg) * (LAUNCH_STEPS + 1)
     if restarts != [f"done at step {LAUNCH_STEPS} (restarts: 1)"] or \
             crash.calls != LAUNCH_STEPS + 1:
         fail(f"train launcher: {restarts}, {crash.calls} step calls; one "
@@ -5941,8 +6191,8 @@ def launch_train_phase(dev: dict) -> tuple:
         fail(f"train launcher: losses {losses}")
     if launches != want:
         fail(f"train launcher: ssd_chunk launched {launches} times, not "
-             f"{want} ({cfg.num_layers} layers x {LAUNCH_STEPS + 1} step "
-             f"calls)")
+             f"{want} ({launches_a_step(cfg)} a step under remat "
+             f"{cfg.remat!r} x {LAUNCH_STEPS + 1} step calls)")
     ck_bytes = sum(t.numel() * t.element_size() for t in
                    torch.utils._pytree.tree_leaves(
                        convert.state_to_reference(state, device="meta")))
@@ -5979,9 +6229,9 @@ def launch_train_phase(dev: dict) -> tuple:
           f"{diff['leaves']} leaves, {len(diff['differ'])} differ "
           f"{json.dumps(diff['differ'])} (compared in {cmp_s:.3f} s)",
           flush=True)
-    if launches != cfg.num_layers * LAUNCH_STEPS:
+    if launches != launches_a_step(cfg) * LAUNCH_STEPS:
         fail(f"train launcher (uninterrupted): ssd_chunk launched "
-             f"{launches} times, not {cfg.num_layers * LAUNCH_STEPS}")
+             f"{launches} times, not {launches_a_step(cfg) * LAUNCH_STEPS}")
     if diff["differ"]:
         fail(f"the resumed run differs from the uninterrupted run in "
              f"{len(diff['differ'])} leaves, max |difference| by leaf "
@@ -6099,11 +6349,6 @@ ALLOC_SMALL = 1 << 20              # past this a block keeps a tail <= it
 def state_diff(a: dict, b: dict) -> dict:
     """Two port train states, every leaf bit for bit on the card: the leaf
     count and {leaf: max |difference|} of the leaves that differ."""
-    def bits(t):
-        t = t.detach()
-        return t.view({2: torch.int16, 4: torch.int32,
-                       8: torch.int64}[t.element_size()])
-
     pairs = [(f"params.{n}", p, dict(b["params"].named_parameters())[n])
              for n, p in a["params"].named_parameters()]
     for k in ("m", "v", "master"):
@@ -6114,7 +6359,7 @@ def state_diff(a: dict, b: dict) -> dict:
     differ = {}
     for name, x, y in pairs:
         if x.dtype != y.dtype or x.shape != y.shape or \
-                not torch.equal(bits(x), bits(y)):
+                not torch.equal(bits_of(x), bits_of(y)):
             differ[name] = float((x.detach().float()
                                   - y.detach().float()).abs().max())
     return {"leaves": len(pairs), "differ": differ}
@@ -6171,9 +6416,9 @@ def sharded_train_phase(dev: dict, ref_state: dict, base: dict) -> tuple:
           f"{diff['leaves']} leaves, {len(diff['differ'])} differ "
           f"{json.dumps(diff['differ'])} (compared in {cmp_s:.3f} s); wall "
           f"{wall_s:.3f} s", flush=True)
-    if launches != cfg.num_layers * LAUNCH_STEPS:
+    if launches != launches_a_step(cfg) * LAUNCH_STEPS:
         fail(f"sharded train: ssd_chunk launched {launches} times, not "
-             f"{cfg.num_layers * LAUNCH_STEPS}")
+             f"{launches_a_step(cfg) * LAUNCH_STEPS}")
     if calls != (cfg.num_layers + 1) * LAUNCH_STEPS:
         fail(f"sharded train: {calls} logical_constraint calls, not "
              f"{(cfg.num_layers + 1) * LAUNCH_STEPS} (the embedding and one "
@@ -6311,7 +6556,7 @@ def elastic_phase(dev: dict, ref_state: dict) -> dict:
           flush=True)
     if f"[restore] resumed from step {LAUNCH_EVERY}" not in lines:
         fail(f"elastic resume: no restore from step {LAUNCH_EVERY}")
-    want = cfg.num_layers * (LAUNCH_STEPS - LAUNCH_EVERY)
+    want = launches_a_step(cfg) * (LAUNCH_STEPS - LAUNCH_EVERY)
     if child["step"] != LAUNCH_STEPS or child["launches"] != want:
         fail(f"elastic resume: step {child['step']}, ssd_chunk launched "
              f"{child['launches']} times, not {want}")
@@ -6630,9 +6875,11 @@ def dryrun_grid_phase() -> dict:
         for k, r in cells.items()}}
 
 
-def dryrun_card_check(arch: str, s: int, dev: dict) -> dict:
-    """(b) One train phase cell: the dry run on a one-position meta mesh
-    beside the same step on the card through specs.build_train."""
+def dryrun_card_check(arch: str, s: int, dev: dict, b: int = 1) -> dict:
+    """(b) One train cell (b x s) under the config's remat ("block"): the
+    dry run on a one-position meta mesh beside the same step on the card
+    through specs.build_train. Both count the recompute: the meta run's
+    tracer sees its ops, the profiler its products."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import ShapeSpec
@@ -6644,7 +6891,8 @@ def dryrun_card_check(arch: str, s: int, dev: dict) -> dict:
     from repro_torch.train import metrics, optim, step
     label = arch.split("-")[0]
     cfg = train_config(arch)
-    shape = ShapeSpec(f"train_smoke_{s}", "train", s, 1)
+    shape = ShapeSpec(f"train_smoke_{s}" if b == 1 else
+                      f"train_smoke_{b}x{s}", "train", s, b)
     extra, cfg, strat = strategies.strategy_for(cfg, shape)
     counters = launch_counters()
     t0 = time.perf_counter()
@@ -6665,7 +6913,7 @@ def dryrun_card_check(arch: str, s: int, dev: dict) -> dict:
     base = torch.cuda.memory_allocated()
     base_req = requested_bytes()
     state, _ = step.init_state(SEED, cfg, opt_cfg, device="cuda")
-    batch = train_batch(cfg, 1, s, SEED + 40)
+    batch = train_batch(cfg, b, s, SEED + 40)
     torch.cuda.synchronize()
     args_bytes = torch.cuda.memory_allocated() - base
     args_req = requested_bytes() - base_req
@@ -6693,9 +6941,10 @@ def dryrun_card_check(arch: str, s: int, dev: dict) -> dict:
     flops = sum(e.flops for e in prof.key_averages() if e.flops)
     launches = sk.LAUNCHES
     if "ssd" in cfg.block_pattern and \
-            launches != cfg.num_layers * (DRYRUN_STEPS + 1):
+            launches != launches_a_step(cfg) * (DRYRUN_STEPS + 1):
         fail(f"dry run {label}: ssd_chunk launched {launches} times in "
-             f"{DRYRUN_STEPS + 1} steps, not once a layer a step")
+             f"{DRYRUN_STEPS + 1} steps, not {launches_a_step(cfg)} a step "
+             f"(remat {cfg.remat!r})")
     if not math.isfinite(float(m["loss"])):
         fail(f"dry run {label}: loss {float(m['loss'])}")
     del state, batch, fn
@@ -6703,7 +6952,8 @@ def dryrun_card_check(arch: str, s: int, dev: dict) -> dict:
     mem = est["memory"]
     step_s = statistics.median(times[1:])
     roof = est["roofline"]["step_time_s"]
-    rec = {"arch": arch, "batch": [1, s], "meta_s": meta_s,
+    rec = {"arch": arch, "batch": [b, s], "remat": cfg.remat,
+           "meta_s": meta_s, "memory": mem,
            "predicted": {"argument_bytes": mem["argument_size_in_bytes"],
                          "argument_bytes_rounded": rounded,
                          "temp_peak_bytes": mem["temp_size_in_bytes"],
@@ -6720,8 +6970,8 @@ def dryrun_card_check(arch: str, s: int, dev: dict) -> dict:
                         "metrics_roofline_step_s": logger.roofline_step_s,
                         "ssd_chunk_launches": launches},
            "unruled_ops": est["unruled_ops"], "card": dev["smi"]}
-    print(f"dry run card check {label} 1 x {s} [{dev['smi']}]: meta run "
-          f"with probes {meta_s:.2f} s", flush=True)
+    print(f"dry run card check {label} {b} x {s} [{dev['smi']}]: remat "
+          f"{cfg.remat}; meta run with probes {meta_s:.2f} s", flush=True)
     print(f"  argument bytes: predicted {mem['argument_size_in_bytes']}, "
           f"requested of the allocator {args_req}; in {ALLOC_BLOCK}-byte "
           f"blocks {rounded}, memory_allocated {args_bytes} (+"
@@ -6762,6 +7012,9 @@ def dryrun_phase(dev: dict) -> dict:
     phase("dry run (card check)")
     for arch, s in TRAIN_FULL:
         out[arch.split("-")[0]] = dryrun_card_check(arch, s, dev)
+    arch, b, s = REMAT_LONG
+    out[f"{arch.split('-')[0]}_{b}x{s}"] = dryrun_card_check(arch, s, dev,
+                                                             b=b)
     out["seconds"] = time.perf_counter() - t0
     print(f"dry run phase {out['seconds']:.1f} s", flush=True)
     return out
@@ -6888,7 +7141,7 @@ def main() -> None:
     dist["pipeline"] = pipeline_phase(dev)
     dist["production_bytes"] = production_bytes_phase()
     dist["dryrun"] = dryrun_phase(dev)
-    train = train_phases(dev, kernels)
+    train = train_phases(dev, kernels, dist["dryrun"])
     print(json.dumps({"dist": dist}, default=str))
     print(json.dumps({"launch": launch}, default=str))
     print(json.dumps({"train": train}, default=str))

@@ -59,8 +59,10 @@ DEFAULT_RULES: dict = {
 _SCALAR = "_scalar_"
 
 # logical_constraint calls made under use_rules (read by the chip smoke to
-# show that a sharded step resolves its constraints)
+# show that a sharded step resolves its constraints); not counted inside
+# `uncounted()`, where a rematerialised block runs its forward again
 CONSTRAINT_CALLS = 0
+_uncounted = 0
 
 
 class PartitionSpec(tuple):
@@ -251,6 +253,20 @@ def current_rules():
     return stack[-1] if stack else None
 
 
+@contextmanager
+def uncounted():
+    """logical_constraint calls inside the block add nothing to
+    CONSTRAINT_CALLS; they still resolve and run CONSTRAINT_HOOKS. The
+    recompute of a checkpointed block runs under it, as the reference
+    traces such a block once (repro_torch.models.remat)."""
+    global _uncounted
+    _uncounted += 1
+    try:
+        yield
+    finally:
+        _uncounted -= 1
+
+
 def logical_constraint(x, names):
     """The reference's with_sharding_constraint by logical names. Returns
     `x` itself: outside a use_rules context it does nothing; inside, it
@@ -259,7 +275,8 @@ def logical_constraint(x, names):
     if active is None:
         return x
     global CONSTRAINT_CALLS
-    CONSTRAINT_CALLS += 1
+    if not _uncounted:
+        CONSTRAINT_CALLS += 1
     mesh, rules = active
     spec = resolve_spec(x.shape, names, mesh, rules)
     if x.device != mesh.device:

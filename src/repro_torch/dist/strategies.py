@@ -10,9 +10,9 @@ deriving roofline terms.
 
 - megatron:      baseline TP over |model| + FSDP over |data| + DP.
 - dp:            no TP — batch shards over every axis; weights FSDP only.
-- dp_noremat:    dp + remat disabled (trade HBM for recompute FLOPs). The
-                 port's step keeps every activation whatever `remat`
-                 says (ROADMAP 10a), so only the config field changes.
+- dp_noremat:    dp + remat disabled (trade HBM for recompute FLOPs):
+                 the step keeps every activation instead of
+                 rematerialising each block (repro_torch.models.remat).
 - cp:            context parallel — sequence shards over |model|, K/V
                  replicated via the "cp_seq"/"kv_full" hooks in
                  repro_torch.models.attention (for head counts indivisible by

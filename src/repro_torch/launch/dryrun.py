@@ -12,7 +12,10 @@ For each cell this produces (artifacts/dryrun_torch/<mesh>/<arch>__<shape>.json)
   - memory per position: arguments and outputs at their shardings
     (`dist.sharding.position_bytes`), the donated arguments (the train
     state, or the caches), the tracer's peak of live intermediates as
-    `temp_size_in_bytes`; no generated code;
+    `temp_size_in_bytes`, of the step under the cell's `remat` (the
+    reference's default "block" rematerialises every block: the tracer
+    sees the recompute's ops and the activations it frees); no
+    generated code;
   - costs measured on two probes of p and 2p layers (p = the block
     pattern's length) and extrapolated to the full depth, as the
     reference does (`core.roofline.extrapolate`); the port's blocks are

@@ -12,7 +12,9 @@ a list with one dict per layer, of the layer's kind: attention layers'
 written in place, and the recurrent layers' states, SSD's {"ssm", "conv"}
 and RG-LRU's {"h", "conv"}, which each call returns anew as the reference
 does. The aux loss is the sum of the MoE blocks' load-balance losses
-(zero without experts). The head is the embedding's transpose when the
+(zero without experts). Under `cfg.remat` other than "none" a training
+forward checkpoints every block, as the reference's jax.checkpoint does
+(repro_torch.models.remat). The head is the embedding's transpose when the
 config ties them (mamba2-1.3b, recurrentgemma-2b).
 """
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import logical_constraint
-from repro_torch.models import blocks
+from repro_torch.models import blocks, remat
 from repro_torch.models.common import (MetaDraws, Params, dense_init,
                                        dtype_of, map_axes_tree,
                                        param_axes_of, rms_norm, zeros_init)
@@ -110,13 +112,29 @@ def cache_axes(cfg) -> list[dict]:
 # apply
 # --------------------------------------------------------------------------
 
+def _block_fn(cfg, kind, decode):
+    """f(x, bp, c, positions) -> (x, new_cache, aux) of one block; under
+    `cfg.remat` other than "none", outside decode and with grad enabled,
+    checkpointed as the reference's jax.checkpoint of its block
+    (repro_torch.models.remat: "dots" keeps the batch-free products,
+    anything else only the block's inputs). Under torch.no_grad() nothing
+    is checkpointed: serving, prefill and eval run as before."""
+    def f(x, bp, c, positions):
+        return blocks.block_apply(bp, x, positions, cfg, kind, cache=c,
+                                  decode=decode)
+    if cfg.remat != "none" and not decode and torch.is_grad_enabled():
+        return lambda x, bp, c, positions: remat.checkpoint(
+            f, cfg.remat, (cfg, kind), x, bp, c, positions)
+    return f
+
+
 def _stack_apply(params, cfg, x, positions, caches, decode):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = [] if caches is not None else None
+    fns = {k: _block_fn(cfg, k, decode) for k in cfg.block_pattern}
     for i, blk in enumerate(params.blocks):
-        x, nc, a = blocks.block_apply(
-            blk, x, positions, cfg, blk.kind,
-            cache=caches[i] if caches is not None else None, decode=decode)
+        x, nc, a = fns[blk.kind](
+            x, blk, caches[i] if caches is not None else None, positions)
         if caches is not None:
             new_caches.append(nc)
         aux = aux + a

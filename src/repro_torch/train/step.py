@@ -8,8 +8,11 @@ torch.autograd over the same forward the server runs: with
 attn_impl="flash" every attention layer's forward is kernel 11 and every
 SSD layer's forward is kernel 12 on a CUDA tensor; their backward
 differentiates the plain versions (flash_attention.ops._Flash5,
-ssd_chunk.ops._SSD), as the reference's custom_vjp does. The step updates
-the module and the optimizer state in place and returns the state dict.
+ssd_chunk.ops._SSD), as the reference's custom_vjp does. Under the
+config's remat (the reference's default, "block") every block's forward
+runs again in the backward, kernels 11 and 12 included
+(repro_torch.models.remat). The step updates the module and the
+optimizer state in place and returns the state dict.
 """
 from __future__ import annotations
 

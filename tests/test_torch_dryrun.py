@@ -39,6 +39,7 @@ from repro_torch.dist.pipeline_parallel import gpipe
 from repro_torch.launch import dryrun, specs
 from repro_torch.launch._trace import CostTracer
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
+from repro_torch.models import blocks
 
 ROOT = Path(__file__).resolve().parents[1]
 CHILD_TIMEOUT_S = 300
@@ -502,6 +503,48 @@ EQUAL_KEYS = ("arch", "shape", "mesh", "chips", "kind", "strategy",
               "analytic_collective")
 
 
+def recompute_flops(arch, strategy=None):
+    """The reduced train_4k cell of `arch` under remat "none", and what
+    one recompute of every block adds to its flops, both counted by the
+    dry run's tracer in that run: (record, full, early). `full` sums
+    every block's forward; `early` sums every block's forward up to the
+    last tensor it saves for the backward, where torch's non-reentrant
+    checkpoint stops its recompute (its default early stop: the packing
+    of a saved input comes before its op runs)."""
+    tracers, full, early = [], [], []
+
+    class Tracer(dryrun.CostTracer):
+        def __enter__(self):
+            tracers.append(self)
+            return super().__enter__()
+
+    real = blocks.block_apply
+
+    def block_apply(*args, **kwargs):
+        tracer = tracers[-1]
+        start = last = tracer.flops
+
+        def pack(t):
+            nonlocal last
+            last = tracer.flops
+            return t
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = real(*args, **kwargs)
+        full.append(tracer.flops - start)
+        early.append(last - start)
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dryrun, "CostTracer", Tracer)
+        mp.setattr(blocks, "block_apply", block_apply)
+        rec = dryrun.run_cell(arch, "train_4k", False, probes=False,
+                              cfg_override=get_config(arch).reduced(
+                                  remat="none"), strategy=strategy)
+    assert rec["status"] == "ok", rec
+    assert len(full) == get_config(arch).reduced().num_layers
+    return rec, sum(full), sum(early)
+
+
 @pytest.mark.parametrize("arch", PARITY_ARCHS)
 def test_cell_matches_the_reference_dry_run(arch, reference_child):
     got = dryrun.run_cell(arch, "train_4k", False,
@@ -529,10 +572,16 @@ def test_cell_matches_the_reference_dry_run(arch, reference_child):
     assert model_pp == ref["utilization"]["model_flops_per_device"]
     assert est["flops"] >= model_pp
     assert FLOPS_BAND[0] <= est["flops"] / xla["flops"] <= FLOPS_BAND[1]
-    # the full run's own count equals the probes' extrapolation: L = 2p,
-    # and the probes differ from the cell only in attention and CE paths
-    # that count the same matmuls at these widths
-    assert math.isclose(got["costs"]["flops"], est["flops"], rel_tol=1e-12)
+    # the full run's own count equals the probes' extrapolation where it
+    # keeps every activation, as the probes do: L = 2p, and the probes
+    # differ from that cell only in attention and CE paths that count the
+    # same matmuls at these widths. The cell itself runs the config's
+    # remat ("block"), whose recompute adds one forward of every block
+    # up to the last tensor the block saves (recompute_flops).
+    keep, _, early = recompute_flops(arch)
+    assert math.isclose(keep["costs"]["flops"], est["flops"], rel_tol=1e-12)
+    assert math.isclose(got["costs"]["flops"],
+                        keep["costs"]["flops"] + early, rel_tol=1e-9)
     assert got["unruled_ops"] == {}
 
 
