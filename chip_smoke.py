@@ -164,7 +164,8 @@ The LM serving slice (internlm2-1.8b) adds:
              decode-step p50/p95/p99, tokens/s, the bytes each step had
              to move (weights, pos planes, K/V of the valid ring slots)
              over step time, peak memory, the scheduler's summary and a
-             profiled window's device busy share; kernels 10 and 11 must
+             profiled window's device busy share (SERVE_PROFILE: 2
+             prompts of 2048, 8 new tokens); kernels 10 and 11 must
              have launched.
 10. serve parity — teacher-forced: one 4096-token prefill and 16 decode
              steps under attn_impl="flash" and "auto", same weights; the
@@ -195,8 +196,9 @@ The Mamba-2 serving slice (mamba2-1.3b) adds:
              from seed 0; 64 new tokens each). Prints prefill ms by
              request, decode-step p50/p95/p99, tokens/s, the bytes a step
              must move (weights, SSM and conv states read and written) over
-             step time, peak memory and a profiled window's busy share;
-             kernel 12 must have launched 48 times a prefill.
+             step time, peak memory and a profiled window's busy share
+             (SERVE_PROFILE); kernel 12 must have launched 48 times a
+             prefill.
 13. serve mamba2 parity — teacher-forced: one 4096-token prefill through
              the kernel, through the plain scan (ssm.apply's mode=) and
              through the plain scan at chunk 128 (the same function's own
@@ -244,7 +246,8 @@ attention runs kernels 10 and 11) adds:
              step must move (the weights it reads, of the experts only
              those its routing chose, the rings' valid K/V, recurrent
              states read and written) and their bound at 3.35 TB/s, peak
-             memory and a profiled window (2 prompts, 8 new tokens); the
+             memory and a profiled window (GRIFFIN_PROFILE: 1 prompt, 4
+             new tokens); the
              parameter count must equal cfg.param_count() and kernels 10
              and 11 must have launched. Then the teacher-forced check of
              serve parity (4096 + 16, "flash" against "auto"); for the MoE
@@ -416,16 +419,20 @@ bits as the one-position step.
              line; kernel 12's launches stand in the {"kernels": ...}
              line as "launches_dist", kernels 10 and 11's too.
 18i. dry run — repro_torch.launch.dryrun, its record under
-             dist["dryrun"]. (a) The grid on the host: every arch at
-             train_4k and decode_32k on the single production mesh
-             (256 positions), without probes, and internlm2-1.8b and
-             mamba2-1.3b at train_4k with probes, in DRYRUN_WORKERS
-             spawned processes with no card visible, each running
-             repro_torch.launch.dryrun.main a cell; each cell's status,
-             memory and seconds; a cell in error fails. (b) The card
-             check: the train phases' full-width cells (internlm2 1 x
-             4096, mamba2 1 x 2048, attn_impl="flash") and REMAT_LONG
-             (mamba2 4 x 4096), under the config's remat ("block"), on a
+             dist["dryrun"]. (a) The grid on the host: DRYRUN_GRID,
+             internlm2-1.8b and mamba2-1.3b at train_4k with probes and
+             at decode_32k without, on the single production mesh (256
+             positions; tests/test_torch_dryrun.py holds every arch at
+             both shapes against XLA's on the CPU), in spawned processes
+             with no card visible, each running
+             repro_torch.launch.dryrun.main a cell, beside (b) (the
+             phase "dry run (grid)" is the wait after it); each
+             cell's status, memory and seconds, the probed cells' flops
+             a position and roofline step; a cell in error fails. (b)
+             The card check: the train phases' full-width cells
+             (internlm2 1 x 4096, mamba2 1 x 2048, attn_impl="flash") and
+             REMAT_LONG (mamba2 4 x 4096), under the config's remat
+             ("block"), on a
              one-position mesh, the dry run on meta (with probes) beside the same
              step through specs.build_train on the card: argument bytes
              equal to the bytes the real state and batch request of the
@@ -491,6 +498,47 @@ path is launches_a_step(cfg) x steps) runs after the launchers:
              line holds the slice's records; the train phases' launches
              stand in the {"kernels": ...} line as "launches_train".
 
+The world (repro_torch.dist.world, meshes of ranks), after the
+query phases, once the parent has dropped its query tables:
+
+W1. world (gloo, 8 ranks on one card) — WORLD_RANKS processes spawned
+             by world.spawn over gloo, all on the one card, beside W2.
+             Each builds the WORLD_ROWS-row (2^28) table of MAIN_SPEC's
+             columns from SEED and shards it over a mesh of the 8 ranks
+             (2^25 rows a shard): the shard's words copied to the card,
+             the table moved to the host (the capacity-tier copy
+             degraded execution re-reads) and its card copy dropped;
+             then it loads the store from WORLD_STORE onto the host and
+             builds the delta view (the frames from the chunks' bounds,
+             its own chunks decoded and packed on the card). Meanwhile
+             this process takes the unsharded engine's answers on the
+             same table and saves its encoding to WORLD_STORE. Then,
+             counters at 0: the eleven plans and the six grouped main
+             shapes through QueryEngine on both views on every rank (the
+             wide key's fallback grouping each shard on its rank, the
+             groups merged over the ranks), execute_degraded /
+             execute_grouped_degraded for DEGRADED_LOST on both views
+             (all eight lost must raise; a flat query's lost shards
+             re-executed on every rank, a grouped query's dealt out over
+             the ranks), compressed_psum_pod on a (4, 2) rank mesh.
+             Every answer equal on every rank and to the unsharded
+             engine's; recovered bytes equal on every rank; the psum's
+             bits equal to the virtual (4, 2) mesh's, within 2e-2 of 4x
+             the leaf; every kernel the virtual sharded main, grouped
+             main and degraded phases launched must launch here. Prints
+             per rank launches, dispatch counts, ms a query, the shard's
+             bytes, the card bytes a rank holds after set-up, peaks and
+             seconds. Eight ranks share one card: no time here is a
+             multi-card rate.
+W2. world (nccl, one rank a card) — torch.cuda.device_count() ranks
+             (1 here) over nccl, started with W1: the eleven plans on the
+             plain view, equal to the unsharded engine's. One JSON line
+             {"world": {...}} follows; the kernels line carries
+             "launches_world" (summed over ranks and per rank).
+
+Every phase prints its seconds and the smoke's running total as it ends
+("-- name: s").
+
 After the tiered phases one JSON line {"tier": {...}} holds their
 records. The third-to-last line is one JSON object {"serve": {...}} (the
 mamba2, recurrentgemma, moonshot and mixtral records under their names,
@@ -550,8 +598,19 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
-def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+_PHASE = {"name": None, "t0": 0.0, "start": time.perf_counter()}
+
+
+def phase(name: str | None) -> None:
+    """Print the seconds of the phase that ends here, then `== name`
+    (None: end the last phase)."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        print(f"-- {_PHASE['name']}: {now - _PHASE['t0']:.1f} s (smoke at "
+              f"{now - _PHASE['start']:.1f} s)", flush=True)
+    _PHASE.update(name=name, t0=now)
+    if name is not None:
+        print(f"== {name}", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -903,19 +962,20 @@ def plan_shapes():
     ]
 
 
-def build_table():
-    """2^30 rows built on the card (host numpy would need GBs a column):
-    random payload bits from a seeded generator, delimiters cleared."""
+def build_table(rows: int = MAIN_ROWS, valid: bool = True):
+    """2^30 rows (or `rows`) built on the card (host numpy would need GBs
+    a column): random payload bits from a seeded generator, delimiters
+    cleared; with `valid`, the validity masks built up front."""
     from repro_torch.db import BitPackedColumn, Table
     from repro_torch.kernels.scan_filter.ref import field_masks
     g = torch.Generator(device="cuda").manual_seed(SEED)
     t = Table("main")
     for name, bits in MAIN_SPEC.items():
         delim, _, _ = field_masks(bits)
-        words = random_words(MAIN_ROWS * bits // 32,
+        words = random_words(rows * bits // 32,
                              ~int(delim) & 0xFFFFFFFF, g)
-        t.add(BitPackedColumn(name, bits, MAIN_ROWS, words))
-    for col in t.columns.values():
+        t.add(BitPackedColumn(name, bits, rows, words))
+    for col in t.columns.values() if valid else ():
         col.valid_words       # build the cached validity masks up front
     torch.cuda.synchronize()
     return t
@@ -3276,11 +3336,15 @@ def serve_phase(dev: dict) -> tuple:
 
 SERVE_KERNELS = ("flash_wgmma_kernel", "flash_fwd_kernel",
                  "decode_attention_kernel")
+# the serve and serve mamba2 phases' profiled window (prompts of 2048
+# tokens, new tokens each; at 4 x 16 the profiler's processing of ~250k
+# host operator calls took ~45 s of host a window on the H100)
+SERVE_PROFILE = (2, 8)
 
 
 def serve_profile(engine, cfg, kernels=SERVE_KERNELS,
-                  what: str = "attention kernels", n: int = 4,
-                  new: int = 16) -> dict:
+                  what: str = "attention kernels", n: int = SERVE_PROFILE[0],
+                  new: int = SERVE_PROFILE[1]) -> dict:
     """n requests (prompts of 2048 tokens, `new` new tokens each) through
     the warm engine under torch.profiler: the device's busy share and the
     device time by kernel name (`kernels`: the port's, by name)."""
@@ -4018,10 +4082,10 @@ MOON_MAX_LEN = 4224
 # (20.4 B, 38.1 GiB) at full width
 MIX_LAYERS = 8
 # the profiled window of this slice's serve phases (prompts of 2048
-# tokens, new tokens each), smaller than the serve phase's 4 x 16: the
+# tokens, new tokens each), smaller than the serve phase's: the
 # profiler's processing of moonshot's 2 x 8 window (343k host operator
-# calls) took 52.8-60.1 s of host on the H100
-GRIFFIN_PROFILE = (2, 8)
+# calls) took 52.8-77.7 s of host on the H100
+GRIFFIN_PROFILE = (1, 4)
 MOE_DROP_FACTOR = 0.5    # block parity's capacity factor: choices drop
 MOE_BIAS_RATE = 0.02     # block parity's bias_update rate (3 updates)
 BLOCK_S, BLOCK_STEPS = 1024, 16   # RG-LRU block parity: prefill, decode
@@ -6337,9 +6401,15 @@ PROD_BYTES = {
     "llama3-405b": {"single": 25667190792, "multi": 12833595400},
 }
 MIX_SHARDED_PROMPT, MIX_SHARDED_NEW = 2048, 8
-DRYRUN_SHAPES = ("train_4k", "decode_32k")   # the grid's shapes, single mesh
-DRYRUN_PROBED = ("internlm2-1.8b", "mamba2-1.3b")   # train_4k with probes
-DRYRUN_WORKERS = 5                 # grid worker processes (8 host cores)
+# the grid's cells on the card machine's host, single mesh: (arch, shape,
+# probes). tests/test_torch_dryrun.py holds every arch at train_4k and
+# decode_32k against XLA's on the CPU; the card machine runs the two
+# archs the card check trains, at both shapes.
+DRYRUN_GRID = (("internlm2-1.8b", "train_4k", True),
+               ("mamba2-1.3b", "train_4k", True),
+               ("internlm2-1.8b", "decode_32k", False),
+               ("mamba2-1.3b", "decode_32k", False))
+DRYRUN_WORKERS = 4                 # grid worker processes (8 host cores)
 DRYRUN_GRID_TIMEOUT_S = 600
 DRYRUN_STEPS = 3                   # card-check steps before the profiled one
 ALLOC_BLOCK = 512                  # the caching allocator's rounding
@@ -6785,85 +6855,92 @@ def launch_counters() -> dict:
     return out
 
 
-def dryrun_grid_phase() -> dict:
-    """(a) The dry run's grid on the host, in DRYRUN_WORKERS worker
-    processes (spawned, with no card visible; each imports the port once
-    and runs `repro_torch.launch.dryrun.main` a cell): every arch at
-    DRYRUN_SHAPES on the single mesh without probes, DRYRUN_PROBED at
-    train_4k with probes."""
+def dryrun_grid_start():
+    """(a) The dry run's grid on the host, started: DRYRUN_GRID's cells in
+    up to DRYRUN_WORKERS worker processes (spawned, with no card visible;
+    each imports the port once and runs `repro_torch.launch.dryrun.main`
+    a cell) on the single mesh. They run beside the card check (b);
+    `dryrun_grid_collect` waits for them."""
     import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor, as_completed
+    from concurrent.futures import ProcessPoolExecutor
 
-    from repro_torch.configs import ARCH_IDS
     from repro_torch.launch import dryrun
-    phase("dry run (grid)")
-    t0 = time.perf_counter()
-    todo = []
-    for arch in ARCH_IDS:
-        for shape in DRYRUN_SHAPES:
-            probed = arch in DRYRUN_PROBED and shape == "train_4k"
-            todo.append((arch, shape, probed))
-    # the longest first, so the workers end together
-    todo.sort(key=lambda c: (c[1] != "train_4k", not c[2]))
-    cells = {}
     saved = {k: os.environ.get(k) for k in ("CUDA_VISIBLE_DEVICES",
                                             "PYTHONPATH")}
     os.environ["CUDA_VISIBLE_DEVICES"] = ""       # the workers see no card
     os.environ["PYTHONPATH"] = os.pathsep.join(
         [str(SRC), saved["PYTHONPATH"] or ""])
     try:
-        with ProcessPoolExecutor(
-                DRYRUN_WORKERS,
-                mp_context=multiprocessing.get_context("spawn")) as pool:
-            jobs = {pool.submit(dryrun.main, [
-                "--arch", arch, "--shape", shape, "--mesh", "single",
-                "--force"] + ([] if probed else ["--no-probes"])):
-                    (arch, shape, probed) for arch, shape, probed in todo}
-            for job in as_completed(jobs, timeout=DRYRUN_GRID_TIMEOUT_S):
-                arch, shape, probed = jobs[job]
-                try:
-                    job.result()
-                except SystemExit:     # the cell's file records the error
-                    pass
-                path = dryrun.cell_path(arch, shape, "single")
-                rec = json.loads(path.read_text())
-                rec["done_s"] = time.perf_counter() - t0
-                cells[f"{arch}/{shape}"] = rec
-                mem = rec.get("memory", {})
-                sched = {k: v["count"] for k, v in
-                         rec.get("collective_schedule", {}).items()}
-                print(f"{arch:22s} {shape:11s} {rec['status']:17s} "
-                      f"{'probes' if probed else '      '} "
-                      f"build {rec.get('lower_s', 0):6.2f} s meta run "
-                      f"{rec.get('compile_s', 0):6.2f} s, done at "
-                      f"{rec['done_s']:6.1f} s; a position: arguments "
-                      f"{mem.get('argument_size_in_bytes')} alias "
-                      f"{mem.get('alias_size_in_bytes')} temp peak "
-                      f"{mem.get('temp_size_in_bytes')} B; collectives "
-                      f"{sched} unruled {rec.get('unruled_ops', {})}",
-                      flush=True)
-                if rec["status"] == "error":
-                    print(rec.get("traceback", rec.get("error", "")))
+        # a spawned worker takes the environment when it starts: at submit
+        pool = ProcessPoolExecutor(
+            min(DRYRUN_WORKERS, len(DRYRUN_GRID)),
+            mp_context=multiprocessing.get_context("spawn"))
+        jobs = {pool.submit(dryrun.main, [
+            "--arch", arch, "--shape", shape, "--mesh", "single",
+            "--force"] + ([] if probed else ["--no-probes"])):
+                (arch, shape, probed) for arch, shape, probed in DRYRUN_GRID}
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    return pool, jobs, time.perf_counter()
+
+
+def dryrun_grid_collect(started) -> dict:
+    """The grid's cells, as they end (the phase's seconds are the wait
+    after the card check; `seconds` counts from the start)."""
+    from concurrent.futures import as_completed
+
+    from repro_torch.launch import dryrun
+    pool, jobs, t0 = started
+    phase("dry run (grid)")
+    cells = {}
+    try:
+        for job in as_completed(jobs, timeout=DRYRUN_GRID_TIMEOUT_S):
+            arch, shape, probed = jobs[job]
+            try:
+                job.result()
+            except SystemExit:         # the cell's file records the error
+                pass
+            path = dryrun.cell_path(arch, shape, "single")
+            rec = json.loads(path.read_text())
+            rec["done_s"] = time.perf_counter() - t0
+            cells[f"{arch}/{shape}"] = rec
+            mem = rec.get("memory", {})
+            sched = {k: v["count"] for k, v in
+                     rec.get("collective_schedule", {}).items()}
+            print(f"{arch:22s} {shape:11s} {rec['status']:17s} "
+                  f"{'probes' if probed else '      '} "
+                  f"build {rec.get('lower_s', 0):6.2f} s meta run "
+                  f"{rec.get('compile_s', 0):6.2f} s, done at "
+                  f"{rec['done_s']:6.1f} s; a position: arguments "
+                  f"{mem.get('argument_size_in_bytes')} alias "
+                  f"{mem.get('alias_size_in_bytes')} temp peak "
+                  f"{mem.get('temp_size_in_bytes')} B; collectives "
+                  f"{sched} unruled {rec.get('unruled_ops', {})}",
+                  flush=True)
+            if rec["status"] == "error":
+                print(rec.get("traceback", rec.get("error", "")))
+    finally:
+        pool.shutdown(cancel_futures=True)
     seconds = time.perf_counter() - t0
     bad = sorted(k for k, r in cells.items() if r["status"] == "error")
     unruled: dict = {}
     for r in cells.values():
         for k, n in r.get("unruled_ops", {}).items():
             unruled[k] = unruled.get(k, 0) + n
-    print(f"dry run grid: {len(cells)} cells in {seconds:.1f} s "
-          f"({DRYRUN_WORKERS} worker processes); unruled ops over the grid "
-          f"{unruled}", flush=True)
+    print(f"dry run grid: {len(cells)} cells in {seconds:.1f} s from their "
+          f"start, beside the card check ({len(jobs)} worker processes); "
+          f"unruled ops over the grid {unruled}", flush=True)
     if bad:
         fail(f"dry run cells in error: {bad}")
-    for arch in DRYRUN_PROBED:
-        r = cells[f"{arch}/train_4k"]
-        print(f"{arch} train_4k (256 positions): flops a position "
+    for arch, shape, probed in DRYRUN_GRID:
+        if not probed:
+            continue
+        r = cells[f"{arch}/{shape}"]
+        print(f"{arch} {shape} (256 positions): flops a position "
               f"{r['probe_costs']['est_full']['flops']:.6e} (model "
               f"{r['utilization']['model_flops_per_device']:.6e}), roofline "
               f"step {r['roofline']['step_time_s'] * 1e3:.3f} ms "
@@ -7008,15 +7085,407 @@ def requested_bytes() -> int:
 
 def dryrun_phase(dev: dict) -> dict:
     t0 = time.perf_counter()
-    out = {"grid": dryrun_grid_phase()}
-    phase("dry run (card check)")
+    grid = dryrun_grid_start()
+    phase("dry run (card check, the grid beside it)")
+    out = {}
     for arch, s in TRAIN_FULL:
         out[arch.split("-")[0]] = dryrun_card_check(arch, s, dev)
     arch, b, s = REMAT_LONG
     out[f"{arch.split('-')[0]}_{b}x{s}"] = dryrun_card_check(arch, s, dev,
                                                              b=b)
+    out["grid"] = dryrun_grid_collect(grid)
     out["seconds"] = time.perf_counter() - t0
     print(f"dry run phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the world: a shard a rank over torch.distributed
+# --------------------------------------------------------------------------
+
+WORLD_RANKS = 8                    # gloo ranks sharing the one card
+WORLD_ROWS = 1 << 28               # 2^25 rows a shard; 1.125 GiB of words
+WORLD_DEADLINE_S = 600             # the whole world, start to end
+WORLD_COLLECTIVE_S = 300           # one collective waits at most this
+WORLD_PSUM_SHAPES = ((2048, 4096), (4096,), (64, 64), ())
+WORLD_PSUM_SEED = 31
+WORLD_STORE = Path(__file__).resolve().parent / "build" / "world_store.pt"
+WORLD_STORE_WAIT_S = 300           # a rank waits this long for the store
+
+
+def psum_tree():
+    """A seeded fp32 tree for the compressed psum, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(WORLD_PSUM_SEED)
+    return {f"leaf{i}": torch.randn(shape, generator=g, device="cuda")
+            for i, shape in enumerate(WORLD_PSUM_SHAPES)}
+
+
+def tree_digest(tree) -> dict:
+    import hashlib
+    return {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
+            for k, v in tree.items()}
+
+
+def world_queries(dim) -> tuple:
+    """The world's flat plans (the eleven), grouped main shapes (six) and
+    degraded queries (those of degraded_phase)."""
+    from repro_torch.query import GroupBy, HashJoin, Pred
+    flat_lost = [("fused", Pred("a", "lt", 64), ("b",)),
+                 ("and_mixed", Pred("a", "lt", 50) & Pred("w", "ge", 9000),
+                  ("w", "b")),
+                 ("empty", Pred("a", "gt", 127), ("b",))]
+    grouped_lost = [("groupby_dense", GroupBy("a", ("w",))),
+                    ("count_only", GroupBy("x")),
+                    ("hash_join", HashJoin(dim, "a", "a", aggs=("b",)))]
+    return plan_shapes(), grouped_main_shapes(dim), flat_lost, grouped_lost
+
+
+def world_prepare() -> dict:
+    """The parent's part, before the worlds: the WORLD_ROWS-row table from
+    SEED on the card, the unsharded engine's answers to every query of
+    the worlds, and the table's encoding saved to WORLD_STORE (the store's
+    capacity-tier copy, which each rank loads onto its host), written
+    under another name and renamed, so a rank that sees the file sees it
+    whole. The worlds start before it: their ranks build their tables
+    meanwhile."""
+    from repro_torch.query import Query, QueryEngine
+    from repro_torch.store import EncodedTable
+    t0 = time.perf_counter()
+    table = build_table(WORLD_ROWS)
+    dim = build_dim({"a": [1, 3, 5, 99, 127]})
+    flat, gshapes, flat_lost, grouped_lost = world_queries(dim)
+    eng = QueryEngine(table, mode="auto")
+    want = {}
+    for tag, queries in (("", flat), ("lost ", flat_lost)):
+        for name, plan, aggs in queries:
+            eng.submit(Query(plan, aggregates=aggs))
+            want[tag + name] = eng.run()[0].aggregates
+    for tag, queries in (("grouped ", gshapes), ("lost ", grouped_lost)):
+        for name, q in queries:
+            eng.submit(q)
+            want[tag + name] = eng.run()[0].aggregates
+    answers_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = EncodedTable.from_table(table, chunk_rows=STORE_CHUNK_ROWS)
+    del eng, table
+    part = WORLD_STORE.with_suffix(".part")
+    torch.save(store, part)
+    part.rename(WORLD_STORE)
+    del store
+    release()
+    rec = {"want": want, "answers_s": answers_s,
+           "store_s": time.perf_counter() - t0,
+           "store_file_bytes": WORLD_STORE.stat().st_size}
+    print(f"world set-up in this process: the unsharded engine's "
+          f"{len(want)} answers {answers_s:.3f} s; the store encoded and "
+          f"saved ({rec['store_file_bytes']} B) {rec['store_s']:.3f} s",
+          flush=True)
+    return rec
+
+
+def world_rank(rows: int, full: bool) -> list:
+    """One rank's part of a world phase (every rank runs it alike): the
+    table built from SEED on this rank's device and sharded over a mesh
+    of the world's ranks (the shard copied to the device, the table moved
+    to the host and the device copy dropped); with `full`, the store
+    loaded from WORLD_STORE onto the host and its delta view (each rank
+    decoding its own chunks). Then, counters at 0: the eleven plans
+    through QueryEngine on the plain view; with `full`, also on the delta
+    view, the six grouped shapes on both views, execute_degraded /
+    execute_grouped_degraded for DEGRADED_LOST on both (all shards lost
+    must raise) and the compressed psum on a (4, 2) rank mesh. Returns
+    every rank's record, gathered."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import compression
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.query import Query, QueryEngine, ShardedTable
+    from repro_torch.resilience import (DegradedResultError,
+                                        execute_degraded,
+                                        execute_grouped_degraded)
+    from repro_torch.store import ShardedEncodedTable
+    entered = time.time()
+    secs = {}
+    t0 = time.perf_counter()
+    mesh = make_mesh((dist.get_world_size(),), ("data",),
+                     group=dist.group.WORLD)
+    dim = build_dim({"a": [1, 3, 5, 99, 127]})
+    flat, gshapes, flat_lost, grouped_lost = world_queries(dim)
+    table = build_table(rows, valid=False)
+    views = {"plain": ShardedTable.shard(table, mesh)}
+    del table
+    secs["build and shard"] = time.perf_counter() - t0
+    if full:
+        t0 = time.perf_counter()
+        while not WORLD_STORE.exists():
+            if time.perf_counter() - t0 > WORLD_STORE_WAIT_S:
+                raise TimeoutError(f"no {WORLD_STORE} after "
+                                   f"{WORLD_STORE_WAIT_S} s")
+            time.sleep(0.05)
+        secs["wait for the store"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store = torch.load(WORLD_STORE, map_location="cpu",
+                           weights_only=False)
+        secs["load store"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        views["delta"] = ShardedEncodedTable.shard(store, mesh)
+        del store
+        secs["delta shard"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    release()
+    resident = torch.cuda.memory_allocated()
+    setup_peak = torch.cuda.max_memory_allocated()
+    dist.barrier()
+    counters = reset_counters()
+    dispatch.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t_path = time.perf_counter()
+    rec = {"rank": mesh.rank, "device": str(mesh.device), "answers": {},
+           "degraded": [], "bytes": {}, "ms": {},
+           "resident_bytes": resident, "entered_at": entered}
+    for vname, st in views.items():
+        inner = getattr(st, "inner", st)
+        rec["bytes"][vname] = {
+            "rank": sum(4 * int(s.words.numel()) + 4 * int(s.valid.numel())
+                        for s in inner.slices.values()),
+            "words_rank": sum(4 * int(s.words.numel())
+                              for s in inner.slices.values()),
+            "global": st.nbytes}
+        t0 = time.perf_counter()
+        eng = QueryEngine(st, mode="auto")
+        got = {}
+        for name, plan, aggs in flat:
+            eng.submit(Query(plan, aggregates=aggs))
+            got[name] = eng.run()[0]
+        for name, q in gshapes if full else ():
+            eng.submit(q)
+            got[f"grouped {name}"] = eng.run()[0]
+        rec["answers"][vname] = {k: r.aggregates for k, r in got.items()}
+        rec["ms"][vname] = {k: r.latency_s * 1e3 for k, r in got.items()}
+        rec[f"dispatch {vname}"] = eng.metrics.launch_counts()
+        secs[f"queries {vname}"] = time.perf_counter() - t0
+        if not full:
+            continue
+        t0 = time.perf_counter()
+        for name, plan, aggs in flat_lost:
+            for lost in DEGRADED_LOST:
+                got, rb = execute_degraded(st, plan, aggs, lost)
+                rec["degraded"].append((vname, f"lost {name}", str(lost),
+                                        got, rb))
+            try:
+                execute_degraded(st, plan, aggs, range(mesh.size))
+                rec["degraded"].append((vname, name, "all", None, 0))
+            except DegradedResultError:
+                rec["degraded"].append((vname, name, "all", "raised", 0))
+        secs[f"degraded flat {vname}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for name, q in grouped_lost:
+            for lost in DEGRADED_LOST:
+                got, rb = execute_grouped_degraded(st, q, lost)
+                rec["degraded"].append((vname, f"lost {name}", str(lost),
+                                        got, rb))
+            try:
+                execute_grouped_degraded(st, q, range(mesh.size))
+                rec["degraded"].append((vname, name, "all", None, 0))
+            except DegradedResultError:
+                rec["degraded"].append((vname, name, "all", "raised", 0))
+        secs[f"degraded grouped {vname}"] = time.perf_counter() - t0
+    if full:
+        t0 = time.perf_counter()
+        mesh42 = make_mesh(*COMPRESS_MESH, group=dist.group.WORLD)
+        tree = psum_tree()
+        out = compression.compressed_psum_pod(tree, mesh42, axis="pod")
+        pods = mesh42.shape["pod"]
+        rec["psum"] = {"digest": tree_digest(out), "max_rel_err": max(
+            float((out[k] - pods * v).abs().max()
+                  / ((pods * v).abs().max() + 1e-9)) for k, v in tree.items())}
+        secs["psum"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    rec["path_s"] = time.perf_counter() - t_path
+    rec["launches"] = read_counters(counters)
+    rec["secs"] = secs
+    rec["left_at"] = time.time()
+    rec["peak_gib"] = {"set-up": setup_peak / 2**30,
+                       "path": torch.cuda.max_memory_allocated() / 2**30}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, rec)
+    return every
+
+
+def world_check(every: list, want: dict, label: str) -> list:
+    """Every rank's answers against the unsharded engine's (`want`),
+    degraded ones included (all shards lost must have raised); prints per
+    rank launches, dispatch counts, ms a query, bytes and seconds.
+    Returns the mismatches."""
+    bad = []
+    for rec in every:
+        r = rec["rank"]
+        for vname, got in rec["answers"].items():
+            for name, a in got.items():
+                if a != want[name]:
+                    bad.append((label, r, vname, name, a, want[name]))
+        for vname, name, lost, got, rb in rec["degraded"]:
+            ok = got == "raised" if lost == "all" else \
+                got == want[name] and rb > 0
+            if not ok:
+                bad.append((label, r, "degraded", vname, name, lost))
+        if [d[4] for d in rec["degraded"]] != \
+                [d[4] for d in every[0]["degraded"]]:
+            bad.append((label, r, "recovered bytes differ from rank 0's"))
+        print(f"{label} rank {r} on {rec['device']}: launches "
+              f"{rec['launches']}; dispatch counts "
+              f"{ {k: v for k, v in rec.items() if k.startswith('dispatch')} }"
+              f"; shard bytes {rec['bytes']}; device bytes after set-up "
+              f"{rec['resident_bytes']}; seconds "
+              f"{ {k: round(v, 3) for k, v in rec['secs'].items()} }, path "
+              f"{rec['path_s']:.3f} s; peak GiB "
+              f"{ {k: round(v, 3) for k, v in rec['peak_gib'].items()} }; "
+              f"{len(rec['degraded'])} degraded calls", flush=True)
+        for vname, ms in rec["ms"].items():
+            print(f"{label} rank {r} {vname:6s} ms a query "
+                  f"{ {k: round(x, 3) for k, x in ms.items()} }", flush=True)
+    return bad
+
+
+def world_spawn(backend: str, n: int, full: bool) -> tuple:
+    """world_rank on a fresh world of n ranks: (every rank's record, the
+    seconds from spawn to end)."""
+    from repro_torch.dist import world
+    t0, at = time.perf_counter(), time.time()
+    every = world.spawn(world_rank, n, backend=backend,
+                        device="cuda:0" if backend == "gloo" else None,
+                        args=(WORLD_ROWS, full),
+                        deadline_s=WORLD_DEADLINE_S,
+                        timeout_s=WORLD_COLLECTIVE_S)
+    end = time.time()
+    for rec in every:   # a rank's start (spawn to its function) and end
+        rec["secs"]["start"] = rec["entered_at"] - at
+        rec["secs"]["end"] = end - rec["left_at"]
+    return every, time.perf_counter() - t0
+
+
+def world_gloo_check(dev: dict, virtual: dict, want: dict, every: list,
+                     wall: float) -> dict:
+    """The gloo world's records: every answer equal on every rank and to
+    the unsharded engine; every kernel that `virtual` (the virtual sharded
+    main, grouped main and degraded phases' launches) launched must launch
+    here; the compressed psum's bits equal the virtual (4, 2) mesh's."""
+    from repro_torch.dist import compression
+    from repro_torch.launch.mesh import make_mesh
+    label = "[gloo]"
+    bad = world_check(every, want, label)
+    tree = psum_tree()
+    digest = tree_digest(compression.compressed_psum_pod(
+        tree, make_mesh(*COMPRESS_MESH), axis="pod"))
+    for rec in every:
+        if rec["psum"]["digest"] != digest:
+            bad.append((label, rec["rank"], "psum bits differ"))
+        if not rec["psum"]["max_rel_err"] < COMPRESS_BOUND:
+            bad.append((label, rec["rank"], "psum bound",
+                        rec["psum"]["max_rel_err"]))
+    del tree
+    launches = {k: sum(r["launches"][k] for r in every)
+                for k in every[0]["launches"]}
+    needed = sorted({k for runs in virtual.values() for k, v in runs.items()
+                     if v})
+    zero = [k for k in needed if not launches[k]]
+    print(f"{label} [{dev['smi']}] {WORLD_RANKS} ranks, {WORLD_ROWS} rows "
+          f"(2^{WORLD_ROWS.bit_length() - 1}): spawn to end {wall:.3f} s; "
+          f"launches summed over ranks {launches}; kernels of the virtual "
+          f"phases {needed}; psum worst "
+          f"{max(r['psum']['max_rel_err'] for r in every):.6f} (bound "
+          f"{COMPRESS_BOUND}), bits equal to the virtual mesh "
+          f"{all(r['psum']['digest'] == digest for r in every)}",
+          flush=True)
+    if bad:
+        for b in bad:
+            print("MISMATCH", str(b)[:2000], file=sys.stderr)
+        fail(f"{len(bad)} world (gloo) results differ")
+    if zero:
+        fail(f"kernels of the virtual sharded phases never launched in the "
+             f"gloo world: {zero}")
+    return {"ranks": WORLD_RANKS, "rows": WORLD_ROWS, "wall_s": wall,
+            "launches": launches, "card": dev["smi"],
+            "per_rank": [{k: r[k] for k in ("rank", "launches", "bytes",
+                                            "resident_bytes", "ms", "secs",
+                                            "path_s", "peak_gib", "psum")}
+                         for r in every],
+            "dispatch": {k: v for k, v in every[0].items()
+                         if k.startswith("dispatch")}}
+
+
+def world_nccl_check(dev: dict, want: dict, every: list, wall: float) -> dict:
+    """The nccl world's records (device_count() ranks, one a card): the
+    eleven plans on the plain view, equal to the unsharded engine's."""
+    label = "[nccl]"
+    bad = world_check(every, want, label)
+    launches = {k: sum(r["launches"][k] for r in every)
+                for k in every[0]["launches"]}
+    print(f"{label} [{dev['smi']}] {len(every)} rank(s): spawn to end "
+          f"{wall:.3f} s (beside the gloo world); launches {launches}",
+          flush=True)
+    if bad:
+        for b in bad:
+            print("MISMATCH", str(b)[:2000], file=sys.stderr)
+        fail(f"{len(bad)} world (nccl) results differ")
+    if not (launches["scan_filter"] and launches["aggregate_batched"]
+            and launches["scan_aggregate_batched"]):
+        fail(f"the nccl world's flat path launched no kernel: {launches}")
+    return {"ranks": len(every), "rows": WORLD_ROWS, "wall_s": wall,
+            "launches": launches, "card": dev["smi"],
+            "per_rank": [{k: r[k] for k in ("rank", "launches", "bytes",
+                                            "resident_bytes", "ms", "secs",
+                                            "path_s", "peak_gib")}
+                         for r in every]}
+
+
+def world_phases(dev: dict, sharded: dict, kernels: list) -> dict:
+    """Both world phases, the nccl world (device_count() ranks) started
+    beside the gloo world (WORLD_RANKS ranks sharing the card); their
+    launches join the kernels line as "launches_world" (summed over ranks,
+    and per rank)."""
+    from concurrent.futures import ThreadPoolExecutor
+    virtual = {f"main {n}": r["launches"]
+               for n, r in sharded["main"].items()}
+    virtual.update({f"grouped_main {v}": r["launches"]
+                    for v, r in sharded["grouped_main"].items()})
+    virtual["degraded"] = sharded["degraded"]["launches"]
+    # the ranks need the card: what the query phases left must go first
+    release()
+    held = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+            "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+    print(f"before the worlds this process holds {held}", flush=True)
+    phase(f"world (gloo, {WORLD_RANKS} ranks on one card)")
+    WORLD_STORE.parent.mkdir(parents=True, exist_ok=True)
+    WORLD_STORE.unlink(missing_ok=True)
+    try:
+        with ThreadPoolExecutor(2) as pool:
+            gloo = pool.submit(world_spawn, "gloo", WORLD_RANKS, True)
+            nccl = pool.submit(world_spawn, "nccl",
+                               torch.cuda.device_count(), False)
+            prep = world_prepare()
+            out = {"gloo": world_gloo_check(dev, virtual, prep["want"],
+                                            *gloo.result()),
+                   "parent": held,
+                   "setup": {k: v for k, v in prep.items() if k != "want"}}
+            phase(f"world (nccl, one rank a card: "
+                  f"{torch.cuda.device_count()})")
+            out["nccl"] = world_nccl_check(dev, prep["want"],
+                                           *nccl.result())
+    finally:
+        WORLD_STORE.unlink(missing_ok=True)
+    release()
+    for rec in kernels:
+        runs = {}
+        for backend, w in ((b, out[b]) for b in ("gloo", "nccl")):
+            if w["launches"].get(rec["name"]):
+                runs[backend] = {
+                    "ranks": w["ranks"], "sum": w["launches"][rec["name"]],
+                    "per_rank": [r["launches"][rec["name"]]
+                                 for r in w["per_rank"]]}
+        if runs:
+            rec["launches_world"] = runs
     return out
 
 
@@ -7119,6 +7588,8 @@ def main() -> None:
     # the LM slice needs the card's memory: drop the query tables first
     del table, encoded, shapes
     torch.cuda.empty_cache()
+    world = world_phases(dev, sharded, kernels)
+    print(json.dumps({"world": world}, default=str), flush=True)
     model, engine, serve = serve_phase(dev)
     del engine
     release()
@@ -7147,6 +7618,7 @@ def main() -> None:
     print(json.dumps({"train": train}, default=str))
     print(json.dumps({"serve": serve}, default=str))
     torch.cuda.synchronize()
+    phase(None)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["name"],

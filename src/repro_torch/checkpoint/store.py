@@ -185,17 +185,34 @@ def _read_leaf(f, zf: zipfile.ZipFile, key: str, dtype: str, into):
 def _mesh_device(sharding):
     """The device a sharding puts a leaf on. A sharding is one of the
     port's meshes or NamedShardings (repro_torch.launch.mesh.Mesh,
-    repro_torch.dist.sharding.NamedSharding): its positions, however
-    many, live on one device, which holds the leaf whole."""
+    repro_torch.dist.sharding.NamedSharding). Over virtual positions,
+    however many, on one device, that device holds the leaf whole. Over
+    the ranks of a process group (a RankMesh), state is replicated: each
+    rank holds the leaf whole on its own device, and a NamedSharding that
+    splits the leaf across ranks raises."""
     devices = getattr(sharding, "device_set", None)
     if devices is None:
         raise TypeError(f"a sharding is one of the port's meshes or "
                         f"NamedShardings, not {sharding!r}")
+    mesh = getattr(sharding, "mesh", sharding)
+    if getattr(mesh, "group", None) is not None:
+        split = [a for entry in getattr(sharding, "spec", ())
+                 for a in (entry if isinstance(entry, tuple) else (entry,))
+                 if a is not None and mesh.shape[a] > 1]
+        if split:
+            raise NotImplementedError(
+                f"restoring a leaf split across the ranks of {mesh} (over "
+                f"{split}) is not ported: model state split over ranks is "
+                f"ROADMAP.md, 'Modules to port', item 5c; a rank mesh "
+                f"restores replicated leaves")
+        return mesh.device
     if len(devices) > 1:
         raise NotImplementedError(
             f"restoring a leaf split over the {len(devices)} devices of "
-            f"{sharding} is not ported: a shard per card over "
-            f"torch.distributed is ROADMAP.md, 'Modules to port', item 5b")
+            f"{sharding} is not ported: a single process holds a mesh on "
+            f"one device, and a mesh of ranks (make_mesh(..., group=)) "
+            f"restores leaves replicated; state split over ranks is "
+            f"ROADMAP.md, 'Modules to port', item 5c")
     return next(iter(devices))
 
 
@@ -291,9 +308,11 @@ class CheckpointManager:
         tree of them (None where a leaf needs none) matching `skeleton`:
         a non-tensor leaf becomes a tensor on that sharding's device, a
         tensor leaf must already live there. A mesh of any number of
-        positions on one device restores each leaf whole; a sharding
-        over more than one device raises NotImplementedError (ROADMAP
-        item 5b). `mesh` is accepted and unused, as in the reference."""
+        positions on one device restores each leaf whole, and so does a
+        mesh of ranks on each rank's device (state is replicated there);
+        a leaf split over ranks or devices raises NotImplementedError
+        (ROADMAP item 5c). `mesh` is accepted and unused, as in the
+        reference."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")

@@ -7,10 +7,15 @@ axis names (repro_torch.models.common) and this package resolves those
 names to mesh axes through per-cell rule tables (sharding.py), optionally
 overridden by a named strategy (strategies.py).
 
-On one card every position of a mesh lives on one device: a sharding
-records what each position would hold, and a "sharded" tensor stays
-whole. The reference's two shard_map collectives, the compressed psum
-(compression.py) and the GPipe ring (pipeline_parallel.py), run over a
-leading axis of virtual positions, one batched op per reduction or tick.
-A shard per card over torch.distributed is ROADMAP.md's item 5b.
+On a mesh of virtual positions every position lives on one device: a
+sharding records what each position would hold, and a "sharded" tensor
+stays whole. The reference's two shard_map collectives, the compressed
+psum (compression.py) and the GPipe ring (pipeline_parallel.py), run
+there over a leading axis of positions, one batched op per reduction or
+tick. A mesh over the ranks of a process group (world.py,
+launch.mesh.make_mesh(..., group=)) runs the compressed psum as
+collectives over its "pod" subgroups, and the sharded tables of
+repro_torch.query and repro_torch.store a shard a rank. Model state split
+over ranks (NamedSharding placing real shards, GPipe's ring over
+send/recv, restoring split leaves) is ROADMAP.md's item 5c.
 """

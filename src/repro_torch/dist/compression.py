@@ -8,9 +8,14 @@ bias vanish over steps (the classic EF-SGD argument: residuals are
 bounded, so the accumulated sent signal tracks the accumulated true
 signal).
 
-On one card the pods of a mesh are virtual positions: `compressed_psum_pod`
-runs the reference's shard_map body over a leading axis of positions, one
-batched op per reduction, never a loop over devices.
+On a mesh of virtual positions the pods are positions of one device:
+`compressed_psum_pod` runs the reference's shard_map body over a leading
+axis of positions, one batched op per reduction, never a loop over
+devices. On a mesh of ranks (launch.mesh.RankMesh) each rank quantizes
+its replica and the codes and scales cross ranks as the reference's
+psum / pmax do: all_reduce SUM of the int32 codes and MAX of the fp32
+scales over the axis's subgroup. Codes add exactly and a max does not
+depend on order, so both forms give the same bits.
 """
 from __future__ import annotations
 
@@ -46,7 +51,10 @@ def compressed_psum_pod(tree, mesh, axis: str = "pod"):
     sum as int32 over that axis (no overflow up to 2^23 summands), and the
     max scale across the positions bounds the dequantization error at
     int8 resolution. Positions of the other axes hold the same result, as
-    replicas do in the reference."""
+    replicas do in the reference. On a mesh of ranks, every rank of the
+    mesh calls it with its own replica."""
+    if mesh.group is not None:
+        return _map(lambda x: _psum_ranks(x, mesh.axis_group(axis)), tree)
     n = int(mesh.shape[axis])
 
     def one(x):
@@ -61,6 +69,18 @@ def compressed_psum_pod(tree, mesh, axis: str = "pod"):
         return _dequantize(total, scale.amax())
 
     return _map(one, tree)
+
+
+def _psum_ranks(x, group):
+    """The reference's per-shard body on this rank's replica: quantize,
+    all-reduce the codes as int32 (SUM) and the scale (MAX)."""
+    import torch.distributed as dist
+    q, scale = _quantize(x)
+    total = q.to(torch.int32)
+    dist.all_reduce(total, dist.ReduceOp.SUM, group=group)
+    scale = scale.reshape(1).clone()
+    dist.all_reduce(scale, dist.ReduceOp.MAX, group=group)
+    return _dequantize(total, scale[0])
 
 
 def _map_pairs(fn, a, b):

@@ -96,6 +96,9 @@ SIGNATURES = {
 FLOAT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# False in the ranks of a spawned world (repro_torch.dist.world): a rank
+# loads what the caller built and never starts nvcc itself
+BUILDS_ALLOWED = True
 
 
 def nvcc() -> str:
@@ -160,6 +163,11 @@ def load(name: str) -> ctypes.CDLL:
         return lib
     path = library_path(name)
     if not path.exists():
+        if not BUILDS_ALLOWED:
+            raise RuntimeError(
+                f"{path.name} is not built, and a rank of a world does not "
+                f"compile kernels: call repro_torch.kernels._build.build() "
+                f"before spawning the world")
         build((name,))
     lib = ctypes.CDLL(str(path))
     for fn_name, argtypes in SIGNATURES[name].items():

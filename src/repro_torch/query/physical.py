@@ -18,8 +18,10 @@ A logical Plan tree binds to a table's packed columns as `ColumnSlice`s
 
 A sharded table (query.sharded) runs `shard_rows`: each column's padded
 words view as (n_shards, words_per_shard) and the batched kernels take
-the shard as their chunk axis; `combine_rows` is the counterpart of the
-reference's cross-shard psum (`_psum_aggs`, `execute(axis=)`).
+the shard as their chunk axis. The counterpart of the reference's
+cross-shard psum (`_psum_aggs`, `execute(axis=)`) is `combine_rows` over
+the shards of one device, and `psum_rows` over the ranks of a process
+group.
 """
 from __future__ import annotations
 
@@ -313,6 +315,22 @@ def shard_rows(plan: Plan, aggregates: tuple,
         out[col] = _fold(agg_ops.aggregate_batched(w3, m3, s.code_bits,
                                                    mode=mode), n_shards)
     return out
+
+
+def psum_rows(rows, group):
+    """(k, 5) rows of this rank -> the (k, 5) rows combined over the ranks
+    of `group`, the reference's `_psum_aggs`: all-reduce SUM of sum_lo,
+    sum_hi and count, MIN of min, MAX of max. Each rank's sum planes are
+    normalized (lo < 2^16), so the int32 all-reduce stays exact, as the
+    reference's psum does, below 2^15 ranks and a total of 2^47."""
+    import torch.distributed as dist
+    sums = rows[:, :3].contiguous()
+    lows = rows[:, 3].contiguous()
+    highs = rows[:, 4].contiguous()
+    dist.all_reduce(sums, dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(lows, dist.ReduceOp.MIN, group=group)
+    dist.all_reduce(highs, dist.ReduceOp.MAX, group=group)
+    return torch.cat([sums, lows[:, None], highs[:, None]], 1)
 
 
 def combine_rows(rows) -> dict:

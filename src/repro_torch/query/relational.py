@@ -156,16 +156,17 @@ def absorb_plane(partial: dict, domain, plane, col: str | None,
     return partial
 
 
-def absorb_fallback(partial: dict, key_codes, val_cols: dict,
-                    sel) -> dict:
+def fallback_groups(key_codes, val_cols: dict, sel) -> tuple:
     """The fallback strategy: group the selected rows of 1-D code tensors
     in int64 torch on their device (a histogram over the selected key
-    span, in slices of SLICE_ROWS rows), then fold the non-empty groups
-    into the partial. No kernel launch."""
+    span, in slices of SLICE_ROWS rows). Returns (keys, counts, {name:
+    sums}), int64 tensors of the non-empty groups, keys ascending. No
+    kernel launch."""
     k = key_codes.reshape(-1)
     sel = sel.reshape(-1)
     if not bool(sel.any()):
-        return partial
+        none = torch.zeros(0, dtype=torch.int64, device=k.device)
+        return none, none, {name: none for name in val_cols}
     big = torch.iinfo(k.dtype).max
     kmin = int(torch.where(sel, k, big).min())
     kmax = int(torch.where(sel, k, -1).max())
@@ -180,15 +181,26 @@ def absorb_fallback(partial: dict, key_codes, val_cols: dict,
             sums[name].index_add_(0, idx,
                                   v.reshape(-1)[lo:hi].to(torch.int64))
     hit = torch.nonzero(counts[:span]).reshape(-1)
-    keys = (hit + kmin).tolist()
-    cnt = counts[hit].tolist()
-    s = {name: t[hit].tolist() for name, t in sums.items()}
+    return hit + kmin, counts[hit], {name: t[hit] for name, t in sums.items()}
+
+
+def absorb_groups(partial: dict, keys, counts, sums: dict) -> dict:
+    """Fold (keys, counts, {name: sums}) groups into a host partial."""
+    keys = keys.tolist()
+    cnt = counts.tolist()
+    s = {name: t.tolist() for name, t in sums.items()}
     for i, key in enumerate(keys):
         entry = partial.setdefault(key, [0, {}])
         entry[0] += cnt[i]
-        for name in val_cols:
+        for name in sums:
             entry[1][name] = entry[1].get(name, 0) + s[name][i]
     return partial
+
+
+def absorb_fallback(partial: dict, key_codes, val_cols: dict,
+                    sel) -> dict:
+    """`fallback_groups` folded into the partial."""
+    return absorb_groups(partial, *fallback_groups(key_codes, val_cols, sel))
 
 
 def combine(a: dict, b: dict) -> dict:

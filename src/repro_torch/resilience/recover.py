@@ -16,7 +16,13 @@ numpy oracle or the query fails with a *typed* error; nothing in between
   decompose exactly over row ranges, so the merged answer equals the
   all-shards combine bit for bit.
   All shards lost raises `DegradedResultError`; a zero-row table
-  degrades to the canonical aggregate identity.
+  degrades to the canonical aggregate identity. Over a mesh of ranks
+  every rank calls it alike and returns the same answer and recovered
+  bytes: the surviving partials are all-gathered; each rank re-executes
+  every lost range of a flat query from the capacity-tier copy on the
+  host (its dispatch counts stay the reference's), and the lost ranges
+  of a grouped query are dealt out over the ranks, whose groups merge
+  over the axis.
 - `CircuitBreaker`: a repeatedly-faulting fast tier is demoted to
   capacity-tier *service* (PlacementEngine.demoted) — placement state
   (LRU clocks, MEMCACHE frequency counters, ghost bits) keeps evolving
@@ -210,7 +216,7 @@ def _lost_ids(n: int, lost) -> list[int]:
 def _shard_bytes(inner, referenced) -> int:
     """Device-resident bytes one shard holds of the referenced columns:
     what re-executing a lost shard re-streams from the capacity tier."""
-    return sum(int(inner.slices[c].words.numel()) * 4 // inner.n_shards
+    return sum(int(inner.layout[c].words.numel()) * 4 // inner.n_shards
                for c in referenced)
 
 
@@ -275,7 +281,6 @@ def execute_grouped_degraded(table, query, lost, mode=None
     DegradedResultError; domains past the dense cutoff recover via the
     oracle (counted as group_aggregate_fallback launches)."""
     from repro_torch.kernels import dispatch
-    from repro_torch.kernels.scan_filter.ref import unpack
     from repro_torch.query import relational
     from repro_torch.query.sharded import absorb_shard_planes
     n = table.n_shards
@@ -295,8 +300,14 @@ def execute_grouped_degraded(table, query, lost, mode=None
                                      device=inner.device)
     if len(domain) == 0:
         return relational.empty_result(), recovered_bytes
+    bases = ({a: frames[a][0] for a in query.aggs} if frames is not None
+             else None)
     if not relational.dense_ok(domain):
         dispatch.count_launch("group_aggregate_fallback", n)
+        if inner.ranked:
+            return (inner.ranked_oracle(query, raw_plan, key_base=kbase,
+                                        bases=bases, lost=lost),
+                    recovered_bytes)
         host = table.store.decode_table() if frames is not None \
             else table.table
         return (relational.execute_grouped_oracle(query, host),
@@ -306,22 +317,19 @@ def execute_grouped_degraded(table, query, lost, mode=None
                                           raw_domain, mode=mode)
     keep = torch.ones(n, dtype=torch.bool, device=inner.device)
     keep[lost] = False
-    part = relational.new_partial()
-    for i in lost:
-        lo, hi = inner.shard_row_range(i)
-        if hi <= lo:
-            continue
-        slices = inner.host_shard_slices(i, names=referenced)
-        cols = {c: unpack(s.words, s.code_bits)[:hi - lo].to(torch.int64)
-                for c, s in slices.items()}
-        sel = relational.eval_plan_codes(raw_plan, cols)
-        keys_log = cols[key] + kbase
-        sel = sel & torch.isin(keys_log, domain)
-        vals_log = {a: cols[a] + (frames[a][0] if frames is not None
-                                  else 0) for a in query.aggs}
-        relational.absorb_fallback(part, keys_log, vals_log, sel)
-    bases = ({a: frames[a][0] for a in query.aggs} if frames is not None
-             else None)
+    kw = {"key_base": kbase, "bases": bases, "keep_keys": domain}
+    if inner.ranked:
+        me = inner.mesh.coords[inner.axis]
+        groups = inner.merge_groups(
+            [inner.shard_groups(query, raw_plan, i, **kw)
+             for j, i in enumerate(lost) if j % n == me],
+            tuple(query.aggs))
+        part = relational.absorb_groups(relational.new_partial(), *groups)
+    else:
+        part = relational.new_partial()
+        for i in lost:
+            relational.absorb_groups(
+                part, *inner.shard_groups(query, raw_plan, i, **kw))
     return (absorb_shard_planes(query, planes, raw_domain, keep=keep,
                                 bases=bases, key_base=kbase, part=part),
             recovered_bytes)

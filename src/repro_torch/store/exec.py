@@ -119,11 +119,13 @@ def pack_codes(vals: torch.Tensor, code_bits: int) -> torch.Tensor:
     return pack_rows(vals.to(torch.int32).reshape(1, -1), code_bits)[0]
 
 
-def _rle_rows_batch(chunks, n_rows: int) -> torch.Tensor:
+def _rle_rows_batch(chunks, n_rows: int, device=None) -> torch.Tensor:
     """(g, n_rows) row codes of g RLE chunks of n_rows rows each, decoded
-    in one pass (zero-length padding runs emit nothing)."""
-    vals = torch.cat([c.values for c in chunks])
-    lens = torch.cat([c.lengths for c in chunks]).to(torch.int64)
+    in one pass (zero-length padding runs emit nothing), on `device` (the
+    chunks' by default)."""
+    vals = torch.cat([c.values for c in chunks]).to(device=device)
+    lens = torch.cat([c.lengths for c in chunks]).to(device=device,
+                                                      dtype=torch.int64)
     return torch.repeat_interleave(vals, lens,
                                    output_size=len(chunks) * n_rows) \
         .reshape(len(chunks), n_rows)
@@ -448,15 +450,18 @@ def _grouped_strategy(query, table, names, domain_ok: bool):
     return np.flatnonzero(rle), np.flatnonzero(live & ~rle), none, kp
 
 
-def _decode_rows(col, cids: np.ndarray, n_cols: int) -> torch.Tensor:
+def _decode_rows(col, cids: np.ndarray, n_cols: int,
+                 device=None) -> torch.Tensor:
     """(len(cids), n_cols) int32 payloads of chunks `cids` of a column on
-    its device, zero past each chunk's rows: RLE runs expanded to codes,
-    PLAIN and FOR planes unpacked at their width (FOR deltas, without the
-    base). Chunks of one kind and size decode together, one unpack or run
-    expansion per kind, not per chunk."""
+    `device` (its own by default; the payloads are copied there, stacked,
+    and decoded there), zero past each chunk's rows: RLE runs expanded to
+    codes, PLAIN and FOR planes unpacked at their width (FOR deltas,
+    without the base). Chunks of one kind and size decode together, one
+    unpack or run expansion per kind, not per chunk."""
     chunks = [col.chunks[ci] for ci in cids]
+    device = col.device if device is None else device
     out = torch.zeros((len(chunks), n_cols), dtype=torch.int32,
-                      device=col.device)
+                      device=device)
     kinds: dict[tuple, list[int]] = {}
     for j, ch in enumerate(chunks):
         key = ((ch.n_rows,) if ch.encoding is Encoding.RLE
@@ -465,12 +470,14 @@ def _decode_rows(col, cids: np.ndarray, n_cols: int) -> torch.Tensor:
     for key, js in kinds.items():
         n_rows = key[0]
         if len(key) == 1:
-            codes = _rle_rows_batch([chunks[j] for j in js], n_rows)
+            codes = _rle_rows_batch([chunks[j] for j in js], n_rows,
+                                    device)
         else:
-            src = torch.stack([chunks[j].words for j in js])
+            src = torch.stack([chunks[j].words for j in js]).to(
+                device=device)
             codes = unpack(src.reshape(-1), key[1]).reshape(
                 len(js), -1)[:, :n_rows]
-        out[torch.tensor(js, device=col.device), :n_rows] = codes
+        out[torch.tensor(js, device=device), :n_rows] = codes
     return out
 
 

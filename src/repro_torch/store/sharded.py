@@ -13,40 +13,106 @@ and aggregates fix up their base on the way out, in exact host ints.
 RLE is a chunk-local layout (runs do not align across shard boundaries),
 so sharding re-encodes every column, RLE-chosen ones included, into the
 global FOR frame; the device-resident bytes the tier/energy ledgers
-charge are the delta words. The columns decode and the deltas pack on
-the store's device.
+charge are the delta words. The frames come from the chunks' recorded
+bounds; the columns decode and the deltas pack on the mesh's device
+(`_DeltaSource`). On a mesh of ranks the store is the capacity-tier copy
+(on the host, say): each rank decodes only the chunks of its own shard's
+rows, and `_DeltaSource` re-reads a lost shard's deltas for degraded
+execution; the rows and planes cross ranks as ShardedTable's do.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch.db.columnar import BitPackedColumn, Table
-from repro_torch.query.sharded import ShardedTable, absorb_shard_planes
+from repro_torch.query.sharded import (ColumnMeta, ShardedTable,
+                                       absorb_shard_planes)
 from repro_torch.store.encode import EncodedTable, width_for_span
-from repro_torch.store.exec import (column_codes, fixup_base, pack_codes,
+from repro_torch.store.exec import (_decode_rows, fixup_base, pack_codes,
                                     translate_plan)
 
 
 @dataclass(frozen=True)
-class _ColMeta:
-    """The metadata surface the engine reads per column: logical width
-    for plan validation, physical (device-resident, compressed) bytes
-    for admission, logical bytes beside them, and the device (a join's
-    bind check)."""
+class _Shape:
+    """A delta column's shape: what ShardedTable reads of a column it
+    does not hold."""
     code_bits: int
-    nbytes: int
-    logical_nbytes: int
-    device: torch.device
+    num_rows: int
+
+    @property
+    def codes_per_word(self) -> int:
+        return 32 // self.code_bits
+
+    @property
+    def nbytes(self) -> int:
+        return 4 * -(-self.num_rows // self.codes_per_word)
+
+
+def _codes(col, lo: int, hi: int, device) -> torch.Tensor:
+    """Logical codes of rows [lo, hi) of an encoded column on `device`:
+    the payloads of the chunks that hold them copied there and decoded
+    there."""
+    if hi <= lo:
+        return torch.zeros(0, dtype=torch.int32, device=device)
+    cr = col.chunk_rows
+    cids = np.arange(lo // cr, -(-hi // cr))
+    rows = _decode_rows(col, cids, cr, device)
+    base = col.chunk_arrays().base[cids]
+    if base.any():
+        rows += torch.from_numpy(base.astype(np.int32)).to(device)[:, None]
+    return rows.reshape(-1)[lo - cids[0] * cr:hi - cids[0] * cr]
+
+
+class _DeltaSource:
+    """The delta table of a store, packed on demand a range at a time:
+    `ShardedTable.shard`'s source on a rank mesh, and the whole delta
+    table's on one device."""
+
+    def __init__(self, store: EncodedTable, frames: dict):
+        self.store, self.frames = store, frames
+        self.name = f"{store.name}-delta"
+        self.num_rows = store.num_rows
+        self.columns = {name: _Shape(frames[name][1], col.num_rows)
+                        for name, col in store.columns.items()}
+
+    def words(self, name: str, w0: int, w1: int, device) -> torch.Tensor:
+        """Delta words [w0, w1) of a column (fewer past its end), packed on
+        `device`: the same bits as the whole column's packing there."""
+        base, width = self.frames[name]
+        cpw = 32 // width
+        codes = _codes(self.store.columns[name], w0 * cpw,
+                       min(w1 * cpw, self.num_rows), device)
+        if not codes.numel():
+            return torch.zeros(0, dtype=torch.int32, device=device)
+        return pack_codes(codes - base, width)
+
+
+def _frames(store: EncodedTable) -> dict:
+    """The global frames ((base, width) a column) from the chunks'
+    recorded bounds: the same as the codes' bounds, with nothing decoded
+    (on a rank mesh every rank reads the same host metadata)."""
+    frames = {}
+    for name, col in store.columns.items():
+        bounds = [(c.stats.vmin, c.stats.vmax) for c in col.chunks
+                  if c.n_rows]
+        if bounds:
+            lo = min(b[0] for b in bounds)
+            frames[name] = (lo, width_for_span(max(b[1] for b in bounds)
+                                               - lo))
+        else:
+            frames[name] = (0, 2)
+    return frames
 
 
 class ShardedEncodedTable:
     """An EncodedTable partitioned row-wise along one mesh axis.
 
     Duck-types ShardedTable where QueryEngine touches it: `columns`,
-    `num_rows`, `n_shards`, `nbytes`, `slices`, `device`, `execute`,
-    `execute_grouped`, `chunk_bytes`.
+    `num_rows`, `n_shards`, `nbytes`, `slices`, `layout`, `device`,
+    `execute`, `execute_grouped`, `chunk_bytes`.
     """
 
     def __init__(self, store: EncodedTable, inner: ShardedTable,
@@ -60,30 +126,25 @@ class ShardedEncodedTable:
               axis: str = "data") -> "ShardedEncodedTable":
         if not store.columns:
             raise ValueError("cannot shard an empty encoded table")
-        delta = Table(f"{store.name}-delta")
-        frames: dict[str, tuple[int, int]] = {}
-        for name, col in store.columns.items():
-            codes = column_codes(col).to(mesh.device)
-            if codes.numel():
-                lo, hi = (int(x) for x in torch.aminmax(codes))
-                base, width = lo, width_for_span(hi - lo)
-                words = pack_codes(codes - base, width)
-            else:
-                base, width = 0, 2
-                words = torch.zeros(0, dtype=torch.int32, device=mesh.device)
-            frames[name] = (base, width)
-            delta.add(BitPackedColumn(name, width, col.num_rows, words))
-            del codes
-        return cls(store, ShardedTable.shard(delta, mesh, axis), frames)
+        frames = _frames(store)
+        source = _DeltaSource(store, frames)
+        if mesh.group is None:          # every shard on this device
+            delta = Table(source.name)
+            for name, shape in source.columns.items():
+                delta.add(BitPackedColumn(
+                    name, shape.code_bits, shape.num_rows,
+                    source.words(name, 0, shape.nbytes // 4, mesh.device)))
+            source = delta
+        return cls(store, ShardedTable.shard(source, mesh, axis), frames)
 
     # --- metadata ---------------------------------------------------------
     @property
-    def columns(self) -> dict[str, _ColMeta]:
+    def columns(self) -> dict[str, ColumnMeta]:
         out = {}
         for name, col in self.store.columns.items():
-            dev = 4 * int(self.inner.slices[name].words.numel())
-            out[name] = _ColMeta(col.code_bits, dev, col.logical_nbytes,
-                                 self.device)
+            dev = 4 * int(self.inner.layout[name].words.numel())
+            out[name] = ColumnMeta(col.code_bits, dev, col.logical_nbytes,
+                                   self.device)
         return out
 
     @property
@@ -109,9 +170,14 @@ class ShardedEncodedTable:
 
     @property
     def slices(self):
-        """Delta-word device slices — the tier placement universe, so
-        placement chunks hold compressed bytes."""
+        """Delta-word device slices (this rank's shard on a rank mesh)."""
         return self.inner.slices
+
+    @property
+    def layout(self):
+        """The delta words' padded global shapes — the tier placement
+        universe, so placement chunks hold compressed bytes."""
+        return self.inner.layout
 
     # --- tier accounting --------------------------------------------------
     def chunk_bytes(self, plan, aggregates, chunk_rows: int) -> dict:
@@ -154,6 +220,11 @@ class ShardedEncodedTable:
         if not relational.dense_ok(domain):
             dispatch.count_launch("group_aggregate_fallback",
                                   self.n_shards)
+            if self.inner.ranked:
+                return self.inner.ranked_oracle(
+                    query, translate_plan(query.plan(), self.frames),
+                    key_base=kbase,
+                    bases={a: self.frames[a][0] for a in query.aggs})
             return relational.execute_grouped_oracle(
                 query, self.store.decode_table())
         planes = self.inner.execute_grouped_planes(

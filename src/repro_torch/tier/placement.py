@@ -137,7 +137,9 @@ class PlacementEngine:
         """
         from repro_torch.query import physical
 
-        source = (table.slices if hasattr(table, "slices")
+        # a sharded view's padded global layout (on a mesh of ranks every
+        # rank places the whole table, as the reference's controller does)
+        source = (table.layout if hasattr(table, "layout")
                   else table.columns)
         # align on the *source* widths: a sharded (or compressed delta)
         # view may store columns at narrower payload widths than the

@@ -17,7 +17,11 @@ against the reference on 8 host devices: this file runs itself as a child
 XLA_FLAGS=--xla_force_host_platform_device_count=8; the child computes
 the reference's surfaces (`surfaces(REF)`) and pickles them to OUT, the
 parent computes the port's with the same code (`surfaces(PORT)`) and
-compares. Integer paths only: every comparison is ==.
+compares. A third side computes them on a mesh of ranks: an 8-rank gloo
+world on the CPU (repro_torch.dist.world.spawn), a shard a rank, every
+rank running `surfaces(RANKS)` alike; each rank's surfaces, launch
+counts included, are held against the same child. Integer paths only:
+every comparison is ==.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ CHILD_SHARDS = 8
 LOST = ([0], [7], [3, 5], list(range(7)))
 LOST_GROUPED = ([0], [3, 5], list(range(7)))
 CHILD_TIMEOUT_S = 300
+WORLD_DEADLINE_S = 240
 
 # (name, plan over a query module q, numpy selection, aggregates): the
 # plan shapes of tests/test_query_engine.py
@@ -107,6 +112,12 @@ GROUPED_QUERIES = [
                                           where=q.Pred("r", "lt", 7))),
     ("empty_sel", lambda q, d: q.GroupBy("u", ("r",),
                                          where=q.Pred("u", "gt", 127))),
+]
+# keys past the dense cutoff on the flat table (w is 16-bit): the oracle
+WIDE_QUERIES = [
+    ("wide", lambda q, d: q.GroupBy("w", ("b",))),
+    ("wide_where", lambda q, d: q.GroupBy("w", ("a", "x"),
+                                          where=q.Pred("a", "lt", 64))),
 ]
 
 
@@ -174,6 +185,17 @@ def _port_side():
             q_, lo, hi, device=dev))
 
 
+def _rank_side():
+    """The port on a mesh of the world's ranks, one CPU shard a rank."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    side = _port_side()
+    side.name = "ranks"
+    side.mesh = lambda n: make_mesh((n,), ("data",), group=dist.group.WORLD)
+    return side
+
+
 def flat_table(side, rows=N_ROWS, seed=SEED):
     return side.db.Table.synthetic("t", rows, SPEC, seed=seed, **side.kw)
 
@@ -236,11 +258,21 @@ def _views(side, n):
 
 def _layout(side, t) -> dict:
     inner = _inner(t)
+    padded = inner.slices
+    if getattr(inner, "ranked", False):
+        # the padded columns whole, gathered from the ranks
+        from repro_torch.dist.world import all_gather
+        group = inner.mesh.axis_group(inner.axis)
+        padded = {c: SimpleNamespace(
+            code_bits=s.code_bits,
+            words=all_gather(s.words, group).view(-1),
+            valid=all_gather(s.valid, group).view(-1))
+            for c, s in padded.items()}
     out = {"n_shards": t.n_shards, "nbytes": t.nbytes,
            "rows_per_shard": inner.rows_per_shard,
            "slices": {c: (s.code_bits, side.words(s.words),
                           side.words(s.valid))
-                      for c, s in inner.slices.items()},
+                      for c, s in padded.items()},
            "row_ranges": [inner.shard_row_range(i)
                           for i in range(t.n_shards)],
            "host_slices": [{c: (s.code_bits, side.words(s.words),
@@ -280,20 +312,20 @@ def _flat_surfaces(side, t, queries) -> dict:
     return out
 
 
-def _grouped_surfaces(side, t) -> dict:
+def _grouped_surfaces(side, t, queries=GROUPED_QUERIES) -> dict:
     dim = dim_table(side)
     inner = _inner(t)
     frames = getattr(t, "frames", None)
     out = {}
     side.dispatch.reset_launch_counts()
-    for name, mk in GROUPED_QUERIES:
+    for name, mk in queries:
         query = mk(side.q, dim)
         rec = {"result": t.execute_grouped(query, mode=side.mode)}
         kbase = frames[query.key][0] if frames is not None else 0
         kmin, kmax = inner.key_code_range(query.key)
         domain = side.domain(query, kbase + kmin, kbase + kmax,
                              getattr(t, "device", None))
-        if len(domain):
+        if len(domain) and side.relational.dense_ok(domain):
             raw_domain = domain - kbase
             rec["planes"] = {c: side.planes(p) for c, p in
                              inner.execute_grouped_planes(
@@ -361,6 +393,11 @@ def surfaces(side, n=CHILD_SHARDS) -> dict:
                     for k, (t, qs) in views.items()},
            "grouped": {k: _grouped_surfaces(side, views[k][0])
                        for k in ("store", "delta")}}
+    wide = side.ShardedEncoded.shard(side.EncodedTable.from_table(
+        flat_table(side), chunk_rows=STORE_CHUNK_ROWS), side.mesh(n))
+    out["grouped_wide"] = {
+        "flat": _grouped_surfaces(side, views["flat"][0], WIDE_QUERIES),
+        "flat_delta": _grouped_surfaces(side, wide, WIDE_QUERIES)}
     st, qs = views["flat"]
     out["engine"] = _engine_surfaces(side, side.Sharded.shard(
         flat_table(side), side.mesh(n)), qs)
@@ -368,6 +405,16 @@ def surfaces(side, n=CHILD_SHARDS) -> dict:
         side, st, side.q.Query(side.q.Pred("a", "lt", 64),
                                aggregates=("b",)))
     return out
+
+
+def _rank_surfaces() -> list:
+    """One rank of the world: its surfaces, and (on rank 0) every rank's,
+    gathered."""
+    import torch.distributed as dist
+    mine = surfaces(_rank_side())
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every
 
 
 def _child(out_path: str) -> None:
@@ -405,6 +452,16 @@ def child(tmp_path_factory):
 @pytest.fixture(scope="module")
 def port():
     return surfaces(_port_side())
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    """Every rank's surfaces from one 8-rank gloo world on the CPU."""
+    from repro_torch.dist import world
+    every = world.spawn(_rank_surfaces, CHILD_SHARDS, backend="gloo",
+                        deadline_s=WORLD_DEADLINE_S)
+    assert len(every) == CHILD_SHARDS
+    return every
 
 
 @pytest.mark.parametrize("view", ("flat", "store", "delta", "tiny"))
@@ -452,6 +509,19 @@ def test_grouped_equals_the_8_device_reference(child, port, view):
         assert got[name]["degraded"][-1][0] == "raised"
 
 
+@pytest.mark.parametrize("view", ("flat", "flat_delta"))
+def test_grouped_wide_key_equals_the_8_device_reference(child, port, view):
+    """Keys past the dense cutoff (the oracle): execute_grouped and
+    execute_grouped_degraded on the plain and delta views, launches."""
+    got, want = port["grouped_wide"][view], child["grouped_wide"][view]
+    assert got == want, view
+    for name, _ in WIDE_QUERIES:
+        assert len(got[name]["result"]["groups"]) > 1024, name
+        for res in got[name]["degraded"][:-1]:
+            assert res[0] == got[name]["result"]
+        assert got[name]["degraded"][-1][0] == "raised"
+
+
 def test_tiered_engine_equals_the_8_device_reference(child, port):
     """A tiered engine over 8 shards: results, summary (tier stats and
     energy ledger at chips = 8), model_check and launches across repeated
@@ -473,6 +543,73 @@ def test_chaos_shard_loss_equals_the_8_device_reference(child, port):
     assert res["shard_losses"] > 0
     assert res["shard_recoveries"] == res["shard_losses"]
     assert got["first"]["summary"]["tier"]["recovery_bytes"] > 0
+
+
+# --------------------------------------------------------------------------
+# the port on 8 ranks against the reference on 8 devices
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("view", ("flat", "store", "delta", "tiny"))
+def test_rank_layout_equals_the_8_device_reference(child, ranks, view):
+    """Every rank: rows_per_shard, nbytes (global), the padded words and
+    validity masks gathered from the ranks, row ranges, host_shard_slices
+    and key_code_range."""
+    want = child["layout"][view]
+    for rank, got in enumerate(ranks):
+        for key in want:
+            assert got["layout"][view][key] == want[key], (rank, view, key)
+        assert got["layout"][view].keys() == want.keys()
+
+
+@pytest.mark.parametrize("view", ("flat", "store", "delta", "tiny"))
+def test_rank_execution_equals_the_8_device_reference(child, ranks, view):
+    """Every rank: execute (twice), execute_partials, chunk_bytes, the
+    placement universe, execute_degraded for every lost subset (all
+    lost raises) and the launch counts of the whole sequence."""
+    want = child["flat"][view]
+    for rank, every in enumerate(ranks):
+        got = every["flat"][view]
+        assert got["universe"] == want["universe"], rank
+        for name, rec in want["queries"].items():
+            for key in rec:
+                assert got["queries"][name][key] == rec[key], (rank, name,
+                                                               key)
+        assert got["launches"] == want["launches"], (rank, view)
+
+
+@pytest.mark.parametrize("view", ("store", "delta"))
+def test_rank_grouped_equals_the_8_device_reference(child, ranks, view):
+    """Every rank: execute_grouped, the (8, G, 3) planes all-gathered from
+    the ranks, execute_grouped_degraded and the launch counts."""
+    want = child["grouped"][view]
+    for rank, every in enumerate(ranks):
+        assert every["grouped"][view] == want, (rank, view)
+
+
+@pytest.mark.parametrize("view", ("flat", "flat_delta"))
+def test_rank_grouped_wide_key_equals_the_8_device_reference(child, ranks,
+                                                             view):
+    """Every rank: the wide key's fallback, each rank grouping its own
+    shard (and the lost shards dealt to it) and the groups merged over
+    the ranks, against the reference's oracle; degraded included."""
+    want = child["grouped_wide"][view]
+    for rank, every in enumerate(ranks):
+        assert every["grouped_wide"][view] == want, (rank, view)
+
+
+def test_rank_tiered_engine_equals_the_8_device_reference(child, ranks):
+    """QueryEngine over the rank-mesh table on every rank (SPMD): results,
+    summary, model_check at chips = 8 and launches."""
+    want = child["engine"]
+    for rank, every in enumerate(ranks):
+        assert every["engine"] == want, rank
+        assert every["engine"]["model_check"]["chips"] == CHILD_SHARDS
+
+
+def test_rank_chaos_shard_loss_equals_the_8_device_reference(child, ranks):
+    want = child["chaos"]
+    for rank, every in enumerate(ranks):
+        assert every["chaos"] == want, rank
 
 
 # --------------------------------------------------------------------------
@@ -745,7 +882,7 @@ def test_mesh_stays_on_one_device():
     assert m.axes == ("data", "model") and m.device == torch.device("cpu")
     assert make_mesh((3,), ("data",), device=["cpu"] * 3).device.type == \
         "cpu"
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    with pytest.raises(NotImplementedError, match="group="):
         make_mesh((2,), ("data",), device=["cpu", "meta"])
     with pytest.raises(ValueError, match="differ in length"):
         make_mesh((2, 2), ("data",), device="cpu")
