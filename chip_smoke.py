@@ -350,8 +350,10 @@ monitor; no kernel of its own) adds:
 The launchers (repro_torch.launch.train and .serve, with the data
 pipeline, the checkpoint store and the supervisor) run after the Griffin
 / MoE phases, before the training slice, at mamba2-1.3b's published
-widths and depth, bf16 (the launchers' attn_impl="auto" reaches no
-attention kernel; every SSD layer's forward is kernel 12):
+widths, bf16 (the launchers' attn_impl="auto" reaches no attention
+kernel; every SSD layer's forward is kernel 12); the train launcher and
+the phases that reuse its run (18d-18f) at LAUNCH_LAYERS = 24 of its 48
+layers since PR 32, launch.serve at 48:
 
 18a. train launcher mamba2 — launch.train.main with --seq-len 2048
              --global-batch 1 --steps 5 --checkpoint-every 3 and a
@@ -362,7 +364,7 @@ attention kernel; every SSD layer's forward is kernel 12):
              uninterrupted 5-step run without checkpoints, the first
              run's state dropped before it: every leaf of its final state
              must equal the supervised run's final checkpoint bit for
-             bit, read leaf by leaf. Kernel 12 must launch 96 x 6 and 96
+             bit, read leaf by leaf. Kernel 12 must launch 48 x 6 and 48
              x 5 times (remat "block": twice a layer a step). Prints the losses, the median step, each save's
              snapshot and write ms, the restore's wait, read and load
              ms, the checkpoint's bytes and write GB/s, peak device GiB
@@ -391,9 +393,9 @@ bits as the one-position step.
 18d. sharded train mamba2 — between the train launcher phases and the
              serve launcher: launch.train.main with --mesh 2,4 on the
              uninterrupted run's batches; every leaf of its final state
-             equal to that run's (still held) bit for bit; 49
+             equal to that run's (still held) bit for bit; 25
              logical_constraint calls a step (the recompute counts
-             none); kernel 12 96 x 5. Prints
+             none); kernel 12 48 x 5. Prints
              the median step beside the one-position run's and MFU
              against the card and a position.
 18e. pipeline and compression: compressed psum — compressed_psum_pod on
@@ -405,7 +407,7 @@ bits as the one-position step.
              launch.train.main) resumes the supervised run's step-3
              checkpoint with --mesh 8,1 and runs to step 5; its step-5
              checkpoint equal to the uninterrupted run's state bit for
-             bit; kernel 12 96 x 2. build/launch is deleted after it.
+             bit; kernel 12 48 x 2. build/launch is deleted after it.
 18g. pipeline and compression: gpipe — after the serve launcher: 4
              virtual stages x 8 microbatches of (1, 4096, 2048) bf16,
              stage tanh(x @ w), against the sequential composition and
@@ -532,9 +534,37 @@ W1. world (gloo, 8 ranks on one card) — WORLD_RANKS processes spawned
              multi-card rate.
 W2. world (nccl, one rank a card) — torch.cuda.device_count() ranks
              (1 here) over nccl, started with W1: the eleven plans on the
-             plain view, equal to the unsharded engine's. One JSON line
-             {"world": {...}} follows; the kernels line carries
-             "launches_world" (summed over ranks and per rank).
+             plain view, equal to the unsharded engine's.
+W3. world train (one position, checkpoints) — train state split over
+             the ranks. After its query path (its tables dropped) each
+             gloo rank runs mamba2-1.3b at its published widths, 12 of
+             its 48 layers (eight ranks each gather the whole bf16
+             parameters), bf16, remat "block", SyntheticLM batches of
+             2 x 2048: run A on a (2, 4) rank mesh, 3 steps of
+             build_train's rank step (each rank holds its blocks of
+             params, m, v and master; "data" splits the rows, the fp32
+             gradients all-reduce over it), checkpoints after steps 2
+             and 3 (gathered on every rank, written by rank 0 in the
+             background); run B on (8, 1) restores step 2 a block a rank
+             and runs step 3 (two rows do not divide 8: every rank
+             computes both), saved; GPipe on a (4, 2) rank mesh, a stage
+             a "pod" rank, send/recv a tick. The nccl rank runs the same
+             3 steps on a (1, 1) rank mesh. Then this process runs the
+             same steps on one position, each batch as two one-row
+             microbatches (the ranks' reduction order), and holds: a
+             rank's requested bytes after placement equal to
+             position_bytes, kernel 12's launches 2 x 12 a forward pass
+             on every rank, the digests of the gathered leaves and the
+             losses equal across a run's ranks, A's step-3 file and the
+             nccl run equal to the one-position run bit for bit, B's
+             step-3 file within UPDATE_X x lr, BF16_ULP and MOMENT_REL
+             of A's, GPipe within PIPE_X of its fp32 oracle on every
+             rank. Prints per rank bytes, launches, losses, step seconds
+             with their gathers and all-reduces, save, write and
+             restore seconds. One JSON line {"world": {...}} follows;
+             the kernels line carries "launches_world" (summed over
+             ranks and per rank) and, on kernel 12's record,
+             "launches_world_train".
 
 Every phase prints its seconds and the smoke's running total as it ends
 ("-- name: s").
@@ -5991,6 +6021,10 @@ def train_phases(dev: dict, kernels: list, dryrun=None) -> dict:
 # --------------------------------------------------------------------------
 
 LAUNCH_ARCH = "mamba2-1.3b"        # 48 SSD layers: kernel 12 a layer
+# The train launcher's chain (18a, 18d-18f) runs LAUNCH_LAYERS of them
+# since PR 32 (its checkpoints 9.4 GB, were 18.8), to pay for the world's
+# train slice (W3) within the smoke's time limit; launch.serve keeps 48.
+LAUNCH_LAYERS = 24
 LAUNCH_TRAIN = ["--seq-len", "2048", "--global-batch", "1", "--steps", "5"]
 LAUNCH_STEPS = 5
 LAUNCH_EVERY = 3                   # checkpoints at steps 3 and 5
@@ -6107,6 +6141,38 @@ class Tee:
         self.out.flush()
 
 
+def launch_config():
+    """LAUNCH_ARCH at its published widths, LAUNCH_LAYERS deep."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LAUNCH_ARCH),
+                               num_layers=LAUNCH_LAYERS)
+
+
+# launch_depth for the elastic resume's second process, as code
+LAUNCH_DEPTH_CODE = (
+    "import dataclasses\n"
+    "from repro_torch.launch import train as _train\n"
+    "_by_name = _train.get_config\n"
+    "_train.get_config = lambda name: dataclasses.replace(\n"
+    f"    _by_name(name), num_layers={LAUNCH_LAYERS}) if name == "
+    f"{LAUNCH_ARCH!r} else _by_name(name)\n")
+
+
+class launch_depth:
+    """Inside the block launch.train.main, which reads its config by name
+    (--arch), builds LAUNCH_ARCH LAUNCH_LAYERS deep."""
+
+    def __enter__(self):
+        from repro_torch.launch import train
+        self.mod, self.real = train, train.get_config
+        train.get_config = lambda name: (launch_config() if name ==
+                                         LAUNCH_ARCH else self.real(name))
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.get_config = self.real
+
+
 def run_launcher(fn, argv, **kw) -> tuple:
     """(fn(argv, **kw), the lines it printed as it printed them)."""
     import contextlib
@@ -6167,8 +6233,8 @@ def checkpoint_diff(state, ck: Path, step: int) -> dict:
 
 
 def launch_train_phase(dev: dict) -> tuple:
-    """The train launcher at mamba2-1.3b's published widths and depth,
-    supervised, crashing once after the step-3 checkpoint; then one
+    """The train launcher at mamba2-1.3b's published widths, LAUNCH_LAYERS
+    deep, supervised, crashing once after the step-3 checkpoint; then one
     uninterrupted run, compared leaf by leaf with the first run's final
     checkpoint. Returns (the record, the uninterrupted run's state); the
     checkpoints stay under LAUNCH_DIR for the distribution phases."""
@@ -6179,7 +6245,7 @@ def launch_train_phase(dev: dict) -> tuple:
     from repro_torch.launch import train as launcher
     from repro_torch.models import convert
     phase("train launcher mamba2")
-    cfg = get_config(LAUNCH_ARCH)
+    cfg = launch_config()
     shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
     LAUNCH_DIR.mkdir(parents=True)
     n = cfg.param_count()
@@ -6200,7 +6266,7 @@ def launch_train_phase(dev: dict) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     sk.LAUNCHES = 0
     t0 = time.perf_counter()
-    with CheckpointClock() as clock, RssPeak() as rss:
+    with CheckpointClock() as clock, RssPeak() as rss, launch_depth():
         state, lines = run_launcher(
             launcher.main, argv + [
                 "--checkpoint-dir", str(ck), "--checkpoint-every",
@@ -6270,8 +6336,9 @@ def launch_train_phase(dev: dict) -> tuple:
     sk.LAUNCHES = 0
     plain_metrics = LAUNCH_DIR / "uninterrupted.jsonl"
     t0 = time.perf_counter()
-    state, _ = run_launcher(launcher.main, argv + [
-        "--metrics-file", str(plain_metrics)])
+    with launch_depth():
+        state, _ = run_launcher(launcher.main, argv + [
+            "--metrics-file", str(plain_metrics)])
     torch.cuda.synchronize()
     launches = sk.LAUNCHES
     plain_s = time.perf_counter() - t0
@@ -6436,7 +6503,8 @@ def state_diff(a: dict, b: dict) -> dict:
 
 
 def sharded_train_phase(dev: dict, ref_state: dict, base: dict) -> tuple:
-    """launch.train.main at mamba2-1.3b's published widths with --mesh 2,4
+    """launch.train.main at mamba2-1.3b's published widths (LAUNCH_LAYERS
+    deep) with --mesh 2,4
     on the same SyntheticLM batches as the one-position uninterrupted run:
     its final state must equal that run's bit for bit. Returns (the
     record, its state)."""
@@ -6445,7 +6513,7 @@ def sharded_train_phase(dev: dict, ref_state: dict, base: dict) -> tuple:
     from repro_torch.kernels.ssd_chunk import kernel as sk
     from repro_torch.launch import train as launcher
     phase("sharded train mamba2")
-    cfg = get_config(LAUNCH_ARCH)
+    cfg = launch_config()
     metrics = LAUNCH_DIR / "sharded.jsonl"
     argv = ["--arch", LAUNCH_ARCH, *LAUNCH_TRAIN, "--device", "cuda",
             "--mesh", DIST_MESH, "--metrics-file", str(metrics)]
@@ -6453,7 +6521,8 @@ def sharded_train_phase(dev: dict, ref_state: dict, base: dict) -> tuple:
     sk.LAUNCHES = 0
     sharding.CONSTRAINT_CALLS = 0
     t0 = time.perf_counter()
-    state, lines = run_launcher(launcher.main, argv)
+    with launch_depth():
+        state, lines = run_launcher(launcher.main, argv)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches, calls = sk.LAUNCHES, sharding.CONSTRAINT_CALLS
@@ -6512,7 +6581,7 @@ def compression_phase(dev: dict, state: dict) -> dict:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import step as step_lib
     phase("pipeline and compression: compressed psum")
-    cfg = get_config(LAUNCH_ARCH)
+    cfg = launch_config()
     ds = SyntheticLM(DataConfig(seed=1234, vocab_size=cfg.vocab_size,
                                 seq_len=2048, global_batch=1))
     batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
@@ -6578,7 +6647,7 @@ def elastic_phase(dev: dict, ref_state: dict) -> dict:
     import shutil
     from repro_torch.configs import get_config
     phase("elastic resume mamba2")
-    cfg = get_config(LAUNCH_ARCH)
+    cfg = launch_config()
     ck = LAUNCH_DIR / "ck"
     # the supervised run's step-5 file has been compared; the resumed run
     # writes its own step 5 there, so the disk holds two checkpoints
@@ -6586,7 +6655,7 @@ def elastic_phase(dev: dict, ref_state: dict) -> dict:
     argv = ["--arch", LAUNCH_ARCH, *LAUNCH_TRAIN, "--device", "cuda",
             "--mesh", ELASTIC_MESH, "--checkpoint-dir", str(ck),
             "--checkpoint-every", str(LAUNCH_EVERY)]
-    code = ("import json\n"
+    code = (LAUNCH_DEPTH_CODE + "import json\n"
             "from repro_torch.kernels.ssd_chunk import kernel as sk\n"
             "from repro_torch.launch import train\n"
             f"state = train.main({argv!r})\n"
@@ -6653,6 +6722,34 @@ def dist_train_phases(dev: dict, ref_state: dict, base: dict, dist: dict,
                 "elastic": dist["elastic"]["launches"]["ssd_chunk"]}
 
 
+def pipe_inputs() -> tuple:
+    """GPipe's (PIPE_STAGES, d, d) weights and (PIPE_MICRO, *PIPE_MB)
+    microbatches in bf16, from a seeded generator on the card."""
+    g = torch.Generator("cuda").manual_seed(SEED + 28)
+    d = PIPE_MB[-1]
+    xs = torch.randn((PIPE_MICRO,) + PIPE_MB, generator=g, device="cuda",
+                     dtype=torch.float32).to(torch.bfloat16)
+    ws = (torch.randn((PIPE_STAGES, d, d), generator=g, device="cuda",
+                      dtype=torch.float32) / math.sqrt(d)).to(torch.bfloat16)
+    return ws, xs
+
+
+def pipe_stage(w, x):
+    return torch.tanh(x @ w)
+
+
+def pipe_sequential(ws, xs, dtype) -> torch.Tensor:
+    """The stages composed in sequence, microbatch by microbatch, in
+    `dtype`."""
+    out = []
+    for m in range(PIPE_MICRO):
+        x = xs[m].to(dtype)
+        for s in range(PIPE_STAGES):
+            x = pipe_stage(ws[s].to(dtype), x)
+        out.append(x)
+    return torch.stack(out)
+
+
 def pipeline_phase(dev: dict) -> dict:
     """gpipe with PIPE_STAGES virtual stages on a ("pod",) mesh over
     PIPE_MICRO microbatches, stage tanh(x @ w) in bf16, against the
@@ -6660,28 +6757,15 @@ def pipeline_phase(dev: dict) -> dict:
     from repro_torch.dist import pipeline_parallel as pp
     from repro_torch.launch.mesh import make_mesh
     phase("pipeline and compression: gpipe")
-    g = torch.Generator("cuda").manual_seed(SEED + 28)
+    ws, xs = pipe_inputs()
     d = PIPE_MB[-1]
-    xs = torch.randn((PIPE_MICRO,) + PIPE_MB, generator=g, device="cuda",
-                     dtype=torch.float32).to(torch.bfloat16)
-    ws = (torch.randn((PIPE_STAGES, d, d), generator=g, device="cuda",
-                      dtype=torch.float32) / math.sqrt(d)).to(torch.bfloat16)
     mesh = make_mesh((PIPE_STAGES,), ("pod",))
 
-    def stage(w, x):
-        return torch.tanh(x @ w)
-
     def pipelined():
-        return pp.gpipe(stage, ws, xs, mesh=mesh, axis="pod")
+        return pp.gpipe(pipe_stage, ws, xs, mesh=mesh, axis="pod")
 
     def sequential(dtype=torch.bfloat16):
-        out = []
-        for m in range(PIPE_MICRO):
-            x = xs[m].to(dtype)
-            for s in range(PIPE_STAGES):
-                x = stage(ws[s].to(dtype), x)
-            out.append(x)
-        return torch.stack(out)
+        return pipe_sequential(ws, xs, dtype)
 
     got, want = pipelined(), sequential()
     oracle = sequential(torch.float32)
@@ -7185,6 +7269,20 @@ def world_prepare() -> dict:
 
 def world_rank(rows: int, full: bool) -> list:
     """One rank's part of a world phase (every rank runs it alike): the
+    query path (world_query_rank), then, its tables dropped, the train
+    slice (world_train_rank). Returns every rank's record, gathered."""
+    import torch.distributed as dist
+    rec = world_query_rank(rows, full)
+    release()
+    rec["train"] = world_train_rank(full)
+    rec["left_at"] = time.time()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, rec)
+    return every
+
+
+def world_query_rank(rows: int, full: bool) -> dict:
+    """One rank's query path (every rank runs it alike): the
     table built from SEED on this rank's device and sharded over a mesh
     of the world's ranks (the shard copied to the device, the table moved
     to the host and the device copy dropped); with `full`, the store
@@ -7194,7 +7292,7 @@ def world_rank(rows: int, full: bool) -> list:
     view, the six grouped shapes on both views, execute_degraded /
     execute_grouped_degraded for DEGRADED_LOST on both (all shards lost
     must raise) and the compressed psum on a (4, 2) rank mesh. Returns
-    every rank's record, gathered."""
+    this rank's record."""
     import torch.distributed as dist
 
     from repro_torch.dist import compression
@@ -7305,12 +7403,579 @@ def world_rank(rows: int, full: bool) -> list:
     rec["path_s"] = time.perf_counter() - t_path
     rec["launches"] = read_counters(counters)
     rec["secs"] = secs
-    rec["left_at"] = time.time()
     rec["peak_gib"] = {"set-up": setup_peak / 2**30,
                        "path": torch.cuda.max_memory_allocated() / 2**30}
-    every = [None] * dist.get_world_size()
-    dist.all_gather_object(every, rec)
-    return every
+    return rec
+
+
+# --------------------------------------------------------------------------
+# the world's train slice: train state split over the ranks
+# --------------------------------------------------------------------------
+
+WORLD_TRAIN_LAYERS = 12            # of mamba2-1.3b's 48, its one cut
+WORLD_TRAIN_BS = (2, 2048)         # the global batch: rows x tokens
+WORLD_TRAIN_STEPS = 3              # run A's steps
+WORLD_TRAIN_SAVES = (2, 3)         # A's checkpoints; B resumes from the first
+WORLD_TRAIN_A = (2, 4)             # ("data", "model"): "data" splits the rows
+WORLD_TRAIN_B = (8, 1)             # 2 rows do not divide 8: no rank splits them
+WORLD_PIPE_MESH = ((4, 2), ("pod", "data"))
+WORLD_TRAIN_DIR = Path(__file__).resolve().parent / "build" / "world_train"
+DIGEST_CHUNK = 1 << 24             # words a digest sums at once
+# The one-position run takes each batch as WORLD_TRAIN_MICRO microbatches
+# of one row (make_train_step's fp32 accumulation), which is run A's
+# reduction order: a rank's row, its bf16 gradients summed in fp32 over
+# "data" and halved. So A's step-3 file must equal the one-position state
+# bit for bit, and so must the nccl rank's (1, 1) run of the same step.
+# Run B resumes A's step-2 file on (8, 1), where the two rows stay whole on
+# every rank (one backward over both), so its step 3 differs from A's in
+# reduction order; its bounds were written into PERF.md (PR 32) before the
+# first run. Adam moves a weight by at most ~lr a step: for t <= 3 at b1
+# 0.9 and b2 0.95, |m_hat / sqrt(v_hat)| <= 1.001 whatever the gradients,
+# so two fp32 masters part by at most 2.002 x lr in a step whose gradients
+# differ (UPDATE_X), and their bf16 casts by that plus one bf16 unit at the
+# leaf's largest magnitude (BF16_ULP of it). That holds for any gradients;
+# the moments carry their scale, so m and v are held to a relative norm
+# error per leaf (MOMENT_REL).
+WORLD_TRAIN_MICRO = 2
+UPDATE_X = 2.01
+BF16_ULP = 2.0 ** -7
+MOMENT_REL = 5e-2
+
+
+def world_train_setup(mesh, micro: int = 1) -> tuple:
+    """(config, shape, AdamW config, build_train's step, data) of the
+    world's train slice on `mesh`: mamba2-1.3b at its published widths,
+    WORLD_TRAIN_LAYERS deep, bf16, remat "block", SyntheticLM rows;
+    `micro` microbatches a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import specs
+    from repro_torch.train import optim
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"),
+                              num_layers=WORLD_TRAIN_LAYERS)
+    b, s = WORLD_TRAIN_BS
+    shape = ShapeSpec("world_train", "train", s, b)
+    opt_cfg = optim.AdamWConfig(**TRAIN_FULL_OPT)
+    fn, _ = specs.build_train(cfg, shape, mesh, opt_cfg=opt_cfg,
+                              num_microbatches=micro)
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                global_batch=b))
+    return cfg, shape, opt_cfg, fn, ds
+
+
+def leaf_digest(t: torch.Tensor) -> list:
+    """[sum, position-weighted sum] of a tensor's raw words, each word
+    widened to int64, on its device: equal tensors give equal digests,
+    and a changed bit changes them."""
+    w = t.detach().contiguous().view(-1)
+    w = w.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[w.element_size()])
+    total = weighted = 0
+    for lo in range(0, w.numel(), DIGEST_CHUNK):
+        c = w[lo:lo + DIGEST_CHUNK].to(torch.int64)
+        i = torch.arange(lo + 1, lo + 1 + c.numel(), device=c.device,
+                         dtype=torch.int64)
+        total += int(c.sum())
+        weighted += int((c * i).sum())
+    return [total, weighted]
+
+
+def state_digest(state: dict, shardings=None) -> dict:
+    """leaf_digest of every leaf of a train state, each gathered whole
+    from the ranks' blocks where `shardings` (the state's) lie on a rank
+    mesh (every rank calls it alike)."""
+    from repro_torch.dist.sharding import gather
+    trees = [("params", dict(state["params"].named_parameters()),
+              "params")] + [(k, state["opt"][k], k)
+                            for k in ("m", "v", "master")]
+    out = {}
+    for tree, leaves, key in trees:
+        shs = None if shardings is None else (
+            shardings["params"] if key == "params" else
+            shardings["opt"][key])
+        for name, t in leaves.items():
+            whole = t if shs is None else gather(t.detach(), shs[name])
+            out[f"{tree}.{name}"] = leaf_digest(whole)
+            del whole
+    out["count"] = leaf_digest(state["opt"]["count"])
+    out["step"] = leaf_digest(state["step"])
+    return out
+
+
+class CommClock:
+    """Seconds spent in repro_torch.dist.sharding.gather and
+    torch.distributed.all_reduce while open (the card synchronised
+    before and after each call)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from repro_torch.dist import sharding
+        self.mods = (sharding, dist)
+        self.real = (sharding.gather, dist.all_reduce)
+        self.secs = {"gather": 0.0, "all_reduce": 0.0}
+
+        def timed(name, fn):
+            def call(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    self.secs[name] += time.perf_counter() - t0
+            return call
+
+        sharding.gather = timed("gather", self.real[0])
+        dist.all_reduce = timed("all_reduce", self.real[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.mods[0].gather, self.mods[1].all_reduce = self.real
+
+
+class DigestGathers:
+    """While open and `on`, the leaf_digest of every tensor that
+    repro_torch.dist.sharding.gather returns, in call order (a save over
+    ranks gathers each split leaf whole on every rank)."""
+
+    def __init__(self, on: bool):
+        self.on, self.out = on, []
+
+    def __enter__(self):
+        from repro_torch.dist import sharding
+        self.mod, self.real = sharding, sharding.gather
+        if self.on:
+            def call(*a, **k):
+                whole = self.real(*a, **k)
+                self.out.append(leaf_digest(whole))
+                return whole
+            sharding.gather = call
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.gather = self.real
+
+
+def world_train_run(label: str, dims: tuple, lo: int, hi: int,
+                    saves: tuple, restore_from=None, micro: int = 1,
+                    pending=None) -> dict:
+    """One rank's train run on a (data, model) rank mesh of `dims`: the
+    state drawn from SEED on the card and cut to this rank's blocks (the
+    bytes it then holds against position_bytes), with `restore_from`
+    (a run's label, a step) that run's checkpoint read a block a rank;
+    then, kernel 12's count at 0, steps lo..hi-1 of build_train's step
+    on SyntheticLM's batches (`micro` microbatches a step), a checkpoint
+    (gathered, rank 0 writes in the background) after each step in
+    `saves`; the digest of every gathered leaf (those the last save
+    gathers, and the unsplit leaves, whole on every rank), or without a
+    save of every leaf. With `pending` (a list) the last write is left
+    running and its manager appended there, for the caller to wait on."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import make_global_batch
+    from repro_torch.dist import sharding as shlib
+    from repro_torch.dist import world
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import convert
+    from repro_torch.train import step as step_lib
+    from torch.utils import _pytree as pytree
+    mesh = make_mesh(dims, ("data", "model"), group=dist.group.WORLD)
+    cfg, shape, opt_cfg, fn, ds = world_train_setup(mesh, micro)
+    state_sh, batch_sh = fn.in_shardings
+    secs = {}
+    release()
+    base, base_alloc = requested_bytes(), torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state, _ = step_lib.init_state(SEED, cfg, opt_cfg, device=mesh.device,
+                                   mesh=mesh,
+                                   rules=specs.rules_for(cfg, shape))
+    torch.cuda.synchronize()
+    secs["init"] = time.perf_counter() - t0
+    release()
+    whole = sum(math.prod(sh.global_shape) * t.element_size()
+                for t, sh in zip(state_leaves(state),
+                                 state_leaves(state_sh)))
+    rec = {"mesh": list(dims), "rank": mesh.rank, "coords": mesh.coords,
+           "resident_requested": requested_bytes() - base,
+           "resident_allocated": torch.cuda.memory_allocated() - base_alloc,
+           "position_bytes": shlib.position_bytes(state, state_sh),
+           "whole_bytes": whole}
+    ref_sh = convert.shardings_to_reference(state, state_sh)
+    if restore_from is not None:
+        t0 = time.perf_counter()
+        skeleton = convert.state_to_reference(state)
+        tree, meta = CheckpointManager(WORLD_TRAIN_DIR / restore_from[0]) \
+            .restore(skeleton, step=restore_from[1], shardings=ref_sh)
+        convert.load_reference_state(state, tree)
+        del tree, skeleton
+        torch.cuda.synchronize()
+        secs["restore"] = time.perf_counter() - t0
+        rec["restored_step"] = meta["step"]
+        release()
+    mgr = (CheckpointManager(WORLD_TRAIN_DIR / label, async_save=True)
+           if saves else None)
+    specs_ = {k: sh.spec for k, sh in batch_sh.items()}
+    torch.cuda.reset_peak_memory_stats()
+    world.barrier()
+    sk.LAUNCHES = 0
+    losses, steps, comm = [], [], []
+    for s in range(lo, hi):
+        batch = make_global_batch(ds.batch(s), mesh, specs_)
+        with CommClock() as clock:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+        comm.append(dict(clock.secs))
+        del batch, metrics
+        if s + 1 in saves:
+            # the step's cached blocks back to the card: eight ranks and
+            # this process's neighbours share it (a save holds the
+            # reference-layout copy of the blocks and one whole leaf)
+            release()
+            # the last save's gathers give the digests of the split leaves
+            t0 = time.perf_counter()
+            with DigestGathers(s + 1 == hi) as digests:
+                tree = convert.state_to_reference(state)
+                mgr.save(s + 1, tree, metadata={"run": label},
+                         shardings=ref_sh)
+            secs[f"save {s + 1} (gather, snapshot)"] = \
+                time.perf_counter() - t0
+            if digests.on:
+                rec["digest"] = {"gathered": digests.out, "whole": [
+                    leaf_digest(t) for t, sh in zip(
+                        pytree.tree_leaves(tree), pytree.tree_leaves(ref_sh))
+                    if not sh.splits()]}
+            del tree
+    rec["launches"] = sk.LAUNCHES
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if mgr is not None and pending is not None:
+        pending.append(mgr)
+    elif mgr is not None:
+        t0 = time.perf_counter()
+        mgr.wait()                  # rank 0's background write, a barrier
+        secs["write wait"] = time.perf_counter() - t0
+    if "digest" not in rec:
+        t0 = time.perf_counter()
+        rec["digest"] = state_digest(state, state_sh)
+        secs["digest"] = time.perf_counter() - t0
+    rec.update(losses=losses, step_s=steps, comm_s=comm, secs=secs)
+    del state
+    release()
+    return rec
+
+
+def state_leaves(tree) -> list:
+    """A train state's (or its shardings') leaves in a fixed order:
+    parameters, m, v and master by name, the count and the step."""
+    params = tree["params"]
+    named = (dict(params.named_parameters())
+             if isinstance(params, torch.nn.Module) else params)
+    out = list(named.values())
+    for k in ("m", "v", "master"):
+        out += [tree["opt"][k][n] for n in named]
+    return out + [tree["opt"]["count"], tree["step"]]
+
+
+def world_pipe_rank() -> dict:
+    """gpipe on a WORLD_PIPE_MESH rank mesh, a stage a "pod" rank, on
+    pipeline_phase's inputs, against the sequential composition and its
+    fp32 oracle."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import pipeline_parallel as pp
+    from repro_torch.dist.sharding import (NamedSharding, PartitionSpec,
+                                           local_block)
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(*WORLD_PIPE_MESH, group=dist.group.WORLD)
+    ws, xs = pipe_inputs()
+    block = local_block(ws, NamedSharding(mesh, PartitionSpec("pod")))
+    with CommClock() as clock:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = pp.gpipe(pipe_stage, block, xs, mesh=mesh, axis="pod")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    want = pipe_sequential(ws, xs, torch.bfloat16)
+    oracle = pipe_sequential(ws, xs, torch.float32)
+    err = float((got.float() - oracle).abs().max())
+    err_seq = float((want.float() - oracle).abs().max())
+    return {"rank": mesh.rank, "coords": mesh.coords, "s": sec,
+            "all_reduce_s": clock.secs["all_reduce"], "max_err": err,
+            "max_err_sequential": err_seq,
+            "limit": PIPE_X * err_seq + PIPE_FLOOR,
+            "equal_to_sequential": bool(torch.equal(got, want)),
+            "digest": leaf_digest(got)}
+
+
+def world_train_rank(full: bool) -> dict:
+    """The train slice of a world's rank, after its query path: in the
+    gloo world (`full`) run A on WORLD_TRAIN_A for WORLD_TRAIN_STEPS
+    steps with checkpoints after WORLD_TRAIN_SAVES, run B on
+    WORLD_TRAIN_B restored from A's first checkpoint for the steps left,
+    and GPipe; in the nccl world one rank's (1, 1) mesh for the same
+    steps, as WORLD_TRAIN_MICRO microbatches (nothing split, nothing
+    reduced)."""
+    t0 = time.perf_counter()
+    if not full:
+        out = {"one": world_train_run("one", (1, 1), 0, WORLD_TRAIN_STEPS,
+                                      (), micro=WORLD_TRAIN_MICRO)}
+    else:
+        # A's last file is written while B runs: B reads A's step 2
+        pending = []
+        out = {"A": world_train_run("A", WORLD_TRAIN_A, 0,
+                                    WORLD_TRAIN_STEPS, WORLD_TRAIN_SAVES,
+                                    pending=pending)}
+        out["B"] = world_train_run(
+            "B", WORLD_TRAIN_B, WORLD_TRAIN_SAVES[0], WORLD_TRAIN_STEPS,
+            (WORLD_TRAIN_STEPS,), restore_from=("A", WORLD_TRAIN_SAVES[0]))
+        t0 = time.perf_counter()
+        for mgr in pending:
+            mgr.wait()
+        out["A"]["secs"]["write wait (after B)"] = time.perf_counter() - t0
+        out["pipe"] = world_pipe_rank()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def compare_trees(got, want, update_bound=None) -> dict:
+    """Two train states in the reference's layout, leaf by leaf: params
+    and master within `update_bound` (bf16 params one BF16_ULP of the
+    leaf's largest magnitude more), m and v within MOMENT_REL relative
+    norm, count and step equal; with no `update_bound`, every leaf equal
+    bit for bit. Returns the worst share of its bound by kind, the worst
+    leaf, and the leaves over their bound."""
+    from torch.utils import _pytree as pytree
+    worst, over = {}, []
+    flat_w = dict(pytree.tree_flatten_with_path(want)[0])
+    for path, a in pytree.tree_flatten_with_path(got)[0]:
+        b = flat_w[path]
+        key = ".".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                       for p in path)
+        kind = ("m" if ".m." in f".{key}." else "v" if ".v." in f".{key}."
+                else "int" if not a.is_floating_point() else "weights")
+        if kind == "int" or update_bound is None:
+            share = 0.0 if torch.equal(a, b) else math.inf
+        elif kind == "weights":
+            err = float((a.float() - b.float()).abs().max())
+            limit = update_bound
+            if a.dtype == torch.bfloat16:
+                limit += BF16_ULP * float(torch.maximum(
+                    a.float().abs().max(), b.float().abs().max()))
+            share = err / limit
+        else:
+            norm = float(b.float().norm())
+            share = (float((a.float() - b.float()).norm()) / norm
+                     / MOMENT_REL) if norm else (
+                0.0 if torch.equal(a, b) else math.inf)
+        if not share <= worst.get(kind, (-1.0, ""))[0]:
+            worst[kind] = (share, key)
+        if not share <= 1.0:
+            over.append((key, share))
+    return {"worst": worst, "over": over}
+
+
+def read_checkpoint(label: str, step: int, like, parts: int = 4):
+    """The step-`step` file of run `label` restored into tensors like
+    `like` (a reference-layout state in host memory), its leaves read by
+    `parts` threads (the file reads and CRC-32s release the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.checkpoint import CheckpointManager
+    from torch.utils import _pytree as pytree
+    skeleton = pytree.tree_map(torch.empty_like, like)
+    leaves, spec = pytree.tree_flatten(skeleton)
+    mgr = CheckpointManager(WORLD_TRAIN_DIR / label)
+
+    def part(k):
+        sub = pytree.tree_unflatten(
+            [t if i % parts == k else None for i, t in enumerate(leaves)],
+            spec)
+        return mgr.restore(sub, step=step)[1]["step"]
+
+    with ThreadPoolExecutor(parts) as pool:
+        steps = list(pool.map(part, range(parts)))
+    if steps != [step] * parts:
+        fail(f"run {label}'s checkpoint reads steps {steps}, not {step}")
+    return skeleton
+
+
+def world_train_parent() -> dict:
+    """This process's part of the train slice, run beside the worlds: the
+    one-position run (each batch as WORLD_TRAIN_MICRO one-row
+    microbatches, the ranks' reduction order), its final state kept in
+    host memory (the ranks need the card), and, once run A has published
+    its step-WORLD_TRAIN_STEPS file, that file read into host memory and
+    held against it bit for bit."""
+    from repro_torch.data import make_global_batch
+    from repro_torch.dist.sharding import PartitionSpec as P
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import convert
+    from repro_torch.train import optim
+    from repro_torch.train import step as step_lib
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cfg, _, opt_cfg, fn, ds = world_train_setup(mesh, WORLD_TRAIN_MICRO)
+    t0 = time.perf_counter()
+    state, _ = step_lib.init_state(SEED, cfg, opt_cfg, device="cuda")
+    losses, step_s = [], []
+    for s in range(WORLD_TRAIN_STEPS):
+        batch = make_global_batch(ds.batch(s), mesh, {"inputs": P("data"),
+                                                      "labels": P("data")})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, m = fn(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+    out = {"cfg": cfg, "losses": losses, "step_s": step_s,
+           "digest": state_digest(state),
+           "lrs": [float(optim.schedule(opt_cfg, torch.tensor(c)))
+                   for c in range(1, WORLD_TRAIN_STEPS + 1)]}
+    out["s"] = time.perf_counter() - t0
+    one_ref = convert.state_to_reference(state, device="cpu")
+    del state, batch, m
+    release()
+    published = WORLD_TRAIN_DIR / "A" / f"step_{WORLD_TRAIN_STEPS:010d}"
+    t0 = time.perf_counter()
+    while not published.exists():
+        if time.perf_counter() - t0 > WORLD_DEADLINE_S:
+            raise TimeoutError(f"no {published} after {WORLD_DEADLINE_S} s")
+        time.sleep(0.1)
+    out["wait_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["A"] = read_checkpoint("A", WORLD_TRAIN_STEPS, one_ref)
+    out["read_s"] = time.perf_counter() - t0
+    out["a_vs_one"] = compare_trees(out["A"], one_ref)
+    del one_ref
+    release()
+    return out
+
+
+def world_train_check(dev: dict, gloo: list, nccl: list,
+                      parent: dict) -> dict:
+    """The train slice's checks, after both worlds and world_train_parent
+    (`parent`): every rank's resident bytes equal to position_bytes (the
+    allocator's requested bytes), kernel 12 launched launches_a_step a
+    forward pass, the gathered leaves' digests and the losses equal
+    across the ranks of a run; A's losses and step-3 file equal to the
+    one-position run's bit for bit, and the nccl rank's (1, 1) run too;
+    B's step-3 file within UPDATE_X x lr_3, BF16_ULP and MOMENT_REL of
+    A's; GPipe within its limit on every rank, equal across ranks."""
+    import shutil
+    phase("world train (one position, checkpoints)")
+    bad = []
+    cfg, losses = parent["cfg"], parent["losses"]
+    # forward passes a run makes: steps x microbatches
+    passes_of = {"A": WORLD_TRAIN_STEPS,
+                 "B": WORLD_TRAIN_STEPS - WORLD_TRAIN_SAVES[0],
+                 "one": WORLD_TRAIN_STEPS * WORLD_TRAIN_MICRO}
+    runs = {k: [r["train"][k] for r in gloo] for k in ("A", "B")}
+    runs["one"] = [r["train"]["one"] for r in nccl]
+    for label, recs in runs.items():
+        for r in recs:
+            want_launches = launches_a_step(cfg) * passes_of[label]
+            if r["resident_requested"] != r["position_bytes"]:
+                bad.append((label, r["rank"], "resident bytes",
+                            r["resident_requested"], r["position_bytes"]))
+            if r["launches"] != want_launches:
+                bad.append((label, r["rank"], "kernel 12 launches",
+                            r["launches"], want_launches))
+            if r["digest"] != recs[0]["digest"]:
+                bad.append((label, r["rank"], "gathered leaves differ from "
+                                              "rank 0's"))
+            if r["losses"] != recs[0]["losses"]:
+                bad.append((label, r["rank"], "losses differ from rank 0's"))
+            comm = [{k: round(v, 3) for k, v in c.items()}
+                    for c in r["comm_s"]]
+            print(f"[world train {label}] rank {r['rank']} {r['coords']}: "
+                  f"holds {r['resident_requested']} B requested "
+                  f"({r['resident_allocated']} allocated) of "
+                  f"{r['whole_bytes']} B whole, position_bytes "
+                  f"{r['position_bytes']}; kernel 12 launches "
+                  f"{r['launches']} (want {want_launches}); losses "
+                  f"{r['losses']}; step s "
+                  f"{[round(x, 3) for x in r['step_s']]}, of them "
+                  f"{comm}; "
+                  f"{ {k: round(v, 3) for k, v in r['secs'].items()} }; "
+                  f"peak {r['peak_gib']:.3f} GiB", flush=True)
+    if runs["B"][0].get("restored_step") != WORLD_TRAIN_SAVES[0]:
+        bad.append(("B", "restored step", runs["B"][0].get("restored_step")))
+    if runs["A"][0]["losses"] != losses:
+        bad.append(("A", "losses differ from the one-position run's",
+                    runs["A"][0]["losses"], losses))
+    one = runs["one"][0]
+    nccl_equal = one["digest"] == parent["digest"] and one["losses"] == losses
+    if not nccl_equal:
+        bad.append(("one (nccl)", "differs from the one-position run"))
+    pipe = [r["train"]["pipe"] for r in gloo]
+    for r in pipe:
+        if not r["max_err"] <= r["limit"]:
+            bad.append(("gpipe", r["rank"], r["max_err"], r["limit"]))
+        if r["digest"] != pipe[0]["digest"]:
+            bad.append(("gpipe", r["rank"], "output differs from rank 0's"))
+    t0 = time.perf_counter()
+    file_b = read_checkpoint("B", WORLD_TRAIN_STEPS, parent["A"])
+    read_s = time.perf_counter() - t0
+    a_vs_one = parent["a_vs_one"]
+    b_vs_a = compare_trees(file_b, parent["A"],
+                           UPDATE_X * parent["lrs"][-1])
+    for label, cmp in (("A against one position", a_vs_one),
+                       ("B against A", b_vs_a)):
+        bad += [(label, key, share) for key, share in cmp["over"]]
+    del file_b, parent["A"]
+    shutil.rmtree(WORLD_TRAIN_DIR, ignore_errors=True)
+    release()
+    p0 = pipe[0]
+    print(f"[world train] [{dev['smi']}] {cfg.name} at {cfg.num_layers} of "
+          f"48 layers, bf16, remat {cfg.remat}, batch {WORLD_TRAIN_BS}: "
+          f"one position in this process {parent['s']:.3f} s (steps "
+          f"{[round(x, 3) for x in parent['step_s']]}, {WORLD_TRAIN_MICRO} "
+          f"microbatches, beside the worlds), losses {losses}; run A "
+          f"{WORLD_TRAIN_A}'s losses equal: "
+          f"{runs['A'][0]['losses'] == losses}; lr by step "
+          f"{parent['lrs']}; A's step-{WORLD_TRAIN_STEPS} file (waited "
+          f"{parent['wait_s']:.3f} s, read {parent['read_s']:.3f} s) "
+          f"against the one-position state, bit for bit (share 0 equal, "
+          f"inf not) by kind {a_vs_one['worst']}; B's {WORLD_TRAIN_B} "
+          f"file (read {read_s:.3f} s) against A's {b_vs_a['worst']}; "
+          f"the nccl rank's (1, 1) run equal bit for bit: {nccl_equal}; "
+          f"gpipe on {WORLD_PIPE_MESH} ranks: {p0['s']:.3f} s a rank "
+          f"(all-reduce {p0['all_reduce_s']:.3f}), worst "
+          f"{max(r['max_err'] for r in pipe):.6f} against the fp32 oracle "
+          f"(limit {p0['limit']:.6f}), equal to the sequential "
+          f"composition on every rank "
+          f"{all(r['equal_to_sequential'] for r in pipe)}", flush=True)
+    if bad:
+        for b in bad:
+            print("MISMATCH", str(b)[:2000], file=sys.stderr)
+        fail(f"{len(bad)} world train checks failed")
+    keep = ("rank", "coords", "resident_requested", "resident_allocated",
+            "position_bytes", "launches", "losses", "step_s", "comm_s",
+            "secs", "peak_gib")
+    return {"config": {"arch": cfg.name, "layers": cfg.num_layers,
+                       "batch": list(WORLD_TRAIN_BS), "remat": cfg.remat},
+            "one_position": {k: parent[k] for k in (
+                "losses", "step_s", "s", "wait_s", "read_s")},
+            "runs": {k: [{f: r[f] for f in keep} for r in v]
+                     for k, v in runs.items()},
+            "launches": {k: [r["launches"] for r in v]
+                         for k, v in runs.items()},
+            "a_vs_one": a_vs_one["worst"], "b_vs_a": b_vs_a["worst"],
+            "b_read_s": read_s, "nccl_equal": nccl_equal,
+            "pipe": [{k: r[k] for k in ("rank", "s", "all_reduce_s",
+                                        "max_err", "limit",
+                                        "equal_to_sequential")}
+                     for r in pipe],
+            "bounds": {"UPDATE_X": UPDATE_X, "BF16_ULP": BF16_ULP,
+                       "MOMENT_REL": MOMENT_REL},
+            "card": dev["smi"]}
 
 
 def world_check(every: list, want: dict, label: str) -> list:
@@ -7457,24 +8122,36 @@ def world_phases(dev: dict, sharded: dict, kernels: list) -> dict:
             "reserved_gib": torch.cuda.memory_reserved() / 2**30}
     print(f"before the worlds this process holds {held}", flush=True)
     phase(f"world (gloo, {WORLD_RANKS} ranks on one card)")
+    import shutil
     WORLD_STORE.parent.mkdir(parents=True, exist_ok=True)
     WORLD_STORE.unlink(missing_ok=True)
+    shutil.rmtree(WORLD_TRAIN_DIR, ignore_errors=True)
     try:
-        with ThreadPoolExecutor(2) as pool:
+        with ThreadPoolExecutor(3) as pool:
             gloo = pool.submit(world_spawn, "gloo", WORLD_RANKS, True)
             nccl = pool.submit(world_spawn, "nccl",
                                torch.cuda.device_count(), False)
             prep = world_prepare()
+            # this process's train run and its read of A's file, beside them
+            parent = pool.submit(world_train_parent)
+            gloo_every, gloo_wall = gloo.result()
             out = {"gloo": world_gloo_check(dev, virtual, prep["want"],
-                                            *gloo.result()),
+                                            gloo_every, gloo_wall),
                    "parent": held,
                    "setup": {k: v for k, v in prep.items() if k != "want"}}
             phase(f"world (nccl, one rank a card: "
                   f"{torch.cuda.device_count()})")
-            out["nccl"] = world_nccl_check(dev, prep["want"],
-                                           *nccl.result())
+            nccl_every, nccl_wall = nccl.result()
+            out["nccl"] = world_nccl_check(dev, prep["want"], nccl_every,
+                                           nccl_wall)
+            parent = parent.result()
+        del prep
+        release()
+        out["train"] = world_train_check(dev, gloo_every, nccl_every,
+                                         parent)
     finally:
         WORLD_STORE.unlink(missing_ok=True)
+        shutil.rmtree(WORLD_TRAIN_DIR, ignore_errors=True)
     release()
     for rec in kernels:
         runs = {}
@@ -7604,6 +8281,9 @@ def main() -> None:
     del model
     release()
     kernels += ssd_times(dev, mamba["launches"], parity_err)
+    for rec in kernels:
+        if rec["name"] == "ssd_chunk":      # the world's train slice
+            rec["launches_world_train"] = world["train"]["launches"]
     mamba["ssd_parity"] = ssd_check
     serve["mamba2"] = mamba
     dist: dict = {}

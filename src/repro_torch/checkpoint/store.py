@@ -21,7 +21,16 @@ the same members, byte for byte, and the same manifest apart from `time`.
 - in place: restore() reads each stored array into the skeleton's own
   tensors, so a restored train state needs no second copy on the card;
   a host tensor's bytes come straight from the file (CRC-32 checked as
-  zipfile checks it) with no copy between.
+  zipfile checks it) with no copy between;
+- over ranks (the reference's "per-host shards gathered on save and
+  re-sharded on load onto any mesh"): given the tree's shardings over a
+  launch.mesh.RankMesh, save() gathers each split leaf whole on every
+  rank, on the calling thread, and rank 0 alone writes the files a
+  single process writes; a barrier follows the write (in wait() when the
+  write runs in the background), so no rank reads the directory early.
+  restore() with such shardings reads each member whole (its CRC-32
+  checked) and copies this rank's block into the skeleton's block, for
+  a mesh of any shape.
 
 Leaves may be tensors (on any device), numpy arrays or scalars; an
 nn.Module is a dict of its state_dict() entries.
@@ -41,6 +50,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from repro_torch.dist import sharding as shlib
 
 _SEP = "."
 BF16 = "bfloat16"
@@ -187,33 +198,50 @@ def _mesh_device(sharding):
     port's meshes or NamedShardings (repro_torch.launch.mesh.Mesh,
     repro_torch.dist.sharding.NamedSharding). Over virtual positions,
     however many, on one device, that device holds the leaf whole. Over
-    the ranks of a process group (a RankMesh), state is replicated: each
-    rank holds the leaf whole on its own device, and a NamedSharding that
-    splits the leaf across ranks raises."""
+    the ranks of a process group (a RankMesh) it is this rank's device,
+    which holds its block of a split leaf (the leaf whole where nothing
+    splits it)."""
     devices = getattr(sharding, "device_set", None)
     if devices is None:
         raise TypeError(f"a sharding is one of the port's meshes or "
                         f"NamedShardings, not {sharding!r}")
     mesh = getattr(sharding, "mesh", sharding)
     if getattr(mesh, "group", None) is not None:
-        split = [a for entry in getattr(sharding, "spec", ())
-                 for a in (entry if isinstance(entry, tuple) else (entry,))
-                 if a is not None and mesh.shape[a] > 1]
-        if split:
-            raise NotImplementedError(
-                f"restoring a leaf split across the ranks of {mesh} (over "
-                f"{split}) is not ported: model state split over ranks is "
-                f"ROADMAP.md, 'Modules to port', item 5c; a rank mesh "
-                f"restores replicated leaves")
         return mesh.device
     if len(devices) > 1:
         raise NotImplementedError(
-            f"restoring a leaf split over the {len(devices)} devices of "
-            f"{sharding} is not ported: a single process holds a mesh on "
-            f"one device, and a mesh of ranks (make_mesh(..., group=)) "
-            f"restores leaves replicated; state split over ranks is "
-            f"ROADMAP.md, 'Modules to port', item 5c")
+            f"restoring onto the {len(devices)} devices of {sharding}: a "
+            f"single process's mesh lives on one device; a position a "
+            f"device is a mesh of ranks, make_mesh(..., group=), whose "
+            f"shardings restore a block a rank")
     return next(iter(devices))
+
+
+def _split(sharding) -> bool:
+    """A NamedSharding over ranks that splits its leaf."""
+    return (isinstance(sharding, shlib.NamedSharding)
+            and getattr(sharding.mesh, "group", None) is not None
+            and bool(sharding.splits()))
+
+
+def _read_block(f, zf: zipfile.ZipFile, key: str, dtype: str, into,
+                sharding):
+    """Read member `key` whole (its CRC-32 checked) and copy this rank's
+    block of it under `sharding` into the skeleton's tensor `into`, which
+    must have the block's shape. Returns `into`."""
+    info, shape, fortran, stored, crc = _member_header(f, zf, key)
+    want = sharding.shard_shape(shape)
+    if not isinstance(into, torch.Tensor) or tuple(into.shape) != want:
+        raise ValueError(f"{key}: stored {shape}, whose block under "
+                         f"{sharding.spec} is a {want} tensor; skeleton "
+                         f"{getattr(into, 'shape', into)!r}")
+    a = np.empty(shape[::-1] if fortran else shape, stored)
+    _read_data(f, info, crc, a, key)
+    with torch.no_grad():
+        into.copy_(shlib.local_block(
+            _as_tensor(np.ascontiguousarray(a.T if fortran else a), dtype),
+            sharding))
+    return into
 
 
 def _placed(leaf, device, dtype: str):
@@ -229,6 +257,24 @@ def _placed(leaf, device, dtype: str):
     return _as_tensor(np.array(leaf, order="C"), dtype).to(device)
 
 
+def _flat_shardings(shardings, flat: dict) -> dict:
+    """{path: sharding or None} for the leaves of `flat`, from a tree of
+    shardings or one sharding for every leaf."""
+    if isinstance(shardings, (dict, list, tuple)):
+        return _flatten(shardings)
+    return dict.fromkeys(flat, shardings)
+
+
+def _rank_group(shardings) -> object | None:
+    """The process group of the rank mesh the shardings lie on, or None
+    for virtual meshes and no shardings."""
+    for sh in shardings:
+        group = getattr(getattr(sh, "mesh", sh), "group", None)
+        if group is not None:
+            return group
+    return None
+
+
 class CheckpointManager:
     def __init__(self, directory, keep_last: int = 3,
                  async_save: bool = False):
@@ -237,31 +283,62 @@ class CheckpointManager:
         self.keep_last = keep_last
         self.async_save = async_save
         self._thread: threading.Thread | None = None
+        self._group = None        # a rank mesh's group after its save
 
     # ------------------------------------------------------------------
-    def save(self, step: int, tree, metadata: dict | None = None):
-        """Snapshot to host memory, then write (optionally in background)."""
+    def save(self, step: int, tree, metadata: dict | None = None,
+             shardings=None):
+        """Snapshot to host memory, then write (optionally in background).
+        `shardings` (a tree matching `tree`, or one sharding for every
+        leaf) over a rank mesh: every rank calls save alike, each split
+        leaf is gathered whole, and rank 0 alone snapshots and writes;
+        the ranks meet at a barrier after the write."""
         flat = _flatten(tree)
-        host = {k: _snapshot(v) for k, v in flat.items()}   # device->host
-        meta = {
-            "step": int(step),
-            "time": time.time(),
-            "leaves": {k: {"shape": list(a.shape), "dtype": dtype}
-                       for k, (a, _, dtype) in host.items()},
-            "user": metadata or {},
-        }
-        if self.async_save:
+        flat_sh = _flat_shardings(shardings, flat)
+        group = _rank_group(flat_sh.values())
+        writer = True
+        if group is not None:
+            import torch.distributed as dist
+            if self.async_save:
+                self.wait()           # every rank: the last save's barrier
+            writer = dist.get_rank(group) == 0
+        host = {}
+        for k, v in flat.items():     # leaf by leaf: one whole at a time
+            sh = flat_sh.get(k)
+            whole = shlib.gather(v.detach(), sh) if _split(sh) else v
+            if writer:
+                host[k] = _snapshot(whole)                 # device->host
+            del whole
+        if writer:
+            meta = {
+                "step": int(step),
+                "time": time.time(),
+                "leaves": {k: {"shape": list(a.shape), "dtype": dtype}
+                           for k, (a, _, dtype) in host.items()},
+                "user": metadata or {},
+            }
+            if self.async_save:
+                self.wait()
+                self._thread = threading.Thread(
+                    target=self._write, args=(step, host, meta),
+                    daemon=True)
+                self._thread.start()
+            else:
+                self._write(step, host, meta)
+        self._group = group
+        if group is not None and not self.async_save:
             self.wait()
-            self._thread = threading.Thread(
-                target=self._write, args=(step, host, meta), daemon=True)
-            self._thread.start()
-        else:
-            self._write(step, host, meta)
 
     def wait(self):
+        """Join a write still in flight; after a save over ranks, every
+        rank then meets the others at a barrier."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._group is not None:
+            from repro_torch.dist import world
+            group, self._group = self._group, None
+            world.barrier(group)
 
     def _write(self, step: int, host: dict, meta: dict):
         final = self.dir / f"step_{step:010d}"
@@ -308,19 +385,18 @@ class CheckpointManager:
         tree of them (None where a leaf needs none) matching `skeleton`:
         a non-tensor leaf becomes a tensor on that sharding's device, a
         tensor leaf must already live there. A mesh of any number of
-        positions on one device restores each leaf whole, and so does a
-        mesh of ranks on each rank's device (state is replicated there);
-        a leaf split over ranks or devices raises NotImplementedError
-        (ROADMAP item 5c). `mesh` is accepted and unused, as in the
+        positions on one device restores each leaf whole. Over a mesh of
+        ranks each rank restores onto its own device: the whole leaf
+        where nothing splits it, else its block, which is what the
+        skeleton's tensor must hold; the files may come from any mesh. A
+        mesh over several devices in one process raises
+        NotImplementedError. `mesh` is accepted and unused, as in the
         reference."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         meta = self.metadata(step)
-        if isinstance(shardings, (dict, list, tuple)):
-            flat_sh = _flatten(shardings)
-        else:
-            flat_sh = dict.fromkeys(_flatten(skeleton), shardings)
+        flat_sh = _flat_shardings(shardings, _flatten(skeleton))
 
         def device(key):
             sh = flat_sh.get(key)
@@ -348,6 +424,10 @@ class CheckpointManager:
                 if key not in meta["leaves"]:
                     raise KeyError(f"{key} is not in checkpoint {step}")
                 dtype = meta["leaves"][key]["dtype"]
+                if _split(flat_sh.get(key)):
+                    return _placed(_read_block(f, zf, key, dtype, node,
+                                               flat_sh[key]),
+                                   device(key), dtype)
                 return _placed(_read_leaf(f, zf, key, dtype, node),
                                device(key), dtype)
             tree = rec(skeleton)

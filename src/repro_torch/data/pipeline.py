@@ -4,8 +4,10 @@ repro/data/pipeline.py).
 - batch(step) is a pure function of (seed, step): a restart at step k
   reproduces the exact stream, so checkpoint/restart is bitwise stable.
   The rows are the reference's numpy draws, bit for bit.
-- The port runs one process: `local_batch` defaults to process 0 of 1,
-  and `make_global_batch` puts the rows on the mesh's one device.
+- `local_batch` defaults to process 0 of 1. `make_global_batch` puts
+  the rows on a virtual mesh's one device whole; on a mesh of ranks each
+  rank draws the same global rows and keeps its block under the spec,
+  the rows jax.make_array_from_process_local_data puts on that device.
 - A host-side prefetch thread overlaps generation with device compute.
 """
 from __future__ import annotations
@@ -16,6 +18,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.dist.sharding import NamedSharding, local_block
 
 JOIN_TIMEOUT_S = 5.0     # Prefetcher.close waits this long for its thread
 
@@ -77,17 +81,20 @@ def _check_spec(spec, mesh, ndim: int) -> None:
 
 
 def make_global_batch(host_batch: dict, mesh, specs: dict):
-    """Host rows -> tensors on `mesh.device`: tokens int32, embeddings
-    float32. Every position of the port's mesh lives on one device, so a
-    spec only names the axes the rows would split over; it is checked,
-    and the rows go to the device whole."""
+    """Host rows of the global batch -> tensors on `mesh.device`: tokens
+    int32, embeddings float32. Every position of a virtual mesh lives on
+    one device, so there a spec only names the axes the rows would split
+    over; it is checked, and the rows go to the device whole. On a rank
+    mesh (launch.mesh.RankMesh) only this rank's block under the spec
+    goes to its device; a split that does not divide raises."""
     out = {}
     for k, v in host_batch.items():
         v = np.asarray(v)
         _check_spec(specs[k], mesh, v.ndim)
         dtype = torch.float32 if v.dtype.kind == "f" else torch.int32
-        out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(
-            mesh.device, dtype)
+        t = local_block(torch.from_numpy(np.ascontiguousarray(v)),
+                        NamedSharding(mesh, specs[k]))
+        out[k] = t.to(mesh.device, dtype)
     return out
 
 

@@ -14,8 +14,11 @@ psum (compression.py) and the GPipe ring (pipeline_parallel.py), run
 there over a leading axis of positions, one batched op per reduction or
 tick. A mesh over the ranks of a process group (world.py,
 launch.mesh.make_mesh(..., group=)) runs the compressed psum as
-collectives over its "pod" subgroups, and the sharded tables of
-repro_torch.query and repro_torch.store a shard a rank. Model state split
-over ranks (NamedSharding placing real shards, GPipe's ring over
-send/recv, restoring split leaves) is ROADMAP.md's item 5c.
+collectives over its "pod" subgroups, the sharded tables of
+repro_torch.query and repro_torch.store a shard a rank, and splits train
+state: a rank holds its block of every split leaf (sharding.local_block,
+gather), the train step gathers the parameters and reduces gradients
+over the batch's axes, and GPipe's ring is a send/recv a tick between
+the stage ranks (world.exchange). The serve step on ranks, with split
+caches and tensor-parallel compute, is ROADMAP.md's item 5d.
 """

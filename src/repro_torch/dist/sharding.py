@@ -26,6 +26,17 @@ subscribers (the dry run's cost tracer) see the layout change; outside a
 distribution setup. Numerically, sharding is a deployment detail: the
 same step on a (2, 4) mesh and on a one-position mesh gives the same
 bits.
+
+Over the ranks of a process group (a launch.mesh.RankMesh) a split leaf
+is real: a rank holds the block of the global leaf that its coordinates
+select (`local_block`), `shard_shape(global)` in size. Along a dimension
+whose spec entry names several axes, ("data", "pod") say, the block
+index runs row-major over those axes in the entry's order, as JAX lays
+out such a dimension. `gather` rebuilds the global leaf from the blocks
+with all_gather_into_tensor over each axis's subgroup (float leaves
+only: integer leaves are never split). A sharding made by
+`sharding_tree` records its leaf's global shape, so `check_placed` and
+`position_bytes` read a rank's tree of blocks against it.
 """
 from __future__ import annotations
 
@@ -79,13 +90,18 @@ class PartitionSpec(tuple):
 
 
 class NamedSharding:
-    """A spec over a mesh. `device` is where the tensor lives whole;
-    `shard_shape(global_shape)` is what one position would hold."""
+    """A spec over a mesh. `device` is where the tensor lives (whole on a
+    virtual mesh, this rank's block on a rank mesh);
+    `shard_shape(global_shape)` is what one position holds.
+    `global_shape`, where known (sharding_tree records it), is the shape
+    of the whole leaf."""
 
-    def __init__(self, mesh, spec):
+    def __init__(self, mesh, spec, global_shape=None):
         self.mesh = mesh
         self.spec = spec if isinstance(spec, PartitionSpec) else \
             PartitionSpec(*spec)
+        self.global_shape = (None if global_shape is None else
+                             tuple(int(n) for n in global_shape))
 
     @property
     def device(self) -> torch.device:
@@ -115,6 +131,24 @@ class NamedSharding:
                                  f"into {n} shards ({self.spec})")
             out[i] //= n
         return tuple(out)
+
+    def dim_axes(self, dim: int) -> tuple:
+        """The mesh axes that split dim `dim` (() where none do)."""
+        return self._group(self.spec[dim] if dim < len(self.spec) else None)
+
+    def splits(self) -> list:
+        """(dim, axes of its entry) for each dim split over more than one
+        position."""
+        return [(i, self._group(e)) for i, e in enumerate(self.spec)
+                if math.prod(self.mesh.shape[a] for a in self._group(e)) > 1]
+
+    def stacked(self, n: int) -> "NamedSharding":
+        """The sharding of `n` such leaves stacked on a new leading,
+        unsplit dim (the reference's stacked layer groups)."""
+        shape = (None if self.global_shape is None
+                 else (n,) + self.global_shape)
+        return NamedSharding(self.mesh, PartitionSpec(None, *self.spec),
+                             shape)
 
     def __repr__(self) -> str:
         return f"NamedSharding({self.mesh!r}, {self.spec!r})"
@@ -194,38 +228,103 @@ def tree_map2(fn, tree, twin):
 
 def sharding_tree(tree, axes, mesh, rules):
     """Twin-tree map: (tensors, axes strings) -> NamedShardings; a module
-    in `tree` pairs with a dict of its parameter names in `axes`."""
-    return tree_map2(
-        lambda leaf, ax: NamedSharding(
-            mesh, resolve_spec(tuple(getattr(leaf, "shape", ())), ax, mesh,
-                               rules)),
-        tree, axes)
+    in `tree` pairs with a dict of its parameter names in `axes`. The
+    leaves are the global ones (whole, or on the meta device): each
+    sharding records its leaf's shape as the global shape."""
+    def one(leaf, ax):
+        shape = tuple(getattr(leaf, "shape", ()))
+        return NamedSharding(mesh, resolve_spec(shape, ax, mesh, rules),
+                             shape)
+    return tree_map2(one, tree, axes)
+
+
+def _on_ranks(sh) -> bool:
+    return getattr(sh.mesh, "group", None) is not None
 
 
 def check_placed(tree, shardings):
-    """What the reference's in_shardings do, on one card: every tensor of
-    `tree` lives on its sharding's device, and its shape divides as the
-    spec says. Returns `tree`; raises ValueError otherwise."""
+    """What the reference's in_shardings do: every tensor of `tree` lives
+    on its sharding's device. On a virtual mesh it is the whole leaf and
+    its shape divides as the spec says; on a rank mesh it is this rank's
+    block, `shard_shape` of the sharding's global shape. Returns `tree`;
+    raises ValueError otherwise."""
     def one(leaf, sh):
         if not isinstance(leaf, torch.Tensor):
             raise ValueError(f"{leaf!r} is not a tensor")
         if leaf.device != sh.device:
             raise ValueError(f"a tensor on {leaf.device}, its sharding on "
                              f"{sh.device}")
-        sh.shard_shape(leaf.shape)
+        if not _on_ranks(sh):
+            sh.shard_shape(leaf.shape)
+            return
+        if sh.global_shape is None:
+            raise ValueError(f"{sh} records no global shape: a rank "
+                             f"mesh's shardings come from sharding_tree "
+                             f"over the global leaves")
+        want = sh.shard_shape(sh.global_shape)
+        if tuple(leaf.shape) != want:
+            raise ValueError(f"a rank holds {tuple(leaf.shape)} of a "
+                             f"{sh.global_shape} leaf whose block under "
+                             f"{sh.spec} is {want}")
     tree_map2(one, tree, shardings)
     return tree
 
 
 def position_bytes(tree, shardings) -> int:
     """Bytes one position holds of `tree` (tensors, on any device, meta
-    included) under `shardings`: each leaf's shard_shape times its element
-    size, summed."""
+    included; whole leaves, or a rank's blocks where the shardings record
+    the global shapes) under `shardings`: each leaf's shard_shape times
+    its element size, summed. On a rank mesh, the bytes a rank holds."""
     total = []
     tree_map2(lambda leaf, sh: total.append(
-        math.prod(sh.shard_shape(leaf.shape)) * leaf.element_size()),
-        tree, shardings)
+        math.prod(sh.shard_shape(sh.global_shape or leaf.shape))
+        * leaf.element_size()), tree, shardings)
     return sum(total)
+
+
+# --------------------------------------------------------------------------
+# blocks over ranks
+# --------------------------------------------------------------------------
+
+def local_block(x: torch.Tensor, sharding) -> torch.Tensor:
+    """This rank's block of the global tensor `x` (a view of it) under
+    `sharding` over a rank mesh; `x` itself over a virtual mesh, where
+    every position holds the whole. Raises ValueError where a split dim
+    does not divide."""
+    if not _on_ranks(sharding):
+        return x
+    sharding.shard_shape(x.shape)               # divides, or raises
+    mesh = sharding.mesh
+    for dim, axes in sharding.splits():
+        size = x.shape[dim] // math.prod(mesh.shape[a] for a in axes)
+        x = x.narrow(dim, mesh.block_index(axes) * size, size)
+    return x
+
+
+def gather(block: torch.Tensor, sharding) -> torch.Tensor:
+    """The global tensor from every rank's block under `sharding` (every
+    rank of the mesh calls it alike): all_gather_into_tensor over the
+    subgroup of each split axis, the entry's last axis first. `block`
+    itself where nothing is split, or on a virtual mesh."""
+    splits = sharding.splits() if _on_ranks(sharding) else []
+    if not splits:
+        return block
+    if not block.is_floating_point():
+        raise ValueError(f"a {block.dtype} leaf split over ranks: only "
+                         f"float leaves are split and gathered")
+    from repro_torch.dist import world
+    mesh = sharding.mesh
+    out = block
+    for dim, axes in splits:
+        for axis in reversed(axes):
+            n = mesh.shape[axis]
+            if n == 1:
+                continue
+            parts = world.all_gather(out, mesh.axis_group(axis))
+            shape = list(out.shape)
+            shape[dim] *= n
+            out = parts.movedim(0, dim).reshape(shape)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -236,12 +335,16 @@ _ACTIVE = threading.local()
 
 
 @contextmanager
-def use_rules(mesh, rules):
-    """Activate (mesh, rules) for logical_constraint within this thread."""
+def use_rules(mesh, rules, split=None):
+    """Activate (mesh, rules) for logical_constraint within this thread.
+    `split` maps a logical name to the mesh axes over which the tensors
+    of this rank hold only a block of that dim (on a rank mesh, the
+    batch's axes): logical_constraint resolves specs against the global
+    size there. current_rules() gives back the arguments given."""
     stack = getattr(_ACTIVE, "stack", None)
     if stack is None:
         stack = _ACTIVE.stack = []
-    stack.append((mesh, rules))
+    stack.append((mesh, rules) + ((dict(split),) if split else ()))
     try:
         yield
     finally:
@@ -270,15 +373,24 @@ def uncounted():
 def logical_constraint(x, names):
     """The reference's with_sharding_constraint by logical names. Returns
     `x` itself: outside a use_rules context it does nothing; inside, it
-    resolves the spec and checks that `x` lives on the mesh's device."""
+    resolves the spec against `x`'s global shape (its own, times the
+    positions of the axes that `use_rules(split=)` names for a dim's
+    logical name) and checks that `x` lives on the mesh's device."""
     active = current_rules()
     if active is None:
         return x
     global CONSTRAINT_CALLS
     if not _uncounted:
         CONSTRAINT_CALLS += 1
-    mesh, rules = active
-    spec = resolve_spec(x.shape, names, mesh, rules)
+    mesh, rules = active[:2]
+    shape = tuple(x.shape)
+    if len(active) > 2:             # dims of which x is this rank's block
+        split = active[2]
+        shape = tuple(n * math.prod(mesh.shape[a] for a in split.get(name,
+                                                                      ()))
+                      for n, name in zip(shape, _names_of(names)
+                                         + (None,) * x.ndim))
+    spec = resolve_spec(shape, names, mesh, rules)
     if x.device != mesh.device:
         raise ValueError(f"a tensor on {x.device} under a mesh on "
                          f"{mesh.device} ({spec})")

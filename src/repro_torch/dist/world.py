@@ -116,6 +116,36 @@ def shutdown() -> None:
     _DEVICE = None
 
 
+def barrier(group=None) -> None:
+    """Every rank of `group` (the default group when None) waits here
+    for the others."""
+    kw = {}
+    if dist.get_backend(group) == "nccl":
+        kw["device_ids"] = [device().index]
+    dist.barrier(group=group, **kw)
+
+
+def exchange(send: torch.Tensor, recv: torch.Tensor, to: int, frm: int,
+             group) -> torch.Tensor:
+    """One paired point-to-point step: `send` goes to rank `to` while
+    `recv` is filled from rank `frm` (ranks of the default group, both in
+    `group`). Returns `recv`. Under nccl the tensors stay on their
+    device. gloo's send and recv serve host buffers, so under gloo a CUDA
+    tensor is copied to host memory and back here."""
+    staged = dist.get_backend(group) == "gloo" and send.is_cuda
+    out = recv
+    if staged:
+        send = send.cpu()
+        recv = torch.empty(recv.shape, dtype=recv.dtype)
+    ops = [dist.P2POp(dist.isend, send.contiguous(), to, group),
+           dist.P2POp(dist.irecv, recv, frm, group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if staged:
+        out.copy_(recv)
+    return out
+
+
 def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     """(n, *t.shape): every rank's `t` in the group's rank order.
     all_gather_into_tensor on both backends and both devices."""

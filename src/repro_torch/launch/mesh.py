@@ -17,9 +17,14 @@ share a card under gloo; repro_torch.dist.world), numbered in row-major
 order as jax.make_mesh orders jax.devices(), with one subgroup an axis
 for the collectives along it. A sharded table keeps a shard a rank and
 combines over the axis's subgroup; the compressed psum reduces over the
-"pod" subgroups. Model state split over ranks (the sharded train and
-serve steps, GPipe's ring, restoring split leaves) is ROADMAP.md's item
-5c: there a rank mesh holds state replicated.
+"pod" subgroups. Train state is split: under a NamedSharding a rank
+holds the block of each leaf that its coordinates select
+(`block_index`; repro_torch.dist.sharding.local_block), the train step
+gathers the parameters whole and reduces the gradients over the batch's
+axes (repro_torch.train.step), checkpoints gather on save and restore a
+block a rank, and GPipe runs a stage a rank over send/recv. The serve
+step's state on ranks (caches split, tensor-parallel compute) is
+ROADMAP.md's item 5d.
 """
 from __future__ import annotations
 
@@ -106,6 +111,20 @@ class RankMesh(Mesh):
             raise ValueError(f"mesh has no axis {axis!r}; axes are "
                              f"{self.axes}")
         return self._groups[axis]
+
+    def axis_ranks(self, axis: str) -> list:
+        """The default group's ranks of axis_group(axis), in coordinate
+        order (what point-to-point calls name as peers)."""
+        import torch.distributed as dist
+        return dist.get_process_group_ranks(self.axis_group(axis))
+
+    def block_index(self, axes) -> int:
+        """This rank's block along a dim split over `axes` (a spec
+        entry's axes, in order): its coordinates row-major over them."""
+        index = 0
+        for a in axes:
+            index = index * self.shape[a] + self.coords[a]
+        return index
 
     def __repr__(self) -> str:
         return (f"RankMesh({self.shape}, rank={self.rank}, "

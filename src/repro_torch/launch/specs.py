@@ -120,12 +120,19 @@ def build_train(cfg, shape, mesh, opt_cfg=None, num_microbatches: int = 1,
     batch, batch_axes = batch_specs(cfg, shape)
     state_sh = shardings(state, state_axes, mesh, rules)
     batch_sh = shardings(batch, batch_axes, mesh, rules)
-    step = train_step_lib.make_train_step(cfg, opt_cfg, num_microbatches)
+    split = None
+    if mesh.group is None:
+        step = train_step_lib.make_train_step(cfg, opt_cfg, num_microbatches)
+    else:
+        axes = batch_sh["labels"].dim_axes(0)
+        split = {"batch": axes} if axes else None
+        step = train_step_lib.make_rank_train_step(
+            cfg, opt_cfg, mesh, state_sh["params"], axes, num_microbatches)
 
     def fn(state, batch):
         shlib.check_placed(state, state_sh)
         shlib.check_placed(batch, batch_sh)
-        with shlib.use_rules(mesh, rules):
+        with shlib.use_rules(mesh, rules, split):
             new, metrics = step(state, batch)
         state.update(new)
         return state, metrics

@@ -220,6 +220,25 @@ def state_to_reference(state: dict, device=None) -> dict:
             "step": state["step"].detach().to(dev)}
 
 
+def shardings_to_reference(state: dict, shardings: dict) -> dict:
+    """The shardings of state_to_reference(state)'s leaves, from the
+    state's own (dist.sharding.sharding_tree over it): a stacked group
+    leaf takes its layers' sharding with an unsplit leading dim, so on a
+    rank mesh the stack of this rank's blocks is its block of the
+    stacked leaf."""
+    leaves = leaf_map(state["params"])
+
+    def tree(named):
+        return _assemble(dict(named), leaves,
+                         lambda shs: shs[0].stacked(len(shs)))
+
+    opt = shardings["opt"]
+    ref_opt = {k: tree(opt[k]) for k in ("m", "v", "master") if k in opt}
+    ref_opt["count"] = opt["count"]
+    return {"params": tree(shardings["params"]), "opt": ref_opt,
+            "step": shardings["step"]}
+
+
 @torch.no_grad()
 def load_reference_state(state: dict, tree) -> dict:
     """Write a reference-shaped train state of tensors (as

@@ -92,12 +92,16 @@ def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
 
 @torch.no_grad()
 def apply_updates(params: torch.nn.Module, grads: dict, state: dict,
-                  cfg: AdamWConfig):
+                  cfg: AdamWConfig, norm: torch.Tensor | None = None):
     """One AdamW step, in place: `grads` maps every parameter name to its
     gradient (any float dtype; read, never written). Returns (params,
     new_state, metrics); new_state holds the same m / v / master tensors,
-    updated, and the next count."""
-    gnorm = global_norm(grads)
+    updated, and the next count. `norm` is the gradients' global norm
+    where `grads` (and `params`, m, v, master) are one rank's blocks: the
+    caller computes it over the whole reduced gradients, as global_norm
+    does, since a block's own norm would clip wrongly. None: global_norm
+    of `grads`."""
+    gnorm = global_norm(grads) if norm is None else norm
     scale = _clip_scale(gnorm, cfg.grad_clip)
     count = state["count"] + 1
     lr = schedule(cfg, count)

@@ -187,9 +187,9 @@ def test_restore_onto_the_one_device_mesh(tmp_path):
 def test_restore_over_mesh_positions_names_5b(tmp_path):
     """A mesh of many positions on one device restores each leaf whole, as
     does a tree of NamedShardings over it; a sharding whose positions span
-    more than one device raises, naming ROADMAP item 5c (state split
-    over ranks; 5b, the mesh of ranks, restores replicated leaves:
-    tests/test_torch_world.py)."""
+    more than one device in one process raises, pointing to a mesh of
+    ranks, whose split restore tests/test_torch_world.py and
+    tests/test_torch_world_train.py hold."""
     from types import SimpleNamespace
 
     from repro_torch.dist.sharding import NamedSharding, PartitionSpec
@@ -206,7 +206,8 @@ def test_restore_over_mesh_positions_names_5b(tmp_path):
         assert bits(got) == bits(want), k
     two = SimpleNamespace(device_set={torch.device("cpu"),
                                       torch.device("meta")})
-    with pytest.raises(NotImplementedError, match="5c"):
+    with pytest.raises(NotImplementedError,
+                       match="lives on one device.*make_mesh"):
         mgr.restore(skeleton_of(np_tree()), shardings=two)
     with pytest.raises(TypeError):
         mgr.restore(skeleton_of(np_tree()), shardings="data")

@@ -22,6 +22,7 @@ import os
 import pickle
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -34,6 +35,9 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 MAMBA_TOL = dict(rtol=2e-3, atol=2e-3)
 ELASTIC_TOL = dict(rtol=2e-5, atol=2e-5)
 ELASTIC_OPT = dict(lr=1e-3, warmup_steps=1, decay_steps=10)
+PIPE = (4, 8, 16)                   # check_pipeline's stages, micro, d
+# spec entries of a (16, 8) leaf on (4, 2) ("pod", "data") devices
+BLOCK_SPECS = ((("pod", "data"),), ("data", "pod"))
 
 
 def _child(out_path: str) -> None:
@@ -104,6 +108,30 @@ def _child(out_path: str) -> None:
         restored, _ = mgr.restore(skeleton, shardings=sh_b)
         final = run(jit_b, restored, mesh_b, 2, 4)
     out["elastic_ref"], out["elastic_final"] = np_tree(ref), np_tree(final)
+
+    # check_pipeline's inputs, its oracle and the reference's gpipe
+    import jax.numpy as jnp
+    from repro.dist.pipeline_parallel import gpipe
+    s_, m_, d_ = PIPE
+    key = jax.random.PRNGKey(0)
+    ws = jax.random.normal(key, (s_, d_, d_)) / np.sqrt(d_)
+    xs = jax.random.normal(key, (m_, 2, d_))
+    want = xs
+    for i in range(s_):
+        want = jnp.tanh(want @ ws[i])
+    got = gpipe(lambda w, x: jnp.tanh(x @ w), ws, xs,
+                mesh=make_mesh((4,), ("pod",)), axis="pod")
+    out["pipeline"] = np_tree({"ws": ws, "xs": xs, "want": want,
+                               "gpipe": got})
+
+    # each device's block of a leaf under a two-axis entry and a 2-D spec
+    from jax.sharding import NamedSharding
+    mesh42 = make_mesh((4, 2), ("pod", "data"))
+    leaf = np.arange(16 * 8, dtype=np.float32).reshape(16, 8)
+    out["blocks"] = {
+        spec: {s.device.id: np.asarray(s.data) for s in jax.device_put(
+            leaf, NamedSharding(mesh42, P(*spec))).addressable_shards}
+        for spec in BLOCK_SPECS}
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
 
@@ -141,20 +169,52 @@ ABSTRACT_ARCHS = ("internlm2-1.8b", "mamba2-1.3b", "recurrentgemma-2b",
 FULL_WIDTH_TRAIN = ("internlm2-1.8b", "mamba2-1.3b")
 
 
-@pytest.fixture(scope="module")
-def child(tmp_path_factory):
-    out = tmp_path_factory.mktemp("specs") / "reference.pkl"
-    root = Path(__file__).resolve().parents[1]
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8",
-               PYTHONPATH=os.pathsep.join(
-                   [str(root / "src"), os.environ.get("PYTHONPATH", "")]))
-    run = subprocess.run([sys.executable, __file__, "child", str(out)],
-                         env=env, capture_output=True, text=True,
-                         timeout=CHILD_TIMEOUT_S)
-    assert run.returncode == 0, run.stderr[-4000:]
+def reference_outputs(tmp_path_factory) -> dict:
+    """The child's outputs, made once a test session: the first caller
+    (of this file or tests/test_torch_world_train.py, in any xdist
+    worker) runs the child under an exclusive lock file in the session's
+    shared temporary directory; later callers wait for its result file
+    and read it."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent                  # shared by the workers
+    out, err = base / "specs_reference.pkl", base / "specs_reference.err"
+    try:
+        os.close(os.open(base / "specs_reference.lock",
+                         os.O_CREAT | os.O_EXCL))
+    except FileExistsError:
+        t0 = time.monotonic()
+        while not (out.exists() or err.exists()):
+            assert time.monotonic() - t0 < CHILD_TIMEOUT_S + 60, \
+                "the reference child of another worker did not finish"
+            time.sleep(0.2)
+    else:
+        root = Path(__file__).resolve().parents[1]
+        env = dict(os.environ, JAX_PLATFORMS="cpu",
+                   XLA_FLAGS="--xla_force_host_platform_device_count=8",
+                   PYTHONPATH=os.pathsep.join(
+                       [str(root / "src"), os.environ.get("PYTHONPATH",
+                                                          "")]))
+        part = out.with_suffix(".part")
+        try:
+            run = subprocess.run([sys.executable, __file__, "child",
+                                  str(part)], env=env, capture_output=True,
+                                 text=True, timeout=CHILD_TIMEOUT_S)
+            message = run.stderr[-4000:] if run.returncode else None
+        except subprocess.TimeoutExpired as e:
+            message = f"timed out: {e}"
+        if message is not None:
+            err.write_text(message)
+        else:
+            part.rename(out)
+    assert not err.exists(), err.read_text()
     with open(out, "rb") as f:
         return pickle.load(f)
+
+
+@pytest.fixture(scope="module")
+def child(tmp_path_factory):
+    return reference_outputs(tmp_path_factory)
 
 
 def _at(tree, path):

@@ -132,12 +132,19 @@ def _restore(ck_dir: str) -> list:
         out[label] = {k: (np.asarray(v).tobytes(), str(getattr(v, "device",
                                                                "")))
                       for k, v in tree.items()}
+    block = torch.zeros(4, 16)
+    tree, _ = mgr.restore({"w": block, "s": np.float32(0)}, shardings={
+        "w": NamedSharding(mesh, PartitionSpec("data")),
+        "s": NamedSharding(mesh, PartitionSpec())})
+    out["split"] = {"coords": mesh.coords, "in_place": tree["w"] is block,
+                    "w": tree["w"].numpy().tobytes(),
+                    "s": (tree["s"].numpy().tobytes(), str(tree["s"].device))}
     try:
         mgr.restore({"w": torch.zeros(8, 16)}, shardings={
             "w": NamedSharding(mesh, PartitionSpec("data"))})
-        out["split"] = "no error"
-    except NotImplementedError as e:
-        out["split"] = str(e)
+        out["whole into a block"] = "no error"
+    except ValueError as e:
+        out["whole into a block"] = str(e)
     return _gather(out)
 
 
@@ -244,15 +251,22 @@ def test_compressed_psum_over_ranks_equals_the_virtual_mesh(eight, key):
 
 def test_checkpoint_restores_on_a_rank_mesh(eight):
     """A rank mesh, and a replicated NamedSharding over it, restore each
-    leaf whole on every rank's device; a leaf split across ranks raises,
-    naming ROADMAP item 5c."""
+    leaf whole on every rank's device; a leaf split over "data" restores
+    each rank's block of it into the skeleton's block, in place, and a
+    whole leaf where a block belongs raises."""
     saved = eight["saved"]
+    w = np.frombuffer(saved["w"], np.float32).reshape(8, 16)
     for rank, got in enumerate(eight["restore"]):
         for label in ("mesh", "replicated"):
             for k, want in saved.items():
                 assert got[label][k][0] == want, (rank, label, k)
             assert got[label]["w"][1] == "cpu"
-        assert "5c" in got["split"] and "split" in got["split"], rank
+        split = got["split"]
+        d = split["coords"]["data"]
+        assert split["in_place"], rank
+        assert split["w"] == w[4 * d:4 * d + 4].tobytes(), rank
+        assert split["s"] == (saved["s"], "cpu"), rank
+        assert "block under" in got["whole into a block"], rank
 
 
 @pytest.fixture(scope="module")
