@@ -352,8 +352,8 @@ pipeline, the checkpoint store and the supervisor) run after the Griffin
 / MoE phases, before the training slice, at mamba2-1.3b's published
 widths, bf16 (the launchers' attn_impl="auto" reaches no attention
 kernel; every SSD layer's forward is kernel 12); the train launcher and
-the phases that reuse its run (18d-18f) at LAUNCH_LAYERS = 24 of its 48
-layers since PR 32, launch.serve at 48:
+the phases that reuse its run (18d-18f) at LAUNCH_LAYERS = 12 of its 48
+layers (cut to pay for the world slices), launch.serve at 48:
 
 18a. train launcher mamba2 — launch.train.main with --seq-len 2048
              --global-batch 1 --steps 5 --checkpoint-every 3 and a
@@ -537,11 +537,12 @@ W2. world (nccl, one rank a card) — torch.cuda.device_count() ranks
              plain view, equal to the unsharded engine's.
 W3. world train (one position, checkpoints) — train state split over
              the ranks. After its query path (its tables dropped) each
-             gloo rank runs mamba2-1.3b at its published widths, 12 of
-             its 48 layers (eight ranks each gather the whole bf16
-             parameters), bf16, remat "block", SyntheticLM batches of
-             2 x 2048: run A on a (2, 4) rank mesh, 3 steps of
-             build_train's rank step (each rank holds its blocks of
+             gloo rank runs mamba2-1.3b at its published widths,
+             WORLD_TRAIN_LAYERS (8) of its 48 layers (eight ranks
+             each gather the whole bf16 parameters), bf16, remat
+             "block", SyntheticLM batches of 2 x 2048: run A on a
+             (2, 4) rank mesh, 3 steps of build_train's rank step
+             (each rank holds its blocks of
              params, m, v and master; "data" splits the rows, the fp32
              gradients all-reduce over it), checkpoints after steps 2
              and 3 (gathered on every rank, written by rank 0 in the
@@ -553,8 +554,8 @@ W3. world train (one position, checkpoints) — train state split over
              same steps on one position, each batch as two one-row
              microbatches (the ranks' reduction order), and holds: a
              rank's requested bytes after placement equal to
-             position_bytes, kernel 12's launches 2 x 12 a forward pass
-             on every rank, the digests of the gathered leaves and the
+             position_bytes, kernel 12's launches 2 x layers a forward
+             pass on every rank, the digests of the gathered leaves and the
              losses equal across a run's ranks, A's step-3 file and the
              nccl run equal to the one-position run bit for bit, B's
              step-3 file within UPDATE_X x lr, BF16_ULP and MOMENT_REL
@@ -565,6 +566,33 @@ W3. world train (one position, checkpoints) — train state split over
              the kernels line carries "launches_world" (summed over
              ranks and per rank) and, on kernel 12's record,
              "launches_world_train".
+W4. world serve (checks) — the serve step split over the ranks. Before
+             W1, "world serve (one-position references)" runs, in a
+             process of its own, mixtral-8x22b at its published widths
+             and MIX_LAYERS of 56 layers (drawn from SEED, as phase 16
+             draws mixtral): the one-position greedy run on `sharded serve
+             mixtral`'s 2048-token prompt and 8 steps, each layer's
+             expert ids recorded, and its first layer alone on 2 x
+             WORLD_SERVE_ONE_PROMPT tokens and 4 steps (the ranks read
+             them from WORLD_SERVE_REFS). After its train slice each gloo
+             rank draws its blocks of the cut (lm.init(mesh=), two ranks
+             at a time) and runs build_prefill / build_serve on a (1, 8)
+             rank mesh (6 heads, 1 kv head, 1 expert, 4096 vocab rows a
+             rank), teacher-forced on the reference's tokens, then the
+             first layer on (2, 4) (rows split, FSDP gathers); the nccl
+             rank runs the first layer on (1, 1). Holds: requested bytes
+             equal to position_bytes of the blocks and caches, kernels 10
+             and 11 launched layers x steps and layers times, the same
+             logits on every rank, every step within TF_MAX_ABS /
+             TF_MEAN_ABS of the reference (a step whose routing differs
+             may leave them, at most a quarter), the nccl run bit for
+             bit. Prints per rank bytes, draw, prefill and decode
+             seconds with the FSDP gathers, reduce_over and gather_over
+             split out, launches, the logit gaps and routing flips;
+             kernels 10 and 11 get "serve <run> <mesh>" entries in
+             "launches_world". Phase 18c (`sharded serve mixtral`)
+             later checks that its own one-position run gives the
+             reference's tokens.
 
 Every phase prints its seconds and the smoke's running total as it ends
 ("-- name: s").
@@ -4478,13 +4506,14 @@ def recurrentgemma_times(dev: dict) -> dict:
 
 
 def griffin_moe_phases(dev: dict, kernels: list, serve: dict,
-                       dist: dict) -> None:
+                       dist: dict, serve_refs: dict) -> None:
     """The Griffin and MoE slice after the mamba2 phases: block parity,
     then each model's serve phase and teacher-forced check (recurrentgemma
     followed by kernels 10 and 11 at its shapes), each model dropped before
     the next; records into `serve` and the kernel 10 / 11 entries. The
     mixtral weights also serve the distribution slice's sharded serve
-    phase (into `dist`) before they are dropped."""
+    phase (into `dist`, checked against the world serve slice's
+    `serve_refs`) before they are dropped."""
     serve["block_parity"] = block_parity_phase()
     times = None
     for arch, max_len in ((RG_ARCH, SERVE_MAX_LEN),
@@ -4493,7 +4522,7 @@ def griffin_moe_phases(dev: dict, kernels: list, serve: dict,
         model, rec = lm_serve_phase(arch, max_len, dev)
         if arch == MIX_ARCH:
             dist["serve_mixtral"] = sharded_serve_phase(
-                dev, model, griffin_moe_config(arch))
+                dev, model, griffin_moe_config(arch), serve_refs)
             for k in kernels:
                 if k["name"] in dist["serve_mixtral"]["launches"]:
                     k["launches_dist"] = {"serve_mixtral_sharded": dist[
@@ -6021,10 +6050,10 @@ def train_phases(dev: dict, kernels: list, dryrun=None) -> dict:
 # --------------------------------------------------------------------------
 
 LAUNCH_ARCH = "mamba2-1.3b"        # 48 SSD layers: kernel 12 a layer
-# The train launcher's chain (18a, 18d-18f) runs LAUNCH_LAYERS of them
-# since PR 32 (its checkpoints 9.4 GB, were 18.8), to pay for the world's
-# train slice (W3) within the smoke's time limit; launch.serve keeps 48.
-LAUNCH_LAYERS = 24
+# The train launcher's chain (18a, 18d-18f) runs LAUNCH_LAYERS of them,
+# to pay for the world's train and serve slices within the smoke's time
+# limit; launch.serve keeps 48.
+LAUNCH_LAYERS = 12
 LAUNCH_TRAIN = ["--seq-len", "2048", "--global-batch", "1", "--steps", "5"]
 LAUNCH_STEPS = 5
 LAUNCH_EVERY = 3                   # checkpoints at steps 3 and 5
@@ -6800,12 +6829,21 @@ def pipeline_phase(dev: dict) -> dict:
     return rec
 
 
-def sharded_serve_phase(dev: dict, model, cfg) -> dict:
+def mix_sharded_prompt(cfg) -> torch.Tensor:
+    """`sharded serve mixtral`'s prompt: (1, MIX_SHARDED_PROMPT) tokens."""
+    g = torch.Generator("cuda").manual_seed(SEED + 29)
+    return torch.randint(0, cfg.vocab_size, (1, MIX_SHARDED_PROMPT),
+                         generator=g, device="cuda", dtype=torch.int32)
+
+
+def sharded_serve_phase(dev: dict, model, cfg, serve_refs=None) -> dict:
     """mixtral at PR 24's cut through specs.build_prefill / build_serve on
     a (2, 4) virtual mesh: one prompt, MIX_SHARDED_NEW greedy decode
     steps; logits and tokens must equal engine.make_prefill_step /
     make_serve_step's with the same weights bit for bit, and kernels 10
-    and 11 must launch on the sharded path."""
+    and 11 must launch on the sharded path. With `serve_refs` (the world
+    serve slice's references, world_serve_refs), the one-position run's
+    tokens must be theirs: the world was held to this run."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -6821,9 +6859,7 @@ def sharded_serve_phase(dev: dict, model, cfg) -> dict:
         cfg, ShapeSpec("sharded_prefill", "prefill", p, 1), mesh)
     serve, _ = specs.build_serve(
         cfg, ShapeSpec("sharded_decode", "decode", max_len, 1), mesh)
-    g = torch.Generator("cuda").manual_seed(SEED + 29)
-    prompt = torch.randint(0, cfg.vocab_size, (1, p), generator=g,
-                           device="cuda", dtype=torch.int32)
+    prompt = mix_sharded_prompt(cfg)
     key = torch.zeros(2, dtype=torch.uint32, device="cuda")
 
     def run(sharded: bool):
@@ -6892,6 +6928,18 @@ def sharded_serve_phase(dev: dict, model, cfg) -> dict:
     if not (same_logits and same_toks):
         fail(f"sharded serve differs from the one-position steps: max "
              f"|logit gap| {gap}")
+    if serve_refs is not None:
+        want = serve_refs["mix8"]
+        rec["world_reference"] = {
+            "tokens_equal": bool(np.array_equal(
+                want["tokens"][:, 0], torch.cat(o_toks[:-1]).cpu().numpy())),
+            "max_logit_gap": float(np.abs(torch.stack(o_logits).cpu()
+                                          .numpy() - want["logits"]).max())}
+        print(f"the world serve slice's reference against this run: "
+              f"{rec['world_reference']}", flush=True)
+        if not rec["world_reference"]["tokens_equal"]:
+            fail("the world serve slice's reference run is not the "
+                 "one-position run's")
     return rec
 
 
@@ -7270,11 +7318,19 @@ def world_prepare() -> dict:
 def world_rank(rows: int, full: bool) -> list:
     """One rank's part of a world phase (every rank runs it alike): the
     query path (world_query_rank), then, its tables dropped, the train
-    slice (world_train_rank). Returns every rank's record, gathered."""
+    slice (world_train_rank), then, its state dropped, the serve slice
+    (world_serve_rank, held to the references in WORLD_SERVE_REFS).
+    Returns every rank's record, gathered."""
+    import pickle
+
     import torch.distributed as dist
     rec = world_query_rank(rows, full)
     release()
     rec["train"] = world_train_rank(full)
+    release()
+    with open(WORLD_SERVE_REFS, "rb") as f:    # written by this program
+        refs = pickle.load(f)
+    rec["serve"] = world_serve_rank(full, refs)
     rec["left_at"] = time.time()
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, rec)
@@ -7412,7 +7468,7 @@ def world_query_rank(rows: int, full: bool) -> dict:
 # the world's train slice: train state split over the ranks
 # --------------------------------------------------------------------------
 
-WORLD_TRAIN_LAYERS = 12            # of mamba2-1.3b's 48, its one cut
+WORLD_TRAIN_LAYERS = 8             # of mamba2-1.3b's 48: the time limit
 WORLD_TRAIN_BS = (2, 2048)         # the global batch: rows x tokens
 WORLD_TRAIN_STEPS = 3              # run A's steps
 WORLD_TRAIN_SAVES = (2, 3)         # A's checkpoints; B resumes from the first
@@ -7504,17 +7560,23 @@ def state_digest(state: dict, shardings=None) -> dict:
 
 
 class CommClock:
-    """Seconds spent in repro_torch.dist.sharding.gather and
-    torch.distributed.all_reduce while open (the card synchronised
-    before and after each call)."""
+    """Seconds spent in each of `calls` while open (the card synchronised
+    before and after each call): by default repro_torch.dist.sharding's
+    gather and torch.distributed's all_reduce; the serve slice times
+    sharding's gather (a parameter's FSDP gather at its use),
+    reduce_over and gather_over."""
+
+    def __init__(self, calls=("gather", "all_reduce")):
+        self.calls = calls
 
     def __enter__(self):
         import torch.distributed as dist
 
         from repro_torch.dist import sharding
-        self.mods = (sharding, dist)
-        self.real = (sharding.gather, dist.all_reduce)
-        self.secs = {"gather": 0.0, "all_reduce": 0.0}
+        self.mods = [dist if c == "all_reduce" else sharding
+                     for c in self.calls]
+        self.real = [getattr(m, c) for m, c in zip(self.mods, self.calls)]
+        self.secs = {c: 0.0 for c in self.calls}
 
         def timed(name, fn):
             def call(*a, **k):
@@ -7527,12 +7589,13 @@ class CommClock:
                     self.secs[name] += time.perf_counter() - t0
             return call
 
-        sharding.gather = timed("gather", self.real[0])
-        dist.all_reduce = timed("all_reduce", self.real[1])
+        for m, c, fn in zip(self.mods, self.calls, self.real):
+            setattr(m, c, timed(c, fn))
         return self
 
     def __exit__(self, *exc):
-        self.mods[0].gather, self.mods[1].all_reduce = self.real
+        for m, c, fn in zip(self.mods, self.calls, self.real):
+            setattr(m, c, fn)
 
 
 class DigestGathers:
@@ -7742,6 +7805,332 @@ def world_train_rank(full: bool) -> dict:
         out["A"]["secs"]["write wait (after B)"] = time.perf_counter() - t0
         out["pipe"] = world_pipe_rank()
     out["s"] = time.perf_counter() - t0
+    return out
+
+
+# --------------------------------------------------------------------------
+# the world's serve slice: the serve step split over the ranks
+# --------------------------------------------------------------------------
+
+# mixtral at `sharded serve mixtral`'s cut (MIX_LAYERS of 56, the same
+# prompt and MIX_SHARDED_NEW steps) on WORLD_SERVE_MIX: a rank holds 6 of
+# 48 heads, 1 of 8 kv heads, 1 of 8 experts and 4096 of 32768 vocab rows
+WORLD_SERVE_MIX = (1, 8)
+# its first layer alone (the same draws: embedding, head, then block 0),
+# WORLD_SERVE_ONE_ROWS rows of WORLD_SERVE_ONE_PROMPT tokens and
+# WORLD_SERVE_ONE_NEW steps, on WORLD_SERVE_ONE_MESH ("data" splits the
+# rows and gathers the FSDP leaves) and on the nccl rank's (1, 1)
+WORLD_SERVE_ONE_MESH = (2, 4)
+WORLD_SERVE_ONE_ROWS, WORLD_SERVE_ONE_PROMPT, WORLD_SERVE_ONE_NEW = 2, 256, 4
+# ranks that draw their blocks at once: a draw holds one whole fp32 leaf
+# (an expert projection, 8 x 6144 x 16384, 3.2 GB) beside the blocks
+WORLD_SERVE_AT_ONCE = 2
+# the references reach the ranks through this file: spawn arguments past
+# a pipe's 64 KiB block each start until the rank has imported this
+# module, and 1.2 MB of them held a world's ranks 54-87 s from their
+# function, against 16 s
+WORLD_SERVE_REFS = Path(__file__).resolve().parent / "build" / \
+    "world_serve_refs.pkl"
+
+
+def serve_reference(model, cfg, prompt, new: int) -> dict:
+    """The one-position steps' greedy run that the world's serve slice is
+    held to, on the host: the prompt (B, P), every step's fp32 logits
+    (1 + new, B, V), each decode step's input tokens (new, B) and each
+    pass's expert ids of its last token ((1 + new, layers, B, k); no
+    layers without experts)."""
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    b, p = prompt.shape
+    n_moe = cfg.num_layers if cfg.num_experts else 0
+    caches = lm.init_caches(cfg, b, p + new, device=prompt.device)
+    serve = engine.make_serve_step(cfg)
+    with torch.no_grad(), RouteLog() as routes:
+        logits, caches = engine.make_prefill_step(cfg)(model, prompt, caches)
+        out = [logits.float()]
+        ids = [[r[:, -1] for r in routes.take(n_moe)]]
+        nxt = torch.argmax(out[0], dim=-1).to(torch.int32)
+        toks = []
+        for i in range(new):
+            toks.append(nxt)
+            nxt, logits, caches = serve(model, nxt[:, None], torch.full(
+                (b,), p + i, dtype=torch.int32, device=prompt.device),
+                caches, None)
+            out.append(logits)
+            ids.append([r[:, 0] for r in routes.take(n_moe)])
+    del caches
+    routes_np = (np.stack([torch.stack(x).cpu().numpy() for x in ids])
+                 if n_moe else np.zeros((1 + new, 0, b, 0), np.int64))
+    return {"prompt": prompt.cpu().numpy(),
+            "logits": torch.stack(out).cpu().numpy(),
+            "tokens": torch.stack(toks).cpu().numpy(), "routes": routes_np}
+
+
+def world_serve_refs() -> dict:
+    """serve_reference of the mixtral cut (drawn from SEED, as
+    `serve mixtral` draws it; MIX_SHARDED_NEW steps on
+    `sharded serve mixtral`'s prompt) and of its first layer alone, an LM
+    over the same leaves: the weights a fresh one-layer draw from SEED
+    gives. Runs in a process of its own (world_serve_refs_apart)."""
+    from repro_torch.models import lm
+    cfg = griffin_moe_config(MIX_ARCH)
+    model = lm.init(cfg, seed=SEED)
+    prompt = mix_sharded_prompt(cfg)
+    refs = {"mix8": serve_reference(model, cfg, prompt, MIX_SHARDED_NEW)}
+    cfg1 = dataclasses.replace(cfg, num_layers=1)
+    one = lm.LM(cfg1, embed=model.embed, lm_head=model.lm_head,
+                final_norm=model.final_norm, layers=[model.blocks[0]])
+    g = torch.Generator(prompt.device).manual_seed(SEED + 37)
+    prompt1 = torch.randint(0, cfg.vocab_size, (WORLD_SERVE_ONE_ROWS,
+                                                WORLD_SERVE_ONE_PROMPT),
+                            generator=g, device=prompt.device,
+                            dtype=torch.int32)
+    refs["mix1"] = serve_reference(one, cfg1, prompt1, WORLD_SERVE_ONE_NEW)
+    return refs
+
+
+def world_serve_refs_apart() -> dict:
+    """world_serve_refs in a spawned process, which holds mixtral's cut
+    (40.9 GB) and ends before the worlds start, so the worlds still start
+    right after the query phases: spawned after this process's serve
+    phases (mixtral's cut among them), a world's ranks took 87 s to reach
+    their function, against 16 s after the query phases."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    phase("world serve (one-position references)")
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        refs = pool.submit(world_serve_refs).result()
+    print(f"world serve references: mixtral at {MIX_LAYERS} layers, "
+          f"{MIX_SHARDED_PROMPT} + {MIX_SHARDED_NEW} tokens, tokens "
+          f"{refs['mix8']['tokens'][:, 0].tolist()}; its first layer, "
+          f"{WORLD_SERVE_ONE_ROWS} x {WORLD_SERVE_ONE_PROMPT} + "
+          f"{WORLD_SERVE_ONE_NEW}; {time.perf_counter() - t0:.3f} s in a "
+          f"process of their own", flush=True)
+    return refs
+
+
+def world_serve_run(label: str, dims: tuple, cfg, ref: dict) -> dict:
+    """One rank's serve run on a (data, model) rank mesh of `dims`: this
+    rank's blocks of the weights drawn from SEED (WORLD_SERVE_AT_ONCE
+    ranks at a time) and of the caches, the bytes it then holds against
+    position_bytes; then, kernels 10 and 11 at 0, build_prefill on its
+    rows of `ref`'s prompt and build_serve teacher-forced on `ref`'s
+    tokens, every step's global logits against `ref`'s: max and mean
+    |diff|, bits equal, argmax equal, and whether this rank's rows routed
+    otherwise in some layer; prefill and decode seconds, the seconds in
+    the FSDP gathers, reduce_over and gather_over."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist import sharding as shlib
+    from repro_torch.dist import world
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    secs = {}
+    t0 = time.perf_counter()
+    mesh = make_mesh(dims, ("data", "model"), group=dist.group.WORLD)
+    secs["mesh"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b, p = ref["prompt"].shape
+    new = ref["tokens"].shape[0]
+    shape = ShapeSpec(label, "decode", p + new, b)
+    prefill, _ = specs.build_prefill(
+        cfg, ShapeSpec(label, "prefill", p + new, b), mesh)
+    serve, _ = specs.build_serve(cfg, shape, mesh)
+    rules = specs.rules_for(cfg, shape)
+    p_sh, in_sh, c_sh = prefill.in_shardings
+    secs["build"] = time.perf_counter() - t0
+    # the bytes a rank holds, taken over its own draw and its caches only
+    # (a barrier between may leave a collective's buffer allocated)
+    t0 = time.perf_counter()
+    for turn in range(0, mesh.size, WORLD_SERVE_AT_ONCE):
+        if turn <= mesh.rank < turn + WORLD_SERVE_AT_ONCE:
+            release()
+            base = requested_bytes()
+            t1 = time.perf_counter()
+            params = lm.init(cfg, seed=SEED, device=mesh.device, mesh=mesh,
+                             rules=rules)
+            torch.cuda.synchronize()
+            secs["own draw"] = time.perf_counter() - t1
+            release()
+            held = requested_bytes() - base
+        world.barrier()
+    secs["draws"] = time.perf_counter() - t0
+    base = requested_bytes()
+    caches = lm.init_caches(cfg, b, p + new, mesh=mesh, rules=rules)
+    torch.cuda.synchronize()
+    held += requested_bytes() - base
+    rec = {"label": label, "mesh": list(dims), "rank": mesh.rank,
+           "coords": mesh.coords, "held": held,
+           "position_bytes": shlib.position_bytes(params, p_sh)
+           + shlib.position_bytes(caches, c_sh),
+           "whole_bytes": sum(math.prod(p_sh[k].global_shape)
+                              * t.element_size()
+                              for k, t in params.named_parameters()),
+           "secs": secs}
+    axes = in_sh.dim_axes(0)
+    n = math.prod(mesh.shape[a] for a in axes)
+    rows = slice(mesh.block_index(axes) * (b // n),
+                 (mesh.block_index(axes) + 1) * (b // n))
+    dev = mesh.device
+    prompt = torch.from_numpy(ref["prompt"][rows]).to(dev)
+    want = torch.from_numpy(ref["logits"]).to(dev)
+    tokens = torch.from_numpy(ref["tokens"][:, rows]).to(dev)
+    key = torch.zeros(2, dtype=torch.uint32, device=dev)
+    n_moe = cfg.num_layers if cfg.num_experts else 0
+    torch.cuda.reset_peak_memory_stats()
+    world.barrier()
+    dk.LAUNCHES = fk.LAUNCHES = 0
+    calls = ("gather", "reduce_over", "gather_over")
+    got, ids, step_s, comm = [], [], [], []
+    with CommClock(calls) as clock, RouteLog() as routes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, prompt, caches)
+        torch.cuda.synchronize()
+        rec["prefill_s"] = time.perf_counter() - t0
+        got.append(logits.float())
+        ids.append([r[:, -1] for r in routes.take(n_moe)])
+        comm.append(dict(clock.secs))
+        for i in range(new):
+            cache_len = torch.full((b // n,), p + i, dtype=torch.int32,
+                                   device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, logits, caches = serve(params, tokens[i][:, None], cache_len,
+                                      caches, key)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            got.append(logits)
+            ids.append([r[:, 0] for r in routes.take(n_moe)])
+        comm.append({c: clock.secs[c] - comm[0][c] for c in calls})
+    rec["launches"] = {"decode_attention": dk.LAUNCHES,
+                       "flash_attention": fk.LAUNCHES}
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    got = torch.stack(got)                          # (1 + new, B, V)
+    d = (got - want).abs()
+    routed = torch.from_numpy(ref["routes"][:, :, rows]).to(dev)
+    differs = [bool(n_moe) and not all(
+        torch.equal(a.sort(dim=-1).values, w.sort(dim=-1).values)
+        for a, w in zip(x, routed[i])) for i, x in enumerate(ids)]
+    rec.update(step_s=step_s, comm_prefill_s=comm[0], comm_decode_s=comm[1],
+               max_abs=d.flatten(1).amax(1).tolist(),
+               mean_abs=d.flatten(1).mean(1).tolist(),
+               equal=[bool(torch.equal(a, w)) for a, w in zip(got, want)],
+               argmax_equal=(got.argmax(-1) == want.argmax(-1))
+               .all(-1).tolist(),
+               routing_differs=differs,
+               finite=bool(torch.isfinite(got).all()),
+               digest=leaf_digest(got))
+    del params, caches, got, want, prompt, tokens
+    release()
+    secs["run"] = rec["prefill_s"] + sum(step_s)
+    return rec
+
+
+def world_serve_rank(full: bool, refs: dict) -> dict:
+    """The serve slice of a world's rank, after its train slice: in the
+    gloo world (`full`) mixtral's cut on WORLD_SERVE_MIX, then its first
+    layer on WORLD_SERVE_ONE_MESH; in the nccl world the first layer on
+    one rank's (1, 1) mesh."""
+    t0, at = time.perf_counter(), time.time()
+    cfg = griffin_moe_config(MIX_ARCH)
+    cfg1 = dataclasses.replace(cfg, num_layers=1)
+    if full:
+        out = {"mix8": world_serve_run("mix8", WORLD_SERVE_MIX, cfg,
+                                       refs["mix8"]),
+               "mix1": world_serve_run("mix1", WORLD_SERVE_ONE_MESH, cfg1,
+                                       refs["mix1"])}
+    else:
+        out = {"one": world_serve_run("one", (1, 1), cfg1, refs["mix1"])}
+    out["s"], out["entered_at"] = time.perf_counter() - t0, at
+    return out
+
+
+def world_serve_check(dev: dict, gloo: list, nccl: list) -> dict:
+    """The serve slice's records: every rank's requested bytes equal to
+    position_bytes of its blocks and caches; kernels 10 and 11 launched
+    layers x steps and layers times; the same logits on every rank of a
+    run; mixtral's cut and the gloo one-layer run within TF_MAX_ABS /
+    TF_MEAN_ABS of the one-position run's at every step whose routing
+    agrees (a step whose routing differs may leave them, at most a
+    quarter of the steps); the nccl rank's (1, 1) run equal to it bit for
+    bit. Returns the summary, with kernels 10 and 11's launches."""
+    phase("world serve (checks)")
+    bad = []
+    runs = {k: [r["serve"][k] for r in gloo] for k in ("mix8", "mix1")}
+    runs["one"] = [r["serve"]["one"] for r in nccl]
+    layers = {"mix8": MIX_LAYERS, "mix1": 1, "one": 1}
+    out = {"card": dev["smi"], "runs": {}}
+    for key, recs in runs.items():
+        steps = len(recs[0]["step_s"])
+        want = {"decode_attention": layers[key] * steps,
+                "flash_attention": layers[key]}
+        for r in recs:
+            tag = (key, r["rank"])
+            if r["held"] != r["position_bytes"]:
+                bad.append((*tag, "bytes", r["held"], r["position_bytes"]))
+            if r["launches"] != want:
+                bad.append((*tag, "launches", r["launches"], want))
+            if r["digest"] != recs[0]["digest"]:
+                bad.append((*tag, "logits differ from rank 0's"))
+            if not r["finite"]:
+                bad.append((*tag, "non-finite logits"))
+            r["excused"] = 0
+            if key == "one":
+                if not all(r["equal"]):
+                    bad.append((*tag, "not bit for bit", r["max_abs"]))
+                continue
+            excused = [f and m > TF_MAX_ABS for f, m in
+                       zip(r["routing_differs"], r["max_abs"])]
+            held = [i for i, e in enumerate(excused) if not e]
+            if 4 * sum(excused) > len(excused):
+                bad.append((*tag, "more than a quarter of the steps "
+                            "routed otherwise and left the bound"))
+            if any(r["max_abs"][i] > TF_MAX_ABS or r["mean_abs"][i] >
+                   TF_MEAN_ABS for i in held):
+                bad.append((*tag, "logits out of bound", r["max_abs"],
+                            r["mean_abs"]))
+            r["excused"] = sum(excused)
+        def secs(d):
+            return {k: round(v, 4) for k, v in d.items()}
+
+        for r in recs:
+            print(f"world serve {key} {tuple(recs[0]['mesh'])} rank "
+                  f"{r['rank']} {r['coords']} [{dev['smi']}]: requested "
+                  f"{r['held']} B, position_bytes {r['position_bytes']} "
+                  f"(whole parameters {r['whole_bytes']} B); seconds "
+                  f"{secs(r['secs'])}; prefill {1e3 * r['prefill_s']:.3f} "
+                  f"ms, decode ms a step "
+                  f"{[round(1e3 * x, 3) for x in r['step_s']]}; comm s "
+                  f"prefill {secs(r['comm_prefill_s'])} decode "
+                  f"{secs(r['comm_decode_s'])}"
+                  f"; launches {r['launches']}; peak {r['peak_gib']:.3f} "
+                  f"GiB; |logits - one position| max "
+                  f"{[round(x, 5) for x in r['max_abs']]} mean "
+                  f"{[round(x, 5) for x in r['mean_abs']]}; bits equal "
+                  f"{r['equal']}; argmax equal {r['argmax_equal']}; "
+                  f"routing differs {r['routing_differs']}, excused "
+                  f"{r['excused']}", flush=True)
+        out["runs"][key] = {
+            "mesh": recs[0]["mesh"], "steps": steps,
+            "launches": [r["launches"] for r in recs],
+            "per_rank": [{k: r[k] for k in (
+                "rank", "held", "position_bytes", "whole_bytes", "secs",
+                "prefill_s", "step_s", "comm_prefill_s", "comm_decode_s",
+                "peak_gib", "max_abs", "mean_abs", "equal", "argmax_equal",
+                "routing_differs", "excused")} for r in recs],
+            "rank_s": [x["serve"]["s"] for x in (nccl if key == "one"
+                                                   else gloo)]}
+    if bad:
+        for b in bad:
+            print("MISMATCH", str(b)[:2000], file=sys.stderr)
+        fail(f"{len(bad)} world serve results differ")
     return out
 
 
@@ -8105,11 +8494,14 @@ def world_nccl_check(dev: dict, want: dict, every: list, wall: float) -> dict:
                          for r in every]}
 
 
-def world_phases(dev: dict, sharded: dict, kernels: list) -> dict:
+def world_phases(dev: dict, sharded: dict, kernels: list,
+                 serve_refs: dict) -> dict:
     """Both world phases, the nccl world (device_count() ranks) started
     beside the gloo world (WORLD_RANKS ranks sharing the card); their
     launches join the kernels line as "launches_world" (summed over ranks,
-    and per rank)."""
+    and per rank; kernels 10 and 11 by serve run). `serve_refs`
+    (world_serve_refs) holds the serve slice's one-position runs; the
+    ranks read them from WORLD_SERVE_REFS."""
     from concurrent.futures import ThreadPoolExecutor
     virtual = {f"main {n}": r["launches"]
                for n, r in sharded["main"].items()}
@@ -8122,10 +8514,13 @@ def world_phases(dev: dict, sharded: dict, kernels: list) -> dict:
             "reserved_gib": torch.cuda.memory_reserved() / 2**30}
     print(f"before the worlds this process holds {held}", flush=True)
     phase(f"world (gloo, {WORLD_RANKS} ranks on one card)")
+    import pickle
     import shutil
     WORLD_STORE.parent.mkdir(parents=True, exist_ok=True)
     WORLD_STORE.unlink(missing_ok=True)
     shutil.rmtree(WORLD_TRAIN_DIR, ignore_errors=True)
+    with open(WORLD_SERVE_REFS, "wb") as f:
+        pickle.dump(serve_refs, f)
     try:
         with ThreadPoolExecutor(3) as pool:
             gloo = pool.submit(world_spawn, "gloo", WORLD_RANKS, True)
@@ -8149,8 +8544,10 @@ def world_phases(dev: dict, sharded: dict, kernels: list) -> dict:
         release()
         out["train"] = world_train_check(dev, gloo_every, nccl_every,
                                          parent)
+        out["serve"] = world_serve_check(dev, gloo_every, nccl_every)
     finally:
         WORLD_STORE.unlink(missing_ok=True)
+        WORLD_SERVE_REFS.unlink(missing_ok=True)
         shutil.rmtree(WORLD_TRAIN_DIR, ignore_errors=True)
     release()
     for rec in kernels:
@@ -8161,6 +8558,13 @@ def world_phases(dev: dict, sharded: dict, kernels: list) -> dict:
                     "ranks": w["ranks"], "sum": w["launches"][rec["name"]],
                     "per_rank": [r["launches"][rec["name"]]
                                  for r in w["per_rank"]]}
+        serve = {f"serve {k} {tuple(r['mesh'])}": {
+            "ranks": len(r["launches"]),
+            "sum": sum(x[rec["name"]] for x in r["launches"]),
+            "per_rank": [x[rec["name"]] for x in r["launches"]]}
+            for k, r in out["serve"]["runs"].items()
+            if rec["name"] in r["launches"][0]}
+        runs.update(serve)
         if runs:
             rec["launches_world"] = runs
     return out
@@ -8265,7 +8669,8 @@ def main() -> None:
     # the LM slice needs the card's memory: drop the query tables first
     del table, encoded, shapes
     torch.cuda.empty_cache()
-    world = world_phases(dev, sharded, kernels)
+    serve_refs = world_serve_refs_apart()
+    world = world_phases(dev, sharded, kernels, serve_refs)
     print(json.dumps({"world": world}, default=str), flush=True)
     model, engine, serve = serve_phase(dev)
     del engine
@@ -8287,7 +8692,8 @@ def main() -> None:
     mamba["ssd_parity"] = ssd_check
     serve["mamba2"] = mamba
     dist: dict = {}
-    griffin_moe_phases(dev, kernels, serve, dist)
+    griffin_moe_phases(dev, kernels, serve, dist, serve_refs)
+    del serve_refs
     launch = launch_phases(dev, kernels, dist)
     dist["pipeline"] = pipeline_phase(dev)
     dist["production_bytes"] = production_bytes_phase()

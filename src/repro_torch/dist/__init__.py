@@ -19,6 +19,9 @@ repro_torch.query and repro_torch.store a shard a rank, and splits train
 state: a rank holds its block of every split leaf (sharding.local_block,
 gather), the train step gathers the parameters and reduces gradients
 over the batch's axes, and GPipe's ring is a send/recv a tick between
-the stage ranks (world.exchange). The serve step on ranks, with split
-caches and tensor-parallel compute, is ROADMAP.md's item 5d.
+the stage ranks (world.exchange). The serve step on ranks computes on
+the blocks: caches split, tensor- and expert-parallel over "model"
+(sharding.at_use, reduce_over, gather_over). The tensor-parallel train
+step is ROADMAP.md's item 5d-train; split-K decode and context
+parallelism on ranks are item 5f.
 """

@@ -37,6 +37,20 @@ with all_gather_into_tensor over each axis's subgroup (float leaves
 only: integer leaves are never split). A sharding made by
 `sharding_tree` records its leaf's global shape, so `check_placed` and
 `position_bytes` read a rank's tree of blocks against it.
+
+A step over ranks computes on the blocks (the serve step,
+repro_torch.launch.specs): `use_rules(..., leaves=)` names each
+parameter's sharding, and the model reads a parameter through `at_use`
+(models.common.Params), which gathers its split over every axis but
+COMPUTE_AXES ("data" and "pod", FSDP's) and keeps the "model" split, so
+a rank never holds a "model"-split leaf whole. The model reads that
+split from the leaf (`split_axes`, `block_start`) and runs a collective
+exactly where it contracts a split dim: `reduce_over` (all_reduce, in
+fp32 for half types) after a row-parallel product, `gather_over`
+(all_gather_into_tensor) where a split output must be whole (the
+vocabulary's logits, the router's). Both are the identity without a
+rank mesh or over an axis of one rank, so the one-position and virtual
+paths run as before.
 """
 from __future__ import annotations
 
@@ -68,6 +82,11 @@ DEFAULT_RULES: dict = {
 }
 
 _SCALAR = "_scalar_"
+
+# mesh axes whose split of a parameter the compute keeps (tensor and
+# expert parallelism); a parameter's split over any other axis is gathered
+# where it is used (at_use)
+COMPUTE_AXES = ("model",)
 
 # logical_constraint calls made under use_rules (read by the chip smoke to
 # show that a sharded step resolves its constraints); not counted inside
@@ -141,6 +160,19 @@ class NamedSharding:
         position."""
         return [(i, self._group(e)) for i, e in enumerate(self.spec)
                 if math.prod(self.mesh.shape[a] for a in self._group(e)) > 1]
+
+    def without(self, axes) -> "NamedSharding":
+        """This sharding with `axes` taken out of every entry: the layout
+        of the leaf once gather(..., axes=axes) has run."""
+        entries = []
+        for e in self.spec:
+            kept = tuple(a for a in self._group(e) if a not in axes)
+            entries.append(None if not kept else
+                           kept[0] if len(kept) == 1 else kept)
+        while entries and entries[-1] is None:
+            entries.pop()
+        return NamedSharding(self.mesh, PartitionSpec(*entries),
+                             self.global_shape)
 
     def stacked(self, n: int) -> "NamedSharding":
         """The sharding of `n` such leaves stacked on a new leading,
@@ -301,30 +333,48 @@ def local_block(x: torch.Tensor, sharding) -> torch.Tensor:
     return x
 
 
-def gather(block: torch.Tensor, sharding) -> torch.Tensor:
+def gather(block: torch.Tensor, sharding, axes=None) -> torch.Tensor:
     """The global tensor from every rank's block under `sharding` (every
     rank of the mesh calls it alike): all_gather_into_tensor over the
     subgroup of each split axis, the entry's last axis first. `block`
-    itself where nothing is split, or on a virtual mesh."""
+    itself where nothing is split, or on a virtual mesh. With `axes`, only
+    the splits over those mesh axes are gathered: the result is the block
+    under `sharding.without(axes)`, which needs the gathered axes of an
+    entry to end it (the block index runs row-major over the entry)."""
     splits = sharding.splits() if _on_ranks(sharding) else []
-    if not splits:
+    if axes is not None:
+        for dim, entry in splits:
+            gone = [a in axes for a in entry]
+            if any(gone) and gone != sorted(gone):
+                raise ValueError(f"gathering {tuple(axes)} of dim {dim} "
+                                 f"split over {entry}: only an entry's "
+                                 f"last axes gather to a block")
+        splits = [(dim, tuple(a for a in entry if a in axes))
+                  for dim, entry in splits]
+    if not any(axes_ for _, axes_ in splits):
         return block
     if not block.is_floating_point():
         raise ValueError(f"a {block.dtype} leaf split over ranks: only "
                          f"float leaves are split and gathered")
-    from repro_torch.dist import world
-    mesh = sharding.mesh
     out = block
-    for dim, axes in splits:
-        for axis in reversed(axes):
-            n = mesh.shape[axis]
-            if n == 1:
-                continue
-            parts = world.all_gather(out, mesh.axis_group(axis))
-            shape = list(out.shape)
-            shape[dim] *= n
-            out = parts.movedim(0, dim).reshape(shape)
+    for dim, axes_ in splits:
+        out = _gather_dim(out, dim, axes_, sharding.mesh)
     return out
+
+
+def _gather_dim(x: torch.Tensor, dim: int, axes, mesh) -> torch.Tensor:
+    """`x` concatenated along `dim` over the ranks of `axes` (a spec
+    entry's axes, row-major), the last axis first."""
+    from repro_torch.dist import world
+    for axis in reversed(tuple(axes)):
+        n = mesh.shape[axis]
+        if n == 1:
+            continue
+        parts = world.all_gather(x, mesh.axis_group(axis))
+        shape = list(x.shape)
+        shape[dim] *= n
+        x = parts.movedim(0, dim).reshape(shape)
+    return x
 
 
 # --------------------------------------------------------------------------
@@ -335,16 +385,22 @@ _ACTIVE = threading.local()
 
 
 @contextmanager
-def use_rules(mesh, rules, split=None):
+def use_rules(mesh, rules, split=None, leaves=None):
     """Activate (mesh, rules) for logical_constraint within this thread.
     `split` maps a logical name to the mesh axes over which the tensors
     of this rank hold only a block of that dim (on a rank mesh, the
     batch's axes): logical_constraint resolves specs against the global
-    size there. current_rules() gives back the arguments given."""
+    size there. `leaves` ({id(parameter): NamedSharding}) names the
+    parameters that a step over ranks reads as blocks (at_use).
+    current_rules() gives back the arguments given, without trailing
+    Nones."""
     stack = getattr(_ACTIVE, "stack", None)
     if stack is None:
         stack = _ACTIVE.stack = []
-    stack.append((mesh, rules) + ((dict(split),) if split else ()))
+    args = [mesh, rules, dict(split) if split else None, leaves]
+    while args[-1] is None:
+        args.pop()
+    stack.append(tuple(args))
     try:
         yield
     finally:
@@ -354,6 +410,93 @@ def use_rules(mesh, rules, split=None):
 def current_rules():
     stack = getattr(_ACTIVE, "stack", None)
     return stack[-1] if stack else None
+
+
+def _active(i: int):
+    """The i-th argument of the active use_rules (None where not given)."""
+    active = current_rules()
+    return active[i] if active is not None and len(active) > i else None
+
+
+# --------------------------------------------------------------------------
+# compute on blocks over ranks
+# --------------------------------------------------------------------------
+
+def at_use(t):
+    """A parameter as a step over ranks computes with it: where the
+    active use_rules names its sharding (`leaves`), its split over every
+    axis but COMPUTE_AXES gathered (one leaf, here, at its use), a new
+    tensor object that records the sharding left (`split_axes`). Anything
+    else, `t` itself."""
+    leaves = _active(3)
+    sh = leaves.get(id(t)) if leaves is not None else None
+    if sh is None:
+        return t
+    fsdp = tuple(a for _, entry in sh.splits() for a in entry
+                 if a not in COMPUTE_AXES)
+    out = gather(t, sh, axes=fsdp) if fsdp else t.detach()
+    out._sharding = sh.without(fsdp)
+    return out
+
+
+def split_axes(t: torch.Tensor, dim: int) -> tuple:
+    """The mesh axes of more than one rank that split dim `dim` of `t`, a
+    parameter read by at_use on a rank mesh; () for anything else."""
+    sh = getattr(t, "_sharding", None)
+    if sh is None or not _on_ranks(sh):
+        return ()
+    return tuple(a for a in sh.dim_axes(dim % t.ndim)
+                 if sh.mesh.shape[a] > 1)
+
+
+def block_start(t: torch.Tensor, dim: int) -> int:
+    """The global index of this rank's first element along dim `dim` of
+    `t` (as split_axes reads it); 0 where the dim is whole."""
+    axes = split_axes(t, dim)
+    return t._sharding.mesh.block_index(axes) * t.shape[dim] if axes else 0
+
+
+def split_of(name: str) -> tuple:
+    """The mesh axes over which the active use_rules' `split` says this
+    rank holds a block of logical dim `name` (the batch's, on ranks)."""
+    split = _active(2)
+    return tuple(split.get(name, ())) if split else ()
+
+
+def _rank_mesh():
+    mesh = _active(0)
+    return mesh if getattr(mesh, "group", None) is not None else None
+
+
+def reduce_over(x: torch.Tensor, axes) -> torch.Tensor:
+    """The sum of `x` over the ranks of mesh `axes` (a name or a tuple)
+    of the active rank mesh: all_reduce over each axis's subgroup, half
+    types in fp32 and cast back once. `x` itself without a rank mesh or
+    over axes of one rank."""
+    mesh = _rank_mesh()
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if mesh is None or all(mesh.shape[a] == 1 for a in axes):
+        return x
+    import torch.distributed as dist
+    dtype = x.dtype
+    out = x.to(torch.float32 if x.element_size() < 4 else dtype,
+               memory_format=torch.contiguous_format, copy=True)
+    for a in axes:
+        if mesh.shape[a] > 1:
+            dist.all_reduce(out, group=mesh.axis_group(a))
+    return out.to(dtype)
+
+
+def gather_over(x: torch.Tensor, dim: int, axes) -> torch.Tensor:
+    """`x` concatenated along `dim` over the ranks of mesh `axes` (a name
+    or a spec entry's tuple, row-major) of the active rank mesh:
+    all_gather_into_tensor over each axis's subgroup. `x` itself without
+    a rank mesh or over axes of one rank."""
+    mesh = _rank_mesh()
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if mesh is None or all(mesh.shape[a] == 1 for a in axes):
+        return x
+    return _gather_dim(x, dim % x.ndim, axes, mesh)
 
 
 @contextmanager
@@ -384,8 +527,8 @@ def logical_constraint(x, names):
         CONSTRAINT_CALLS += 1
     mesh, rules = active[:2]
     shape = tuple(x.shape)
-    if len(active) > 2:             # dims of which x is this rank's block
-        split = active[2]
+    split = _active(2)
+    if split:                       # dims of which x is this rank's block
         shape = tuple(n * math.prod(mesh.shape[a] for a in split.get(name,
                                                                       ()))
                       for n, name in zip(shape, _names_of(names)

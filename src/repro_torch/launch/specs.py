@@ -15,8 +15,22 @@ state or the caches in place where the reference donates them. `fn`
 carries the reference's jit arguments as attributes: `in_shardings` (one
 sharding tree an argument) and `donate_argnums` (the arguments updated in
 place), which the dry run (repro_torch.launch.dryrun) reads.
+
+On a mesh of ranks (launch.mesh.RankMesh) the arguments are this rank's
+blocks (lm.init / lm.init_caches with `mesh=`, or train.step.place_blocks
+of whole leaves), checked against the shardings' global shapes. The
+serve steps then compute tensor- and expert-parallel over "model" as the
+reference's layout implies (repro_torch.dist.sharding: at_use,
+reduce_over, gather_over), a rank's rows of a batch split over the
+batch's axes, under torch.no_grad(); every rank returns the global
+tokens and logits. A prompt may be shorter than the cell's seq_len, the
+caches' length. Rules that split a sequence dim over ranks (split-K
+decode, context parallelism) raise NotImplementedError (ROADMAP.md item
+5f).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -95,8 +109,40 @@ def shardings(tree, axes, mesh, rules):
     return shlib.sharding_tree(tree, axes, mesh, rules)
 
 
-def replicated(mesh):
-    return shlib.NamedSharding(mesh, shlib.PartitionSpec())
+def replicated(mesh, shape=None):
+    return shlib.NamedSharding(mesh, shlib.PartitionSpec(), shape)
+
+
+# logical dims of a sequence: split over ranks, they need split-K decode
+# or context parallelism, which the rank path does not run
+SEQUENCE_DIMS = ("seq", "kv_seq", "cp_seq", "kv_full")
+
+
+def _serve_on_ranks(mesh, rules, p_sh, in_sh) -> dict | None:
+    """The serve steps' `use_rules(split=)` on a rank mesh (the batch's
+    axes, from the inputs' sharding), or None on a virtual mesh. Raises
+    NotImplementedError for rules that split a sequence dim over ranks,
+    and for a batch split over an axis that also splits a parameter."""
+    if mesh.group is None:
+        return None
+    merged = dict(shlib.DEFAULT_RULES, **rules)
+    for name in SEQUENCE_DIMS:
+        rule = merged.get(name)
+        axes = () if rule is None else (rule,) if isinstance(rule, str) \
+            else tuple(rule)
+        split = [a for a in axes if mesh.shape.get(a, 1) > 1]
+        if split:
+            raise NotImplementedError(
+                f"the serve step on ranks with {name!r} split over "
+                f"{split}: split-K decode and context parallelism on "
+                f"ranks are ROADMAP.md's item 5f")
+    batch = in_sh.dim_axes(0)
+    clash = sorted({a for sh in p_sh.values() for _, axes in sh.splits()
+                    for a in axes} & set(batch) & set(shlib.COMPUTE_AXES))
+    if clash:
+        raise NotImplementedError(
+            f"the batch and parameters both split over {clash}")
+    return {"batch": batch} if batch else None
 
 
 def _refill(caches: list, new: list) -> list:
@@ -104,6 +150,20 @@ def _refill(caches: list, new: list) -> list:
     the caller's list (attention rings are already written in place)."""
     caches[:] = new
     return caches
+
+
+@contextlib.contextmanager
+def _serving(mesh, rules, split, params, p_sh):
+    """The serve steps' context: use_rules(mesh, rules) on a virtual mesh;
+    on ranks also the batch's `split` and the parameters' shardings
+    (at_use), under torch.no_grad()."""
+    if mesh.group is None:
+        with shlib.use_rules(mesh, rules):
+            yield
+        return
+    leaves = {id(p): p_sh[n] for n, p in params.named_parameters()}
+    with torch.no_grad(), shlib.use_rules(mesh, rules, split, leaves):
+        yield
 
 
 # --------------------------------------------------------------------------
@@ -151,13 +211,18 @@ def build_prefill(cfg, shape, mesh, rules_extra: dict | None = None):
     p_sh = shardings(params, p_axes, mesh, rules)
     c_sh = shardings(caches, c_axes, mesh, rules)
     in_sh = shardings(batch["inputs"], batch_axes["inputs"], mesh, rules)
+    split = _serve_on_ranks(mesh, rules, p_sh, in_sh)
     step = engine.make_prefill_step(cfg)
 
     def fn(params, inputs, caches):
         shlib.check_placed(params, p_sh)
-        shlib.check_placed(inputs, in_sh)
+        if mesh.group is None:
+            shlib.check_placed(inputs, in_sh)
+        else:                       # a prompt of any length up to s
+            shlib.check_placed(inputs, shlib.NamedSharding(
+                mesh, in_sh.spec, (b,) + tuple(inputs.shape[1:])))
         shlib.check_placed(caches, c_sh)
-        with shlib.use_rules(mesh, rules):
+        with _serving(mesh, rules, split, params, p_sh):
             logits, new = step(params, inputs, caches)
         return logits, _refill(caches, new)
 
@@ -181,6 +246,8 @@ def build_serve(cfg, shape, mesh, rules_extra: dict | None = None):
     c_sh = shardings(caches, c_axes, mesh, rules)
     in_sh = shardings(inputs, in_axes, mesh, rules)
     len_sh = shardings(cache_len, "batch", mesh, rules)
+    key_sh = replicated(mesh, tuple(key.shape))
+    split = _serve_on_ranks(mesh, rules, p_sh, in_sh)
     step = engine.make_serve_step(cfg)
 
     def fn(params, inputs, cache_len, caches, key):
@@ -189,13 +256,13 @@ def build_serve(cfg, shape, mesh, rules_extra: dict | None = None):
         shlib.check_placed(cache_len, len_sh)
         shlib.check_placed(caches, c_sh)
         if isinstance(key, torch.Tensor):
-            shlib.check_placed(key, replicated(mesh))
+            shlib.check_placed(key, key_sh)
             key = None
-        with shlib.use_rules(mesh, rules):
+        with _serving(mesh, rules, split, params, p_sh):
             nxt, logits, new = step(params, inputs, cache_len, caches, key)
         return nxt, logits, _refill(caches, new)
 
-    fn.in_shardings = (p_sh, in_sh, len_sh, c_sh, replicated(mesh))
+    fn.in_shardings = (p_sh, in_sh, len_sh, c_sh, key_sh)
     fn.donate_argnums = (3,)
     return fn, (params, inputs, cache_len, caches, key)
 

@@ -18,11 +18,21 @@ the kernel as it is; only the new token is transposed on write. Unlike the
 reference, which returns a new ring, `fill_cache` writes the ring in place
 and returns the same dict: a copy of a multi-GiB ring every step is what
 the reference's functional update leaves XLA to elide.
+
+Over ranks (a step of repro_torch.launch.specs on a RankMesh) a rank
+holds its block of each weight and ring: its heads, kv heads and batch
+rows. It takes its head counts from the blocks, projects its heads'
+output row-parallel and sums the partial products over the ranks that
+split the heads (repro_torch.dist.sharding.reduce_over). Where the heads
+are split but the kv heads are not (their count does not divide the
+axis), the ring is whole on each rank and a rank's q heads read the kv
+heads they group with, a slice of the ring.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import sharding as shlib
 from repro_torch.dist.sharding import logical_constraint
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -114,8 +124,39 @@ def _run(q, k, v, q_pos, kv_pos, window, impl):
 
 
 def _project_out(params, o, b, sq, cfg, dtype):
-    o = o.reshape(b, sq, cfg.num_heads, cfg.resolved_head_dim).to(dtype)
-    return torch.einsum("bsnh,nhd->bsd", o, params["wo"])
+    """The heads' output through wo: over ranks that split the heads, this
+    rank's heads' partial product summed over them."""
+    wo = params["wo"]
+    o = o.reshape(b, sq, wo.shape[0], cfg.resolved_head_dim).to(dtype)
+    out = torch.einsum("bsnh,nhd->bsd", o, wo)
+    return shlib.reduce_over(out, shlib.split_axes(wo, 0))
+
+
+def _kv_heads_of(wq, wk, cfg) -> tuple:
+    """(first, count) of the kv heads this rank's q heads group with,
+    within the kv heads it holds: all of them unless the heads are split
+    over ranks and the kv heads are not, when q heads [r Hl, (r + 1) Hl)
+    read kv heads from r Hl / G, G = H / KVH."""
+    nh, kvh = wq.shape[1], wk.shape[1]
+    heads, kv = shlib.split_axes(wq, 1), shlib.split_axes(wk, 1)
+    if kv and not heads:
+        raise NotImplementedError(
+            f"kv heads split over {kv} with the q heads whole")
+    if not heads or kv:
+        return 0, kvh
+    g = cfg.num_heads // cfg.num_kv_heads
+    if nh % g and g % nh:
+        raise NotImplementedError(
+            f"{nh} q heads a rank in groups of {g}: a rank's heads must "
+            f"hold whole groups or lie in one")
+    return shlib.block_start(wq, 1) // g, max(1, nh // g)
+
+
+def _kv_slice(t, lo: int, n: int, dim: int):
+    """kv heads [lo, lo + n) of `t` along `dim`; `t` itself when that is
+    all of them, so the whole-heads path runs no extra op (the dry run's
+    tracer and remat's policies see every op)."""
+    return t if (lo, n) == (0, t.shape[dim]) else t.narrow(dim, lo, n)
 
 
 def attend(params, x, positions, cfg, *, window: int = 0, impl: str = "auto",
@@ -129,11 +170,14 @@ def attend(params, x, positions, cfg, *, window: int = 0, impl: str = "auto",
       Returns (out, cache), the cache written in place.
     """
     b, sq, _ = x.shape
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    group = cfg.num_heads // kvh
+    hd = cfg.resolved_head_dim
+    wq, wk = params["wq"], params["wk"]
+    kv_lo, kvh = _kv_heads_of(wq, wk, cfg)     # this rank's heads
+    group = wq.shape[1] // kvh
 
-    q = torch.einsum("bsd,dnh->bsnh", x, params["wq"])
-    k = torch.einsum("bsd,dnh->bsnh", x, params["wk"])
+    q = torch.einsum("bsd,dnh->bsnh", x, wq)
+    k = torch.einsum("bsd,dnh->bsnh", x, wk)
+    del wq, wk
     v = torch.einsum("bsd,dnh->bsnh", x, params["wv"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -148,22 +192,24 @@ def attend(params, x, positions, cfg, *, window: int = 0, impl: str = "auto",
     if kv_cache is None or sq > 1:
         # train / prefill: attend over the segment's own K/V; the ring is
         # written out of band
-        o = _run(q, k, v, positions, positions, window, impl)
+        o = _run(q, _kv_slice(k, kv_lo, kvh, 2), _kv_slice(v, kv_lo, kvh, 2),
+                 positions, positions, window, impl)
         new_cache = (fill_cache(kv_cache, k, v, positions)
                      if kv_cache is not None else (k, v))
         return _project_out(params, o, b, sq, cfg, x.dtype), new_cache
 
     new_cache = fill_cache(kv_cache, k, v, positions)
+    ring_k = _kv_slice(new_cache["k"], kv_lo, kvh, 1)
+    ring_v = _kv_slice(new_cache["v"], kv_lo, kvh, 1)
     if impl == "flash":
         # one-token decode goes to the split-K kernel (ring-buffer aware
         # via the stored-pos plane); the ring is already in its layout
         o = dec_ops.decode_attention(
-            q[:, 0], new_cache["k"], new_cache["v"], positions[:, 0],
+            q[:, 0], ring_k, ring_v, positions[:, 0],
             new_cache["pos"], window=window)[:, None]    # (B,1,KV,G,H)
         return _project_out(params, o, b, sq, cfg, x.dtype), new_cache
-    o = _run(q, new_cache["k"].transpose(1, 2),
-             new_cache["v"].transpose(1, 2), positions, new_cache["pos"],
-             window, impl)
+    o = _run(q, ring_k.transpose(1, 2), ring_v.transpose(1, 2), positions,
+             new_cache["pos"], window, impl)
     return _project_out(params, o, b, sq, cfg, x.dtype), new_cache
 
 
@@ -199,11 +245,13 @@ def fill_cache(cache, k, v, positions):
 CACHE_AXES = {"k": ("batch", "kv_heads", "kv_seq", "head_dim"),
               "v": ("batch", "kv_heads", "kv_seq", "head_dim"),
               "pos": ("batch", "kv_seq")}
+# what a fresh ring holds where not zero: every slot never written
+CACHE_FILL = {"pos": INF_POS}
 
 
 def init_cache(cfg, batch: int, size: int, dtype, device) -> dict:
     shape = (batch, cfg.num_kv_heads, size, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.full((batch, size), INF_POS, dtype=torch.int32,
-                              device=device)}
+            "pos": torch.full((batch, size), CACHE_FILL["pos"],
+                              dtype=torch.int32, device=device)}

@@ -11,9 +11,13 @@ never mention the mesh."""
 from __future__ import annotations
 
 import functools
+import threading
+from contextlib import contextmanager
 
 import numpy as np
 import torch
+
+from repro_torch.dist.sharding import at_use
 
 
 class Params(torch.nn.Module):
@@ -23,12 +27,14 @@ class Params(torch.nn.Module):
     wants them; training makes its model trainable itself
     (repro_torch.train.step.init_state and
     repro_torch.models.convert.state_from_reference call
-    requires_grad_(True))."""
+    requires_grad_(True)). Read by name, a parameter goes through
+    repro_torch.dist.sharding.at_use: on a step over ranks, the block the
+    rank computes with; anywhere else, the parameter itself."""
 
     AXES: dict = {}      # parameter name -> logical axes (per class)
 
     def __getitem__(self, name: str):
-        return getattr(self, name)
+        return at_use(getattr(self, name))
 
 
 class MetaDraws:
@@ -37,6 +43,26 @@ class MetaDraws:
     generator exists on the meta device). `lm.init(cfg, device="meta")`
     uses it; the result is the port's jax.eval_shape of the init."""
     device = torch.device("meta")
+
+
+class _Draws(threading.local):
+    hook = None
+
+
+_DRAWS = _Draws()
+
+
+@contextmanager
+def drawn_by(hook):
+    """Within the block, dense_init hands each leaf it drew (float32, on
+    the generator's device) to `hook(w, dtype)`, which returns the
+    parameter: lm.init's rank form keeps the rank's block of each leaf
+    there, before the next draw."""
+    prev, _DRAWS.hook = _DRAWS.hook, hook
+    try:
+        yield
+    finally:
+        _DRAWS.hook = prev
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -56,6 +82,8 @@ def dense_init(shape, dtype, generator: torch.Generator,
     if not w.is_meta:
         torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
                                     generator=generator)
+    if _DRAWS.hook is not None:
+        return _DRAWS.hook(w, dtype)
     return torch.nn.Parameter(w.to(dtype), requires_grad=False)
 
 

@@ -16,16 +16,24 @@ does. The aux loss is the sum of the MoE blocks' load-balance losses
 forward checkpoints every block, as the reference's jax.checkpoint does
 (repro_torch.models.remat). The head is the embedding's transpose when the
 config ties them (mamba2-1.3b, recurrentgemma-2b).
+
+On a mesh of ranks (repro_torch.launch.mesh.RankMesh) `init` and
+`init_caches` make this rank's blocks only, and a step over ranks
+(repro_torch.launch.specs) computes on them: the embedding lookup on a
+vocabulary split over ranks takes the tokens in the rank's rows and sums
+over the ranks (one term nonzero, so exact), and the head's split logits
+are gathered whole before anything reads them.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding as shlib
 from repro_torch.dist.sharding import logical_constraint
-from repro_torch.models import blocks, remat
+from repro_torch.models import attention, blocks, remat
 from repro_torch.models.common import (MetaDraws, Params, dense_init,
-                                       dtype_of, map_axes_tree,
+                                       drawn_by, dtype_of, map_axes_tree,
                                        param_axes_of, rms_norm, zeros_init)
 
 
@@ -50,12 +58,22 @@ class LM(Params):
 # --------------------------------------------------------------------------
 
 def init(cfg, generator: torch.Generator | None = None, *, seed: int = 0,
-         device=None) -> LM:
+         device=None, mesh=None, rules=None) -> LM:
     """Random weights drawn on `generator` (default: a generator seeded
     with `seed` on `device`, the card unless device="cpu"), in the order
     embedding, head, then each block. device="meta" draws nothing: every
     parameter is an empty meta tensor of its shape and dtype, the port's
-    jax.eval_shape of the init."""
+    jax.eval_shape of the init.
+
+    With a rank `mesh` (and the cell's `rules`) every parameter is this
+    rank's block under sharding_tree(..., rules), each leaf cut as it is
+    drawn (on `device`, by default the mesh's): the values are those of
+    the whole init, bit for bit, and a rank holds one whole leaf at most,
+    for the time of its draw."""
+    if getattr(mesh, "group", None) is not None:
+        return _init_blocks(cfg, generator, seed,
+                            mesh.device if device is None else device,
+                            mesh, rules or {})
     if generator is None:
         device = resolve_device(device)
         generator = (MetaDraws() if device.type == "meta" else
@@ -75,6 +93,47 @@ def init(cfg, generator: torch.Generator | None = None, *, seed: int = 0,
               layers=layers)
 
 
+def _init_blocks(cfg, generator, seed, device, mesh, rules) -> LM:
+    """init's rank form: the draw order and each draw's sharding come from
+    the same init on the meta device; the real draws then keep the block
+    of each leaf, and the leaves made whole without a draw (norms, zeros,
+    the SSM's constants) are cut after."""
+    drawn = []
+
+    def record(w, dtype):
+        drawn.append(torch.nn.Parameter(w.to(dtype), requires_grad=False))
+        return drawn[-1]
+
+    with drawn_by(record):
+        meta = init(cfg, device="meta")
+    sh = shlib.sharding_tree(meta, param_axes(meta), mesh, rules)
+    name_of = {id(p): n for n, p in meta.named_parameters()}
+    cuts = iter([sh[name_of[id(p)]] for p in drawn])
+    del meta, drawn, name_of
+
+    cut_ids = set()
+
+    def cut(w, dtype):
+        block = shlib.local_block(w, next(cuts))
+        # a block is a copy of its own, so the whole leaf w is freed
+        p = torch.nn.Parameter(block.to(dtype, copy=block is not w),
+                               requires_grad=False)
+        cut_ids.add(id(p))
+        return p
+
+    if generator is None:
+        generator = torch.Generator(resolve_device(device)).manual_seed(seed)
+    with drawn_by(cut):
+        model = init(cfg, generator)
+    for name, p in list(model.named_parameters()):
+        block = p if id(p) in cut_ids else shlib.local_block(p, sh[name])
+        if block is not p:
+            owner, _, leaf = name.rpartition(".")
+            setattr(model.get_submodule(owner) if owner else model, leaf,
+                    torch.nn.Parameter(block.clone(), requires_grad=False))
+    return model
+
+
 def param_axes(model_or_cfg) -> dict:
     """{parameter name: logical axes string} of an LM, or of the LM a
     config builds (made on the meta device): what the reference's init
@@ -91,9 +150,18 @@ def param_axes(model_or_cfg) -> dict:
 # --------------------------------------------------------------------------
 
 def init_caches(cfg, batch: int, max_len: int, dtype=None,
-                device=None) -> list[dict]:
+                device=None, *, mesh=None, rules=None) -> list[dict]:
     """One decode cache per layer, in execution order; on the card unless
-    device="cpu"."""
+    device="cpu". With a rank `mesh` (and the cell's `rules`), this
+    rank's block of each leaf of the `batch`-row caches under
+    sharding_tree(..., rules), on the mesh's device."""
+    if getattr(mesh, "group", None) is not None:
+        whole = init_caches(cfg, batch, max_len, dtype, "meta")
+        sh = shlib.sharding_tree(whole, cache_axes(cfg), mesh, rules or {})
+        return [{k: torch.full(sh[i][k].shard_shape(t.shape),
+                               attention.CACHE_FILL.get(k, 0),
+                               dtype=t.dtype, device=mesh.device)
+                 for k, t in c.items()} for i, c in enumerate(whole)]
     device = resolve_device(device)
     dtype = dtype or dtype_of(cfg.dtype)
     return [blocks.block_cache_init(cfg, cfg.pattern_at(i), batch, max_len,
@@ -142,9 +210,29 @@ def _stack_apply(params, cfg, x, positions, caches, decode):
 
 
 def head_logits(params, cfg, x):
+    """(B, S, V) logits; over ranks whose head splits the vocabulary, each
+    rank's columns gathered whole."""
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params["embed"])
-    return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+        w, vocab_dim = params["embed"], 0
+        logits = torch.einsum("bsd,vd->bsv", x, w)
+    else:
+        w, vocab_dim = params["lm_head"], 1
+        logits = torch.einsum("bsd,dv->bsv", x, w)
+    return shlib.gather_over(logits, -1, shlib.split_axes(w, vocab_dim))
+
+
+def embed_lookup(table, tokens):
+    """table[tokens]; over ranks that split the vocabulary, each rank
+    looks up the tokens of its rows, zeros elsewhere, summed over the
+    ranks: one term of each sum is nonzero, so the result is exact."""
+    axes = shlib.split_axes(table, 0)
+    if not axes:
+        return table[tokens.long()]
+    local = tokens.long() - shlib.block_start(table, 0)
+    inside = (local >= 0) & (local < table.shape[0])
+    x = torch.where(inside[..., None],
+                    table[local.clamp(0, table.shape[0] - 1)], 0.0)
+    return shlib.reduce_over(x, axes)
 
 
 def head_weight(params, cfg):
@@ -159,7 +247,7 @@ def apply(params, cfg, inputs, positions, caches=None, decode=False,
 
     Returns (logits_or_hidden, new_caches, aux_loss)."""
     if cfg.input_mode == "tokens":
-        x = params["embed"][inputs.long()]
+        x = embed_lookup(params["embed"], inputs)
     else:
         x = inputs.to(dtype_of(cfg.dtype))
     x = logical_constraint(x, ("batch", "seq", "act_embed"))

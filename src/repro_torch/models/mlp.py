@@ -1,10 +1,13 @@
 """SwiGLU feed-forward block, LLaMA-style (counterpart of
-repro/models/mlp.py)."""
+repro/models/mlp.py). Over ranks that split the hidden dim ("mlp"),
+w_gate and w_up are column-parallel and w_down row-parallel: a rank's
+partial product is summed over those ranks."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding as shlib
 from repro_torch.models.common import Params, dense_init
 
 
@@ -26,4 +29,6 @@ def init(cfg, dtype, generator: torch.Generator) -> MLP:
 def apply(params, x):
     g = torch.einsum("bsd,df->bsf", x, params["w_gate"])
     u = torch.einsum("bsd,df->bsf", x, params["w_up"])
-    return torch.einsum("bsf,fd->bsd", F.silu(g) * u, params["w_down"])
+    w_down = params["w_down"]
+    out = torch.einsum("bsf,fd->bsd", F.silu(g) * u, w_down)
+    return shlib.reduce_over(out, shlib.split_axes(w_down, 0))

@@ -20,6 +20,17 @@ expert id (in x's dtype, as the reference's scatter-add adds in its
 flattened (E, C) order) are the reference's; the combine gathers each
 token's slots and adds them in that order, so it is deterministic where
 an index_add_ on the card would add by atomics.
+
+Over ranks (a step of repro_torch.launch.specs on a RankMesh) the router
+and its bias are split over "experts": the fp32 router logits and the
+bias are gathered whole before the softmax or sigmoid, so routing,
+capacity and drops are the reference's. Under expert parallelism (the
+experts split) a rank computes its experts' slots only, and a token's
+choices of other ranks' experts add zeros; under the expert-TP fallback
+(the expert hidden dim split) a rank's w_down product is partial. Either
+way the outputs are summed over the ranks, in fp32 for half types, so
+the ascending-id order of a token's sum in x's dtype holds within a rank
+only: across ranks the sum differs from the reference's in rounding.
 """
 from __future__ import annotations
 
@@ -28,6 +39,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding as shlib
 from repro_torch.models.common import Params, dense_init, zeros_init
 
 # the block's leaves, in the reference's names (router_bias only with
@@ -81,11 +93,16 @@ def _top_k(values, k: int):
 def _route(params, x, cfg):
     """x: (..., S, D) -> top-k (idx (..., S, k) int64, weights (..., S, k)
     fp32, probs (..., S, E)); the router runs in fp32."""
-    logits = torch.einsum("...d,de->...e", x.float(), params["router"])
+    router = params["router"]
+    logits = shlib.gather_over(
+        torch.einsum("...d,de->...e", x.float(), router), -1,
+        shlib.split_axes(router, 1))
     k = cfg.experts_per_token
     if cfg.aux_free_bias:
         scores = torch.sigmoid(logits)
-        _, idx = _top_k(scores + params["router_bias"], k)
+        bias = params["router_bias"]
+        bias = shlib.gather_over(bias, 0, shlib.split_axes(bias, 0))
+        _, idx = _top_k(scores + bias, k)
         w = torch.gather(scores, -1, idx)
         w = w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-9)
         probs = scores / torch.clamp_min(scores.sum(dim=-1, keepdim=True),
@@ -145,16 +162,31 @@ def _experts(params, x, idx, token_for, weight_for, slot, keep):
     """x (B, S, D), the dispatch of every row -> (B, S, D): gather each
     expert's C slots of every row, one bmm a projection over experts with
     B * C rows each, weight each slot's output in x's dtype, then sum
-    each token's kept choices in ascending expert id in x's dtype."""
+    each token's kept choices in ascending expert id in x's dtype. Over
+    ranks that split the experts, only this rank's experts' slots (the
+    other choices add zeros); the sum over the ranks closes it."""
     b, s, d = x.shape
-    e, cap = token_for.shape[-2:]
+    cap = token_for.shape[-1]
     k = idx.shape[-1]
+    w_gate = params["w_gate"]
+    e = w_gate.shape[0]
+    e_axes = shlib.split_axes(w_gate, 0)
+    if e_axes:                      # expert parallel: this rank's experts
+        lo = shlib.block_start(w_gate, 0)
+        token_for = token_for[..., lo:lo + e, :]
+        weight_for = weight_for[..., lo:lo + e, :]
+        slot = slot - lo * cap
+        keep = keep & (slot >= 0) & (slot < e * cap)
     xe = torch.gather(x, 1, token_for.reshape(b, e * cap, 1).long()
                       .expand(-1, -1, d))                    # (B, E*C, D)
     xe = xe.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
-    g = torch.bmm(xe, params["w_gate"])
+    g = torch.bmm(xe, w_gate)
+    del w_gate
     u = torch.bmm(xe, params["w_up"])
-    y = torch.bmm(F.silu(g) * u, params["w_down"])          # (E, B*C, D)
+    w_down = params["w_down"]
+    f_axes = shlib.split_axes(w_down, 1)
+    y = torch.bmm(F.silu(g) * u, w_down)                    # (E, B*C, D)
+    del w_down
     y = y.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
     y = y * weight_for.reshape(b, e * cap, 1).to(y.dtype)
     # each (token, choice)'s slot output (exactly 0 where dropped), its
@@ -167,7 +199,7 @@ def _experts(params, x, idx, token_for, weight_for, slot, keep):
     out = torch.zeros_like(x)
     for j in range(k):
         out = out + per[:, :, j]
-    return out
+    return shlib.reduce_over(out, e_axes + f_axes)
 
 
 def _apply_row(params, x, cfg, cap):

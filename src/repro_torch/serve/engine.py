@@ -10,6 +10,11 @@ ring); an SSD stack's prefill runs the SSD chunk-scan kernel in every
 layer, and its decode step is plain tensor work; the RG-LRU recurrence,
 the projections, the MLP, the experts and the head are plain tensor work
 and matrix products.
+
+Run over ranks (repro_torch.launch.specs.build_prefill / build_serve on
+a RankMesh), a rank computes its rows of the batch; the steps gather the
+logits over the batch's axes, so every rank returns the global tokens
+and logits.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding as shlib
 from repro_torch.models import lm
 from repro_torch.models.attention import INF_POS
 from repro_torch.models.common import dtype_of
@@ -41,7 +47,9 @@ def make_prefill_step(cfg):
     def step(params, inputs, caches):
         hidden, new_caches, _ = lm.prefill(params, cfg, inputs, caches,
                                            return_hidden=True)
-        return lm.head_logits(params, cfg, hidden[:, -1:])[:, 0], new_caches
+        logits = lm.head_logits(params, cfg, hidden[:, -1:])[:, 0]
+        logits = shlib.gather_over(logits, 0, shlib.split_of("batch"))
+        return logits, new_caches
 
     return step
 
@@ -58,7 +66,8 @@ def make_serve_step(cfg, sample: str = "greedy", temperature: float = 1.0):
     def step(params, inputs, cache_len, caches, generator):
         logits, new_caches, _ = lm.decode_step(params, cfg, inputs,
                                                cache_len, caches)
-        logits = logits[:, -1].float()
+        logits = shlib.gather_over(logits[:, -1].float(), 0,
+                                   shlib.split_of("batch"))
         if sample == "greedy":
             nxt = torch.argmax(logits, dim=-1)
         else:

@@ -24,7 +24,8 @@ means), clips by the norm of the whole reduced gradients and updates
 this rank's blocks. Ranks along an axis that does not split the batch
 compute the same rows: the compute is replicated there, as the
 reference's GSPMD step's arithmetic is (its tensor-parallel layout over
-"model" is ROADMAP.md's item 5d).
+"model" is ROADMAP.md's item 5d-train; the serve step on ranks computes
+tensor-parallel, repro_torch.launch.specs).
 """
 from __future__ import annotations
 
@@ -184,7 +185,7 @@ def make_rank_train_step(cfg, opt_cfg: optim.AdamWConfig, mesh,
             f"the MoE train step over {mesh.size} ranks: routing "
             f"capacity and the load-balance loss over a batch split "
             f"across ranks, with expert-parallel compute, are ROADMAP.md's "
-            f"item 5d")
+            f"item 5d-train")
     grad_fn = _grad_fn(cfg, num_microbatches)
     groups = [mesh.axis_group(a) for a in batch_axes if mesh.shape[a] > 1]
     blocks_n = math.prod(mesh.shape[a] for a in batch_axes)
@@ -267,13 +268,10 @@ def init_state(seed: int, cfg, opt_cfg: optim.AdamWConfig, device=None, *,
     `axes` mirrors the state: each parameter's logical axes as the
     reference's init gives them (lm.param_axes, keyed by parameter name),
     the optimizer's trees the same (optim.opt_axes). With a rank `mesh`
-    (and the cell's `rules`) every rank draws the whole weights on its
-    device and keeps its blocks, and the optimizer state is made from
-    the blocks."""
-    params = lm.init(cfg, seed=seed, device=device)
-    if getattr(mesh, "group", None) is not None:
-        place_blocks(params, shlib.sharding_tree(
-            params, lm.param_axes(params), mesh, rules or {}))
+    (and the cell's `rules`) every rank draws the weights leaf by leaf
+    on its device and keeps its block of each (lm.init's rank form), and
+    the optimizer state is made from the blocks."""
+    params = lm.init(cfg, seed=seed, device=device, mesh=mesh, rules=rules)
     params.requires_grad_(True)
     opt = optim.init(params, opt_cfg)
     state = {"params": params, "opt": opt,
