@@ -84,7 +84,7 @@ adds, after 7b, while the store's tables live:
              it), the capacity tier at that rate over Table 1's 2.5. Then
              benchmarks/tier_bench.py's table (sixteen 8-bit columns) at
              2^28 rows on the card, 1 MiB placement chunks, the fast tier
-             a quarter of it: replay_trace of 150 queries at skews 0.6,
+             a quarter of it: replay_trace of 100 queries at skews 0.6,
              1.1 and 1.5 under STATIC, CACHE and MEMCACHE, deadlines at
              twice the mean query's all-fast time; at 1.1 under MEMCACHE
              also with prefetch (an eighth of the fast tier), with the
@@ -158,14 +158,14 @@ The LM serving slice (internlm2-1.8b) adds:
              at its published widths and depth in bf16, random weights
              from a seeded generator on the card, attn_impl="flash";
              ServeEngine(batch_slots=8, max_len=8192) answers 16 requests
-             (prompts of 1024..4096 tokens drawn from seed 0, 64 new
+             (prompts of 1024..4096 tokens drawn from seed 0, 32 new
              tokens each), then SLAScheduler the same prompts at the decode
              rate the first run measured. Prints prefill ms by request,
              decode-step p50/p95/p99, tokens/s, the bytes each step had
              to move (weights, pos planes, K/V of the valid ring slots)
              over step time, peak memory, the scheduler's summary and a
              profiled window's device busy share (SERVE_PROFILE: 2
-             prompts of 2048, 8 new tokens); kernels 10 and 11 must
+             prompts of 2048, 4 new tokens); kernels 10 and 11 must
              have launched.
 10. serve parity — teacher-forced: one 4096-token prefill and 16 decode
              steps under attn_impl="flash" and "auto", same weights; the
@@ -193,7 +193,7 @@ The Mamba-2 serving slice (mamba2-1.3b) adds:
              random weights from a seeded generator on the card;
              ServeEngine(batch_slots=8) answers 16 requests (prompts of
              1024..4096 tokens in multiples of the 256-step chunk, drawn
-             from seed 0; 64 new tokens each). Prints prefill ms by
+             from seed 0; 32 new tokens each). Prints prefill ms by
              request, decode-step p50/p95/p99, tokens/s, the bytes a step
              must move (weights, SSM and conv states read and written) over
              step time, peak memory and a profiled window's busy share
@@ -239,14 +239,14 @@ attention runs kernels 10 and 11) adds:
              generator on the card, attn_impl="flash" (recurrentgemma-2b
              at its 26 layers through ServeEngine(8, 8192); moonshot at
              its 48 through ServeEngine(8, 4224), which holds its 4096 +
-             64 tokens beside 52.3 GiB of weights; mixtral-8x22b at 8 of
+             32 tokens beside 52.3 GiB of weights; mixtral-8x22b at 8 of
              its 56 layers, printed as reduced, through ServeEngine(8,
              8192)): the 16 requests of the serve phase. Prints
              prefill ms by request, decode-step p50/p95/p99, tokens/s, the bytes a
              step must move (the weights it reads, of the experts only
              those its routing chose, the rings' valid K/V, recurrent
              states read and written) and their bound at 3.35 TB/s, peak
-             memory and a profiled window (GRIFFIN_PROFILE: 1 prompt, 4
+             memory and a profiled window (GRIFFIN_PROFILE: 1 prompt, 2
              new tokens); the
              parameter count must equal cfg.param_count() and kernels 10
              and 11 must have launched. Then the teacher-forced check of
@@ -298,7 +298,7 @@ chaos) adds:
 7g. chaos — after the paper model phases: examples/chaos_replay.py's
              replay scaled to 8 x 2^24 rows in 16384-row chunks (1024 a
              column), FaultSpec(seed=42, stall_rate=0.1, corrupt_rate=0.05),
-             CACHE, skew 1.2, 120 queries: twice with recovery (attainment,
+             CACHE, skew 1.2, 60 queries: twice with recovery (attainment,
              fault counts, recovery joules, answers and ledger equal), once
              without (attainment lower, every answer it gives exact), once
              through torch_ref (equal to the first); prints host wall and
@@ -352,7 +352,7 @@ pipeline, the checkpoint store and the supervisor) run after the Griffin
 / MoE phases, before the training slice, at mamba2-1.3b's published
 widths, bf16 (the launchers' attn_impl="auto" reaches no attention
 kernel; every SSD layer's forward is kernel 12); the train launcher and
-the phases that reuse its run (18d-18f) at LAUNCH_LAYERS = 12 of its 48
+the phases that reuse its run (18d-18f) at LAUNCH_LAYERS = 6 of its 48
 layers (cut to pay for the world slices), launch.serve at 48:
 
 18a. train launcher mamba2 — launch.train.main with --seq-len 2048
@@ -538,7 +538,7 @@ W2. world (nccl, one rank a card) — torch.cuda.device_count() ranks
 W3. world train (one position, checkpoints) — train state split over
              the ranks. After its query path (its tables dropped) each
              gloo rank runs mamba2-1.3b at its published widths,
-             WORLD_TRAIN_LAYERS (8) of its 48 layers (eight ranks
+             WORLD_TRAIN_LAYERS (2) of its 48 layers (eight ranks
              each gather the whole bf16 parameters), bf16, remat
              "block", SyntheticLM batches of 2 x 2048: run A on a
              (2, 4) rank mesh, 3 steps of build_train's rank step
@@ -593,6 +593,29 @@ W4. world serve (checks) — the serve step split over the ranks. Before
              "launches_world". Phase 18c (`sharded serve mixtral`)
              later checks that its own one-position run gives the
              reference's tokens.
+W5. world supervised (gloo, 8 ranks on one card) — after W1-W4, the
+             train launcher's supervision on ranks: launch.train.run_world
+             on WORLD_RANKS gloo ranks sharing the card, mamba2-1.3b at its
+             published widths cut to WORLD_SUPERVISED_LAYERS (2) of 48
+             layers in each rank (as launch_depth cuts it), bf16, remat
+             "block", --mesh 2,4 --global-batch 2 --seq-len 2048 --steps 3
+             --checkpoint-every 2, --heartbeat-dir, --max-restarts 2 and
+             --metrics-file. Rank 5 exits by os._exit(1) at the start of
+             its 3rd step call, once, after the step-2 checkpoint is
+             published; the other ranks are left in that step's first
+             gather. Holds: two worlds spawned, one restart, rank 0's
+             "[restore] resumed from step 2" and "done at step 3
+             (restarts: 1)", heartbeats host-0 ... host-7 at step 3,
+             checkpoints [2, 3], metrics of steps 1-3, kernel 12 launched
+             launches_a_step(cfg) x 1 on every rank of the second world,
+             and the step-3 file bit for bit the state of this process's
+             uninterrupted run of the same arguments on one position with
+             --microbatches 2 (run beside the world). Prints each world's
+             spawn-to-rank and spawn-to-step seconds, the seconds from
+             rank 5's exit to the RankError here, the restore's read and
+             load ms, each step's seconds, the steps done twice and the
+             phase's wall; kernel 12's "launches_world" gets "supervised".
+             Its record joins the {"world": ...} line as "supervised".
 
 Every phase prints its seconds and the smoke's running total as it ends
 ("-- name: s").
@@ -657,6 +680,9 @@ def fail(msg: str) -> None:
 
 
 _PHASE = {"name": None, "t0": 0.0, "start": time.perf_counter()}
+# The smoke's limit is 1200 s, its build included. A run still going
+# here writes every thread's stack to standard error (and goes on).
+WATCHDOG_S = 1140
 
 
 def phase(name: str | None) -> None:
@@ -669,6 +695,9 @@ def phase(name: str | None) -> None:
     _PHASE.update(name=name, t0=now)
     if name is not None:
         print(f"== {name}", flush=True)
+        # standard error keeps only its end: there, where the smoke was
+        print(f"chip_smoke: phase {name} at {now - _PHASE['start']:.1f} s",
+              file=sys.stderr, flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -2011,14 +2040,15 @@ def group_records(main_rec: dict, store_dense: dict, store_rle: dict,
 # benchmarks/tier_bench.py's table and traffic at a size the card holds:
 # sixteen 8-bit columns (:41-45, 67-70) at 2^28 rows (4 GiB packed), in
 # 1 MiB placement chunks (256 a column, 4096 in all), the fast tier at a
-# quarter of the table, three skews of 150 queries from seed 7, deadlines
-# at twice the all-fast service time of the mean query (:78-86).
+# quarter of the table, three skews of 100 queries from seed 7 (its 150
+# cut to the smoke's time limit), deadlines at twice the all-fast service
+# time of the mean query (:78-86).
 TIER_ROWS = 1 << 28
 TIER_SPEC = {f"c{i:02d}": 8 for i in range(16)}
 TIER_CHUNK_ROWS = 1 << 20
 TIER_FAST_FRACTION = 0.25
 TIER_SKEWS = (0.6, 1.1, 1.5)
-TIER_QUERIES = 150
+TIER_QUERIES = 100
 TIER_SEED = 7
 TIER_SLA_SLACK = 2.0
 TIER_TUNE_WORDS = 1 << 28     # kernel 3 at the main path's shape
@@ -3112,7 +3142,8 @@ def attention_controls(g) -> dict:
 
 SERVE_ARCH = "internlm2-1.8b"     # 24 layers, d_model 2048, 16 / 8 heads
 SERVE_SLOTS, SERVE_MAX_LEN = 8, 8192
-SERVE_REQUESTS, SERVE_NEW = 16, 64
+# 32 new tokens a request (64 until the smoke outgrew its time limit)
+SERVE_REQUESTS, SERVE_NEW = 16, 32
 SERVE_PROMPTS = (1024, 4096)      # prompt lengths, inclusive
 TF_PROMPT, TF_STEPS = 4096, 16    # teacher-forced flash vs auto
 # Teacher-forced logits of attn_impl="flash" against "auto" (same bf16
@@ -3396,8 +3427,9 @@ SERVE_KERNELS = ("flash_wgmma_kernel", "flash_fwd_kernel",
                  "decode_attention_kernel")
 # the serve and serve mamba2 phases' profiled window (prompts of 2048
 # tokens, new tokens each; at 4 x 16 the profiler's processing of ~250k
-# host operator calls took ~45 s of host a window on the H100)
-SERVE_PROFILE = (2, 8)
+# host operator calls took ~45 s of host a window on the H100, and the
+# 2 x 8 window's ~111k some 20 s on a slow host)
+SERVE_PROFILE = (2, 4)
 
 
 def serve_profile(engine, cfg, kernels=SERVE_KERNELS,
@@ -4132,9 +4164,10 @@ def launch_split(fn, names, dev: dict) -> dict:
 RG_ARCH = "recurrentgemma-2b"      # 26 layers (R, R, A), d_model 2560
 MOON_ARCH = "moonshot-v1-16b-a3b"  # 48 "attn" layers, 64 experts, top 6
 MIX_ARCH = "mixtral-8x22b"         # 56 "swa" layers, 8 experts, top 2
-# 4096-token prompts and 64 new tokens: an 8192-slot ring would hold 25.8
-# GB of K/V (48 layers x 16 KV heads x 128 x 2 x 2 B a slot-token x 8
-# slots), which does not fit beside moonshot's 52.3 GiB of weights
+# 4096-token prompts and up to 128 new tokens: an 8192-slot ring would
+# hold 25.8 GB of K/V (48 layers x 16 KV heads x 128 x 2 x 2 B a
+# slot-token x 8 slots), which does not fit beside moonshot's 52.3 GiB of
+# weights
 MOON_MAX_LEN = 4224
 # mixtral-8x22b is 140.6 B parameters, 262 GiB in bf16: 8 of its 56 layers
 # (20.4 B, 38.1 GiB) at full width
@@ -4142,8 +4175,8 @@ MIX_LAYERS = 8
 # the profiled window of this slice's serve phases (prompts of 2048
 # tokens, new tokens each), smaller than the serve phase's: the
 # profiler's processing of moonshot's 2 x 8 window (343k host operator
-# calls) took 52.8-77.7 s of host on the H100
-GRIFFIN_PROFILE = (1, 4)
+# calls) took 52.8-77.7 s of host on the H100, its 1 x 4 window 15.1 s
+GRIFFIN_PROFILE = (1, 2)
 MOE_DROP_FACTOR = 0.5    # block parity's capacity factor: choices drop
 MOE_BIAS_RATE = 0.02     # block parity's bias_update rate (3 updates)
 BLOCK_S, BLOCK_STEPS = 1024, 16   # RG-LRU block parity: prefill, decode
@@ -4403,7 +4436,7 @@ def lm_serve_phase(arch: str, max_len: int, dev: dict) -> tuple:
 def recurrentgemma_times(dev: dict) -> dict:
     """Kernels 10 and 11 at recurrentgemma-2b's shapes in bf16: decode q
     (8, 1, 10, 256) over its (8, 1, 2048, 256) window ring wrapped as after
-    the longest request (positions up to 4158 stored, queries at 4159,
+    the longest request (positions up to 4126 stored, queries at 4127,
     window 2048), and a 4096-token prefill (1, 1, 10, 4096, 256) at window
     2048 on the route kernel.route gives it (the tensor cores), then on
     kernel 11's CUDA-core route (way="cuda_core", the kernel the D 256
@@ -4550,7 +4583,7 @@ DEGRADED_LOST = ([0], [3, 5], list(range(7)))
 CHAOS_COLS = 8
 CHAOS_ROWS = 1 << 24
 CHAOS_CHUNK_ROWS = 16384           # 1024 chunks a column (see chaos_phase)
-CHAOS_QUERIES = 120
+CHAOS_QUERIES = 60                 # examples/chaos_replay.py's 120, halved
 CHAOS_SPEC = dict(seed=42, stall_rate=0.1, corrupt_rate=0.05)
 CHAOS_SLA_SLACK = 2.5            # examples/chaos_replay.py's SLA_SLACK
 CHAOS_FAST_GBPS = 0.016          # ... and its modeled fast tier
@@ -6051,9 +6084,9 @@ def train_phases(dev: dict, kernels: list, dryrun=None) -> dict:
 
 LAUNCH_ARCH = "mamba2-1.3b"        # 48 SSD layers: kernel 12 a layer
 # The train launcher's chain (18a, 18d-18f) runs LAUNCH_LAYERS of them,
-# to pay for the world's train and serve slices within the smoke's time
-# limit; launch.serve keeps 48.
-LAUNCH_LAYERS = 12
+# to pay for the world's train, serve and supervised slices within the
+# smoke's time limit; launch.serve keeps 48.
+LAUNCH_LAYERS = 6
 LAUNCH_TRAIN = ["--seq-len", "2048", "--global-batch", "1", "--steps", "5"]
 LAUNCH_STEPS = 5
 LAUNCH_EVERY = 3                   # checkpoints at steps 3 and 5
@@ -6157,24 +6190,27 @@ class CrashOnce:
 
 
 class Tee:
-    """Standard output that is also kept."""
+    """Standard output that is also kept (and, with `path`, appended to
+    that file as it is written)."""
 
-    def __init__(self, out):
+    def __init__(self, out, path=None):
         self.out, self.parts = out, []
+        self.file = None if path is None else open(path, "a", buffering=1)
 
     def write(self, text):
         self.parts.append(text)
+        if self.file is not None:
+            self.file.write(text)
         return self.out.write(text)
 
     def flush(self):
         self.out.flush()
 
 
-def launch_config():
-    """LAUNCH_ARCH at its published widths, LAUNCH_LAYERS deep."""
+def launch_config(layers: int = LAUNCH_LAYERS):
+    """LAUNCH_ARCH at its published widths, `layers` deep."""
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(LAUNCH_ARCH),
-                               num_layers=LAUNCH_LAYERS)
+    return dataclasses.replace(get_config(LAUNCH_ARCH), num_layers=layers)
 
 
 # launch_depth for the elastic resume's second process, as code
@@ -6189,13 +6225,16 @@ LAUNCH_DEPTH_CODE = (
 
 class launch_depth:
     """Inside the block launch.train.main, which reads its config by name
-    (--arch), builds LAUNCH_ARCH LAUNCH_LAYERS deep."""
+    (--arch), builds LAUNCH_ARCH `layers` deep."""
+
+    def __init__(self, layers: int = LAUNCH_LAYERS):
+        self.layers = layers
 
     def __enter__(self):
         from repro_torch.launch import train
         self.mod, self.real = train, train.get_config
-        train.get_config = lambda name: (launch_config() if name ==
-                                         LAUNCH_ARCH else self.real(name))
+        train.get_config = lambda name: (launch_config(self.layers) if name
+                                         == LAUNCH_ARCH else self.real(name))
         return self
 
     def __exit__(self, *exc):
@@ -7468,7 +7507,7 @@ def world_query_rank(rows: int, full: bool) -> dict:
 # the world's train slice: train state split over the ranks
 # --------------------------------------------------------------------------
 
-WORLD_TRAIN_LAYERS = 8             # of mamba2-1.3b's 48: the time limit
+WORLD_TRAIN_LAYERS = 2             # of mamba2-1.3b's 48: the time limit
 WORLD_TRAIN_BS = (2, 2048)         # the global batch: rows x tokens
 WORLD_TRAIN_STEPS = 3              # run A's steps
 WORLD_TRAIN_SAVES = (2, 3)         # A's checkpoints; B resumes from the first
@@ -8570,7 +8609,316 @@ def world_phases(dev: dict, sharded: dict, kernels: list,
     return out
 
 
+# --------------------------------------------------------------------------
+# the world supervised: launch.train.run_world, a rank's death, the world
+# spawned again from its last checkpoint
+# --------------------------------------------------------------------------
+
+# mamba2-1.3b at its published widths, WORLD_SUPERVISED_LAYERS of its 48
+# layers (the time limit), bf16, remat "block", 2 x 2048 a step, 3 steps
+WORLD_SUPERVISED_LAYERS = 2
+WORLD_SUPERVISED_TRAIN = ["--arch", LAUNCH_ARCH, "--global-batch", "2",
+                          "--seq-len", "2048", "--steps", "3"]
+WORLD_SUPERVISED_STEPS = 3
+WORLD_SUPERVISED_SAVE = 2          # a checkpoint after step 2, then the final
+WORLD_SUPERVISED_MESH = "2,4"
+WORLD_SUPERVISED_FAULT = (5, 3)    # (rank, step call) that exits at its start
+WORLD_SUPERVISED_RESTARTS = 2
+WORLD_SUPERVISED_DIR = Path(__file__).resolve().parent / "build" / \
+    "world_supervised"
+WORLD_SUPERVISED_WAIT_S = 120      # the faulting rank waits this for step 2
+WORLD_SUPERVISED_DEADLINE_S = 300  # a world of this phase (28-51 s measured)
+
+
+def _supervised_probe(root: str, fault: tuple, layers: int):
+    """A SupervisedProbe as a rank unpickles it (before the rank runs its
+    function): from here on, launch.train in this rank's process builds
+    LAUNCH_ARCH `layers` deep, as launch_depth cuts it in this one."""
+    launch_depth(layers).__enter__()
+    return SupervisedProbe(root, fault, layers, up_at=time.time())
+
+
+class SupervisedProbe:
+    """run_world's `wrap_step` in the supervised world, on every rank of
+    every attempt (`main` calls it once the step is built): rank 0's
+    output is also appended to `root`/rank0.out; the checkpoint store's
+    restore and load are timed (CheckpointClock); kernel 12's count is
+    set to 0; and each step call is timed, its record written to
+    `root`/rank{r}-attempt{a}.json after it. Rank `fault[0]` exits by
+    os._exit(1) at the start of its step call `fault[1]`, once across
+    the attempts (the `fault.exited` marker, which holds the time), and
+    only after the step-WORLD_SUPERVISED_SAVE checkpoint is published."""
+
+    def __init__(self, root, fault: tuple, layers: int, up_at=None):
+        self.root, self.fault, self.layers = Path(root), fault, layers
+        self.up_at = up_at
+
+    def __reduce__(self):
+        return _supervised_probe, (str(self.root), self.fault, self.layers)
+
+    def __call__(self, step_fn):
+        import torch.distributed as dist
+
+        from repro_torch.dist import world
+        from repro_torch.kernels.ssd_chunk import kernel as sk
+        rank, attempt = dist.get_rank(), world.attempt()
+        rec = {"rank": rank, "attempt": attempt, "up_at": self.up_at,
+               "built_at": time.time(), "step_s": [], "launches": 0}
+        out = self.root / f"rank{rank}-attempt{attempt}.json"
+        marker = self.root / "fault.exited"
+        published = self.root / "ck" / f"step_{WORLD_SUPERVISED_SAVE:010d}"
+        if rank == 0:
+            sys.stdout = Tee(sys.stdout, self.root / "rank0.out")
+        # the process ends with its world: the patches stay
+        clock = CheckpointClock().__enter__()
+        sk.LAUNCHES = 0
+        calls = [0]
+
+        def step(state, batch):
+            calls[0] += 1
+            if (rank, calls[0]) == self.fault and not marker.exists():
+                t0 = time.perf_counter()
+                while not published.exists():
+                    if time.perf_counter() - t0 > WORLD_SUPERVISED_WAIT_S:
+                        raise TimeoutError(f"no {published}")
+                    time.sleep(0.05)
+                marker.write_text(repr(time.time()))
+                os._exit(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new = step_fn(state, batch)
+            torch.cuda.synchronize()
+            rec["step_s"].append(time.perf_counter() - t0)
+            rec["launches"] = sk.LAUNCHES
+            rec.update({k: clock.rec[k] for k in ("read_ms", "load_ms")})
+            out.write_text(json.dumps(rec))
+            return new
+        return step
+
+
+class SpawnClock:
+    """In this process, the wall time of each world.spawn (its start, its
+    end, the error it raised) and of each world's end (world._end, which
+    spawn calls once the first failure has been raised)."""
+
+    def __enter__(self):
+        from repro_torch.dist import world
+        self.mod, self.real = world, (world.spawn, world._end)
+        self.calls = []
+
+        def spawn(*a, **k):
+            rec = {"attempt": k.get("attempt"), "start": time.time()}
+            self.calls.append(rec)
+            try:
+                return self.real[0](*a, **k)
+            except Exception as e:
+                rec["error"] = str(e).splitlines()[0][:300]
+                raise
+            finally:
+                rec["end"] = time.time()
+
+        def end(procs):
+            self.calls[-1]["end_world"] = time.time()
+            self.real[1](procs)
+            self.calls[-1]["ended"] = time.time()
+
+        world.spawn, world._end = spawn, end
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.spawn, self.mod._end = self.real
+
+
+def supervised_one_position() -> tuple:
+    """The world's run in this process on one position, uninterrupted:
+    the same train arguments with each batch as two one-row microbatches
+    (the ranks' reduction order), WORLD_SUPERVISED_LAYERS deep. Returns
+    (the final state, its seconds)."""
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    with launch_depth(WORLD_SUPERVISED_LAYERS):
+        state, _ = run_launcher(train.main, WORLD_SUPERVISED_TRAIN + [
+            "--microbatches", "2"])
+    torch.cuda.synchronize()
+    return state, time.perf_counter() - t0
+
+
+def world_supervised_phase(dev: dict) -> dict:
+    """launch.train.run_world on WORLD_RANKS gloo ranks sharing the card,
+    --max-restarts WORLD_SUPERVISED_RESTARTS: rank 5 dies at the start of
+    its 3rd step call, after the step-2 checkpoint; the world is spawned
+    again and resumes from step 2. Holds: two worlds, one restart, rank
+    0's "[restore] resumed from step 2" and "done at step 3 (restarts:
+    1)", heartbeats host-0 ... host-7 at step 3, checkpoints [2, 3], the
+    step-3 file bit for bit the one-position run's state (run here,
+    beside the world), metrics of steps 1-3, kernel 12 launched
+    launches_a_step x the steps after the restore on every rank of the
+    last world; its per-rank launches join kernel 12's "launches_world"
+    as "supervised"."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.dist.fault_tolerance import Heartbeat
+    from repro_torch.launch import train
+    phase(f"world supervised (gloo, {WORLD_RANKS} ranks on one card)")
+    t_phase = time.perf_counter()
+    root = WORLD_SUPERVISED_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ck, hb, metrics = root / "ck", root / "hb", root / "metrics.jsonl"
+    argv = WORLD_SUPERVISED_TRAIN + [
+        "--mesh", WORLD_SUPERVISED_MESH, "--checkpoint-every",
+        str(WORLD_SUPERVISED_SAVE), "--checkpoint-dir", str(ck),
+        "--heartbeat-dir", str(hb), "--max-restarts",
+        str(WORLD_SUPERVISED_RESTARTS), "--metrics-file", str(metrics)]
+    probe = SupervisedProbe(root, WORLD_SUPERVISED_FAULT,
+                            WORLD_SUPERVISED_LAYERS)
+    with ThreadPoolExecutor(1) as pool, SpawnClock() as spawns:
+        one = pool.submit(supervised_one_position)
+        t0 = time.perf_counter()
+        step, policy = train.run_world(
+            argv, WORLD_RANKS, backend="gloo", device="cuda:0",
+            wrap_step=probe, deadline_s=WORLD_SUPERVISED_DEADLINE_S,
+            timeout_s=WORLD_COLLECTIVE_S)
+        world_s = time.perf_counter() - t0
+        one_state, one_s = one.result()
+
+    bad = []
+    cfg = launch_config(WORLD_SUPERVISED_LAYERS)
+    attempts = spawns.calls
+    lines = (root / "rank0.out").read_text().splitlines()
+    recs = {}
+    for p in root.glob("rank*-attempt*.json"):
+        r = json.loads(p.read_text())
+        recs[(r["attempt"], r["rank"])] = r
+    last = [recs.get((len(attempts) - 1, r)) for r in range(WORLD_RANKS)]
+    if len(attempts) != 2 or policy.restarts != 1 or \
+            step != WORLD_SUPERVISED_STEPS:
+        bad.append(("worlds", len(attempts), "restarts", policy.restarts,
+                    "step", step))
+    for want in (f"[restore] resumed from step {WORLD_SUPERVISED_SAVE}",
+                 f"done at step {WORLD_SUPERVISED_STEPS} (restarts: 1)"):
+        if want not in lines:
+            bad.append(("rank 0 did not print", want))
+    beats = {h: json.loads((hb / f"{h}.heartbeat").read_text())["step"]
+             for h in Heartbeat(hb, "x").fleet()}
+    if beats != {f"host-{r}": WORLD_SUPERVISED_STEPS
+                 for r in range(WORLD_RANKS)}:
+        bad.append(("heartbeats", beats))
+    steps = CheckpointManager(ck).all_steps()
+    if steps != [WORLD_SUPERVISED_SAVE, WORLD_SUPERVISED_STEPS]:
+        bad.append(("checkpoint steps", steps))
+    logged = [json.loads(x)["step"] for x in
+              metrics.read_text().splitlines()]
+    if logged != list(range(1, WORLD_SUPERVISED_STEPS + 1)):
+        bad.append(("metrics steps", logged))
+    want_launches = launches_a_step(cfg) * (WORLD_SUPERVISED_STEPS -
+                                            WORLD_SUPERVISED_SAVE)
+    launches = [None if r is None else r["launches"] for r in last]
+    if launches != [want_launches] * WORLD_RANKS:
+        bad.append(("kernel 12 launches in the last world", launches,
+                    want_launches))
+    t0 = time.perf_counter()
+    diff = checkpoint_diff(one_state, ck, WORLD_SUPERVISED_STEPS) \
+        if WORLD_SUPERVISED_STEPS in steps else {"leaves": 0,
+                                                 "differ": "no file"}
+    diff_s = time.perf_counter() - t0
+    if diff["differ"]:
+        bad.append(("the final checkpoint against one position",
+                    diff["differ"]))
+    del one_state
+    release()
+
+    exited = float((root / "fault.exited").read_text()) \
+        if (root / "fault.exited").exists() else None
+    smi = dev["smi"]
+    per_attempt = []
+    for a, call in enumerate(attempts):
+        ranks = [recs.get((a, r)) for r in range(WORLD_RANKS)]
+        up = [None if r is None else r["up_at"] - call["start"]
+              for r in ranks]
+        built = [None if r is None else r["built_at"] - call["start"]
+                 for r in ranks]
+        rec = {"attempt": a, "spawn_to_rank_up_s": up,
+               "spawn_to_step_built_s": built,
+               "step_s": [None if r is None else r["step_s"]
+                          for r in ranks],
+               "launches": [None if r is None else r["launches"]
+                            for r in ranks],
+               "restore_read_ms": [None if r is None else r["read_ms"]
+                                   for r in ranks],
+               "restore_load_ms": [None if r is None else r["load_ms"]
+                                   for r in ranks],
+               "wall_s": call["end"] - call["start"],
+               "error": call.get("error")}
+        if "end_world" in call and exited is not None and a == 0:
+            rec["exit_to_rank_error_s"] = call["end_world"] - exited
+            rec["end_world_s"] = call["ended"] - call["end_world"]
+        per_attempt.append(rec)
+        print(f"[world supervised] [{smi}] attempt {a}: spawn to a rank up "
+              f"{_span(up)} s, to its step built {_span(built)} s; step s "
+              f"by rank {_rounded(rec['step_s'], 3)}; kernel 12 launches "
+              f"{rec['launches']}; restore read ms "
+              f"{_rounded(rec['restore_read_ms'], 1)}, load ms "
+              f"{_rounded(rec['restore_load_ms'], 1)}; wall "
+              f"{rec['wall_s']:.3f} s; error {rec['error']}", flush=True)
+        if "exit_to_rank_error_s" in rec:
+            print(f"[world supervised] [{smi}] rank "
+                  f"{WORLD_SUPERVISED_FAULT[0]}'s exit to the RankError in "
+                  f"this process {rec['exit_to_rank_error_s']:.3f} s; the "
+                  f"world's processes ended in {rec['end_world_s']:.3f} s",
+                  flush=True)
+    twice = sorted({s for s in logged if logged.count(s) > 1})
+    wall = time.perf_counter() - t_phase
+    print(f"[world supervised] [{smi}] {cfg.name} at {cfg.num_layers} of 48 "
+          f"layers, bf16, remat {cfg.remat}, {WORLD_SUPERVISED_MESH} gloo "
+          f"ranks, batch 2 x 2048, {WORLD_SUPERVISED_STEPS} steps: worlds "
+          f"{len(attempts)}, restarts {policy.restarts}, final step {step}; "
+          f"rank 0 printed "
+          f"{[x for x in lines if x.startswith(('[restore]', 'done'))]}; "
+          f"heartbeats {beats}; checkpoints {steps}; metrics steps "
+          f"{logged}, done twice {twice} (step "
+          f"{WORLD_SUPERVISED_FAULT[1]} begun in the first world and lost); "
+          f"the step-{WORLD_SUPERVISED_STEPS} file against the one-position "
+          f"run ({one_s:.3f} s beside the world, 2 microbatches): "
+          f"{diff['leaves']} leaves, differ {diff['differ']} (read "
+          f"{diff_s:.3f} s); kernel 12 launches in the last world "
+          f"{launches} (want {want_launches}); run_world {world_s:.3f} s; "
+          f"phase wall {wall:.3f} s", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    if bad:
+        for b in bad:
+            print("MISMATCH", str(b)[:2000], file=sys.stderr)
+        fail(f"{len(bad)} world supervised checks failed")
+    return {"config": {"arch": cfg.name, "layers": cfg.num_layers,
+                       "mesh": WORLD_SUPERVISED_MESH, "batch": [2, 2048],
+                       "steps": WORLD_SUPERVISED_STEPS,
+                       "fault": list(WORLD_SUPERVISED_FAULT)},
+            "worlds": len(attempts), "restarts": policy.restarts,
+            "failures": [f[:300] for f in policy.failures],
+            "attempts": per_attempt, "heartbeats": beats,
+            "checkpoints": steps, "metrics_steps": logged,
+            "done_twice": twice, "one_position_s": one_s,
+            "final_vs_one_position": diff, "launches": launches,
+            "run_world_s": world_s, "wall_s": wall, "card": smi}
+
+
+def _rounded(by_rank: list, digits: int) -> list:
+    """Each rank's list of numbers rounded (None where it left none)."""
+    return [None if xs is None else [round(x, digits) for x in xs]
+            for xs in by_rank]
+
+
+def _span(xs) -> str:
+    """min-max of the numbers in `xs` (None where a rank left no record)."""
+    got = [x for x in xs if x is not None]
+    return f"{min(got):.3f}-{max(got):.3f}" if got else "none"
+
+
 def main() -> None:
+    import faulthandler
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=False)
     dev = device_phase()
     sys.path.insert(0, str(SRC))
     try:
@@ -8671,6 +9019,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     serve_refs = world_serve_refs_apart()
     world = world_phases(dev, sharded, kernels, serve_refs)
+    world["supervised"] = world_supervised_phase(dev)
     print(json.dumps({"world": world}, default=str), flush=True)
     model, engine, serve = serve_phase(dev)
     del engine
@@ -8689,6 +9038,10 @@ def main() -> None:
     for rec in kernels:
         if rec["name"] == "ssd_chunk":      # the world's train slice
             rec["launches_world_train"] = world["train"]["launches"]
+            supervised = world["supervised"]["launches"]
+            rec.setdefault("launches_world", {})["supervised"] = {
+                "ranks": WORLD_RANKS, "sum": sum(supervised),
+                "per_rank": supervised}
     mamba["ssd_parity"] = ssd_check
     serve["mamba2"] = mamba
     dist: dict = {}
@@ -8705,6 +9058,7 @@ def main() -> None:
     print(json.dumps({"serve": serve}, default=str))
     torch.cuda.synchronize()
     phase(None)
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["name"],

@@ -21,7 +21,10 @@ gather), the train step gathers the parameters and reduces gradients
 over the batch's axes, and GPipe's ring is a send/recv a tick between
 the stage ranks (world.exchange). The serve step on ranks computes on
 the blocks: caches split, tensor- and expert-parallel over "model"
-(sharding.at_use, reduce_over, gather_over). The tensor-parallel train
-step is ROADMAP.md's item 5d-train; split-K decode and context
-parallelism on ranks are item 5f.
+(sharding.at_use, reduce_over, gather_over). A world is supervised
+whole (world.supervise, launch.train.run_world): a failure on any rank
+ends every rank, and a fresh world restores the latest checkpoint, up to
+the restart budget; no rank restarts alone, since its peers wait in the
+same collectives. The tensor-parallel train step is ROADMAP.md's item
+5d-train; split-K decode and context parallelism on ranks are item 5f.
 """

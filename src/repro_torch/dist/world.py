@@ -13,14 +13,25 @@ that this module sets up, with the backend named by the caller:
   through host memory).
 
 Neither backend stands in for the other. `spawn` runs a function on every
-rank of a fresh world: processes started with the "spawn" method (the
-parent may hold a CUDA context), a `file://` rendezvous in a temporary
+rank of a fresh world: processes forked by multiprocessing's fork server,
+which has imported torch and the parent's main module once and never
+touches a card (the parent may hold a CUDA context, which "fork" would
+copy; "spawn" imports torch again in every rank of every world, seconds a
+rank on a loaded host), a `file://` rendezvous in a temporary
 directory, a join with a deadline, the first failing rank's exception
 raised again in the parent with its rank, and rank 0's return value
 handed back; each rank takes its share of the host's cores for its
 intra-op threads. Ranks never compile kernels: the caller builds them first
 (repro_torch.kernels._build.build()), and a rank that finds a library
 missing raises.
+
+`supervise` is the reference's crash-restart supervision
+(fault_tolerance.run_supervised) with a world as the loop: a rank cannot
+restart alone, since its peers wait in the same step's collectives and
+its process group is broken, so a failure on any rank ends the whole
+world and the supervisor spawns a fresh one, up to the policy's budget.
+What the ranks restore (a checkpoint) is theirs to read on start;
+`attempt()` tells a rank which world it belongs to.
 """
 from __future__ import annotations
 
@@ -37,12 +48,17 @@ import traceback
 import torch
 import torch.distributed as dist
 
+from repro_torch.dist.fault_tolerance import RestartPolicy, run_supervised
+
 BACKENDS = ("gloo", "nccl")
 INIT_TIMEOUT_S = 60.0           # a collective that waits longer raises
 DEADLINE_S = 300.0              # a world that runs longer is ended
 EXIT_GRACE_S = 5.0              # a dead rank's report arrives within this
+# what the fork server imports before it forks a rank
+PRELOAD = ["__main__", "torch", "torch.distributed"]
 
 _DEVICE: torch.device | None = None     # this rank's device
+_ATTEMPT = 0                            # this rank's world under supervise
 
 
 class RankError(RuntimeError):
@@ -109,6 +125,12 @@ def device() -> torch.device:
     return _DEVICE
 
 
+def attempt() -> int:
+    """Which world of a `supervise` run this rank belongs to: 0 for the
+    first, k after k restarts; 0 under a plain `spawn`."""
+    return _ATTEMPT
+
+
 def shutdown() -> None:
     global _DEVICE
     if dist.is_initialized():
@@ -161,9 +183,11 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def _rank_main(rank, world_size, init_method, backend, dev, timeout_s, fn,
-               args, results) -> None:
+               args, results, attempt_no) -> None:
+    global _ATTEMPT
     from repro_torch.kernels import _build
     _build.BUILDS_ALLOWED = False
+    _ATTEMPT = attempt_no
     # the ranks share the host's cores
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
     try:
@@ -197,28 +221,41 @@ def _end(procs) -> None:
             p.join()
 
 
+def _reported(results, reported: set) -> set:
+    """`reported` with the ranks of the messages already in `results`
+    (which it empties)."""
+    while True:
+        try:
+            reported.add(results.get_nowait()[1])
+        except queue_mod.Empty:
+            return reported
+
+
 def spawn(fn, world_size: int, *, backend: str, device=None, args=(),
           deadline_s: float = DEADLINE_S,
-          timeout_s: float = INIT_TIMEOUT_S):
+          timeout_s: float = INIT_TIMEOUT_S, attempt: int = 0):
     """Run `fn(*args)` on every rank of a fresh `world_size` world and
     return rank 0's value. `fn` and `args` must pickle (a module-level
     function). Raises RankError with the first failing rank's exception
     (as its __cause__ where that pickles), and TimeoutError when the
     world has not finished `deadline_s` after the start; every process
-    is ended either way."""
+    is ended either way. A rank that dies without a report (os._exit, a
+    signal) is the failing rank even where a peer's broken collective
+    reports first. `attempt` is what `attempt()` returns on the ranks."""
     check_backend(backend, world_size, device)
-    ctx = multiprocessing.get_context("spawn")
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(PRELOAD)     # read when the server starts
     tmp = tempfile.mkdtemp(prefix="repro-world-")
     init_method = "file://" + os.path.join(tmp, "rendezvous")
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True, args=(
         r, world_size, init_method, backend, device, timeout_s, fn, args,
-        results)) for r in range(world_size)]
+        results, attempt)) for r in range(world_size)]
     end = time.monotonic() + deadline_s
     try:
         for p in procs:
             p.start()
-        done, value = set(), None
+        done, reported, value = set(), set(), None
         while len(done) < world_size:
             left = end - time.monotonic()
             if left <= 0:
@@ -238,7 +275,18 @@ def spawn(fn, world_size: int, *, backend: str, device=None, args=(),
                                              f"{procs[dead[0]].exitcode} "
                                              f"before it reported")
                 continue
+            reported.add(msg[1])
             if msg[0] == "err":
+                # a peer's death breaks the others' collectives: a rank
+                # that ended with nothing queued died first
+                _reported(results, reported)
+                silent = [r for r, p in enumerate(procs) if r not in
+                          reported and p.exitcode not in (None, 0)]
+                if silent:
+                    raise RankError(silent[0], (
+                        f"exited with code {procs[silent[0]].exitcode} "
+                        f"before it reported; then rank {msg[1]}: "
+                        f"{msg[2]}")) from msg[3]
                 raise RankError(msg[1], msg[2]) from msg[3]
             done.add(msg[1])
             if msg[1] == 0:
@@ -248,3 +296,36 @@ def spawn(fn, world_size: int, *, backend: str, device=None, args=(),
         _end(procs)
         results.close()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def supervise(fn, world_size: int, *, backend: str, policy: RestartPolicy,
+              device=None, args=(), deadline_s: float = DEADLINE_S,
+              timeout_s: float = INIT_TIMEOUT_S, clock=None):
+    """`spawn(fn, world_size, ...)` under the reference's crash-restart
+    supervision: returns (rank 0's value, `policy`).
+
+    This is `run_supervised(loop, restore, policy, clock)` where `loop`
+    is one world's lifetime, a `spawn`, and `restore` does nothing in
+    this process: every rank of the next world reads back what it needs
+    (the latest complete checkpoint) when it starts. A RankError or a
+    TimeoutError of one world counts as a failure; each world's
+    processes are all ended before the next one starts, with a fresh
+    rendezvous; after `policy.backoff(k)` (through `clock.advance` where
+    `clock` has one, else a sleep) world k + 1 runs, its ranks reading k
+    from `attempt()`. Once the budget is spent the last error is raised
+    again.
+
+    Detection: a rank that raises, or whose collective breaks because a
+    peer died, reports at once; a rank that dies without a report
+    (os._exit, a signal) is found by its exit code within about 1 s plus
+    EXIT_GRACE_S, or at once when a peer's broken collective reports
+    first; a world that hangs ends at `deadline_s`. None of these waits
+    for a collective's `timeout_s`."""
+    check_backend(backend, world_size, device)
+
+    def loop(_):
+        return spawn(fn, world_size, backend=backend, device=device,
+                     args=args, deadline_s=deadline_s, timeout_s=timeout_s,
+                     attempt=policy.restarts)
+
+    return run_supervised(loop, lambda: None, policy, clock)

@@ -34,9 +34,19 @@ metrics and writes the checkpoint files. On the CPU:
       "mamba2-1.3b", "--reduced", "--mesh", "2,4", "--device", "cpu",
       ...],))
 
-Heartbeats and restarts inside a world (`--heartbeat-dir`,
-`--max-restarts`) raise: a failing rank ends the world (world.spawn),
-and supervising the ranks is ROADMAP.md's item 5e.
+Rank r beats the heartbeat `host-{r}`, as the reference's process r
+beats `host-{process_index}`. A rank never restarts in place: its peers
+wait in the same step's collectives. `run_world` supervises the world as
+the reference supervises each process: a failure on any rank ends the
+world, which is spawned again (up to `--max-restarts` times, 2 by
+default) with every rank restoring the latest complete checkpoint
+(dist.world.supervise):
+
+  train.run_world(["--arch", "mamba2-1.3b", "--reduced", "--mesh", "2,4",
+      "--device", "cpu", "--checkpoint-dir", "/tmp/ck", ...], 8,
+      backend="gloo")
+
+Under a plain world.spawn, `--max-restarts` raises ValueError.
 """
 from __future__ import annotations
 
@@ -52,6 +62,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.data import DataConfig, SyntheticLM, make_global_batch
 from repro_torch.data.pipeline import Prefetcher
+from repro_torch.dist import world
 from repro_torch.dist.fault_tolerance import (Heartbeat, RestartPolicy,
                                               StragglerDetector,
                                               run_supervised)
@@ -60,6 +71,8 @@ from repro_torch.launch import specs
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import convert
 from repro_torch.train import optim, step as step_lib
+
+MAX_RESTARTS = 2        # the reference's default budget
 
 
 def parse_args(argv=None):
@@ -78,8 +91,8 @@ def parse_args(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=10)
     ap.add_argument("--heartbeat-dir", default="")
     ap.add_argument("--max-restarts", type=int, default=None,
-                    help="restarts after a crash (default 2; none inside "
-                         "a world)")
+                    help="restarts after a crash (default 2; a world's "
+                         "under run_world)")
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--metrics-file", default="",
                     help="JSONL per-step metrics incl. MFU vs roofline")
@@ -94,12 +107,6 @@ def build(args):
         cfg = cfg.reduced()
     dims, group = (1,), None
     if torch.distributed.is_initialized():
-        if args.heartbeat_dir or args.max_restarts is not None:
-            raise NotImplementedError(
-                "--heartbeat-dir and --max-restarts inside a world of "
-                "ranks: a failing rank ends the world (dist.world.spawn); "
-                "heartbeats and restarts of its ranks are ROADMAP.md's "
-                "item 5e")
         dims, group = ((torch.distributed.get_world_size(),),
                        torch.distributed.group.WORLD)
     if args.mesh:
@@ -123,8 +130,50 @@ def _release(device: torch.device) -> None:
 
 def main(argv=None, *, wrap_step=None):
     """Train as the command line says; returns the final state.
-    `wrap_step(step_fn)` replaces the built step, for fault injection."""
+    `wrap_step(step_fn)` replaces the built step, for fault injection.
+    On a rank of a world, `--max-restarts` raises ValueError: the world
+    restarts whole, under `run_world`."""
+    return _train(parse_args(argv), wrap_step)
+
+
+def run_world(argv, world_size: int, *, backend: str, device=None,
+              wrap_step=None, clock=None,
+              deadline_s: float = world.DEADLINE_S,
+              timeout_s: float = world.INIT_TIMEOUT_S):
+    """Train as `argv` says on every rank of a `world_size` world
+    (`backend` and `device` as world.spawn takes them), supervised as the
+    reference's launcher supervises its process: a failure on any rank
+    (an exception, a process that dies, a world past `deadline_s`) ends
+    the world, and it is spawned again, up to `--max-restarts` times (2
+    by default), every rank restoring the latest complete checkpoint of
+    `--checkpoint-dir` (or, without one, drawing a fresh state). Returns
+    (the final step, the RestartPolicy). `wrap_step` is handed to `main`
+    on every rank of every world, so it must pickle; `clock` takes the
+    backoff as world.supervise does."""
     args = parse_args(argv)
+    policy = RestartPolicy(max_restarts=MAX_RESTARTS if args.max_restarts
+                           is None else args.max_restarts)
+    return world.supervise(
+        _world_rank, world_size, backend=backend, policy=policy,
+        device=device, args=(list(argv), wrap_step), deadline_s=deadline_s,
+        timeout_s=timeout_s, clock=clock)
+
+
+def _world_rank(argv, wrap_step) -> int:
+    """A rank of run_world's world: the final step."""
+    return int(_train(parse_args(argv), wrap_step, whole_world=True)
+               ["step"])
+
+
+def _train(args, wrap_step, whole_world: bool = False):
+    """main's run of parsed `args`; `whole_world`: on a rank of
+    run_world's world, which restarts the world whole."""
+    if (torch.distributed.is_initialized() and not whole_world
+            and args.max_restarts is not None):
+        raise ValueError(
+            "--max-restarts on a rank of a world: a rank cannot restart "
+            "alone (its peers wait in the step's collectives); "
+            "launch.train.run_world restarts the whole world")
     cfg, mesh, shape, opt_cfg, step_fn = build(args)
     state_sh, batch_sh = step_fn.in_shardings
     if wrap_step is not None:
@@ -140,8 +189,9 @@ def main(argv=None, *, wrap_step=None):
 
     mgr = (CheckpointManager(args.checkpoint_dir, async_save=True)
            if args.checkpoint_dir else None)
-    hb = Heartbeat(args.heartbeat_dir, "host-0") if args.heartbeat_dir \
-        else None
+    host = torch.distributed.get_rank() if ranks else 0
+    hb = (Heartbeat(args.heartbeat_dir, f"host-{host}")
+          if args.heartbeat_dir else None)
     straggler = StragglerDetector()
     mlog = None
     if args.metrics_file and lead:
@@ -165,17 +215,38 @@ def main(argv=None, *, wrap_step=None):
         return (convert.shardings_to_reference(state, state_sh) if ranks
                 else None)
 
+    def latest_step():
+        """The latest complete checkpoint, the same on every rank."""
+        step = mgr.latest_step()
+        if ranks:
+            dist = torch.distributed
+            # gloo reduces host tensors; nccl, the rank's card's
+            t = torch.tensor([-1 if step is None else step], device=(
+                "cpu" if dist.get_backend(mesh.group) == "gloo"
+                else mesh.device))
+            lo, hi = t.clone(), t
+            dist.all_reduce(lo, dist.ReduceOp.MIN, group=mesh.group)
+            dist.all_reduce(hi, dist.ReduceOp.MAX, group=mesh.group)
+            if int(lo) != int(hi):
+                raise RuntimeError(
+                    f"the ranks see different latest checkpoints in "
+                    f"{args.checkpoint_dir}: steps {int(lo)} to {int(hi)} "
+                    f"(-1: none)")
+        return step
+
     def restore():
         if mgr:
             mgr.wait()                # a write still in flight counts
-        if mgr and mgr.latest_step() is not None:
+        step = latest_step() if mgr else None
+        if step is not None:
             if not state:
                 fresh_state()
             skeleton = pytree.tree_map(
                 lambda t: torch.empty(t.shape, dtype=t.dtype, device=(
                     mesh.device if ranks else "cpu")),
                 convert.state_to_reference(state, device="meta"))
-            tree, meta = mgr.restore(skeleton, shardings=ref_shardings())
+            tree, meta = mgr.restore(skeleton, step=step,
+                                     shardings=ref_shardings())
             convert.load_reference_state(state, tree)
             del tree, skeleton
             if lead:
@@ -219,8 +290,9 @@ def main(argv=None, *, wrap_step=None):
         finally:
             pf.close()
 
-    restarts = (0 if ranks else 2) if args.max_restarts is None \
-        else args.max_restarts
+    # a rank never restarts in place: run_world restarts its world
+    restarts = 0 if ranks else (MAX_RESTARTS if args.max_restarts is None
+                                else args.max_restarts)
     state, policy = run_supervised(loop, restore,
                                    RestartPolicy(max_restarts=restarts))
     if mgr:
@@ -230,8 +302,8 @@ def main(argv=None, *, wrap_step=None):
     if mlog:
         mlog.close()
     if lead:
-        print(f"done at step {int(state['step'])} "
-              f"(restarts: {policy.restarts})")
+        print(f"done at step {int(state['step'])} (restarts: "
+              f"{world.attempt() if ranks else policy.restarts})")
     return state
 
 
