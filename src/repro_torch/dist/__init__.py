@@ -17,14 +17,15 @@ launch.mesh.make_mesh(..., group=)) runs the compressed psum as
 collectives over its "pod" subgroups, the sharded tables of
 repro_torch.query and repro_torch.store a shard a rank, and splits train
 state: a rank holds its block of every split leaf (sharding.local_block,
-gather), the train step gathers the parameters and reduces gradients
-over the batch's axes, and GPipe's ring is a send/recv a tick between
-the stage ranks (world.exchange). The serve step on ranks computes on
-the blocks: caches split, tensor- and expert-parallel over "model"
-(sharding.at_use, reduce_over, gather_over). A world is supervised
-whole (world.supervise, launch.train.run_world): a failure on any rank
-ends every rank, and a fresh world restores the latest checkpoint, up to
-the restart budget; no rank restarts alone, since its peers wait in the
-same collectives. The tensor-parallel train step is ROADMAP.md's item
-5d-train; split-K decode and context parallelism on ranks are item 5f.
+gather), and GPipe's ring is a send/recv a tick between the stage ranks
+(world.exchange). The train and serve steps on ranks compute on the
+blocks, tensor- and expert-parallel over "model" (sharding.at_use,
+reduce_over, gather_over, enter_over, mean_over, each with its adjoint
+under autograd); the train step reduces the gradients over the batch's
+axes. A world is supervised whole (world.supervise,
+launch.train.run_world): a failure on any rank ends every rank, and a
+fresh world restores the latest checkpoint, up to the restart budget; no
+rank restarts alone, since its peers wait in the same collectives.
+Split-K decode and context parallelism on ranks are ROADMAP.md's item
+5f.
 """

@@ -38,7 +38,7 @@ only: integer leaves are never split). A sharding made by
 `sharding_tree` records its leaf's global shape, so `check_placed` and
 `position_bytes` read a rank's tree of blocks against it.
 
-A step over ranks computes on the blocks (the serve step,
+A step over ranks computes on the blocks (the serve and train steps,
 repro_torch.launch.specs): `use_rules(..., leaves=)` names each
 parameter's sharding, and the model reads a parameter through `at_use`
 (models.common.Params), which gathers its split over every axis but
@@ -48,9 +48,24 @@ split from the leaf (`split_axes`, `block_start`) and runs a collective
 exactly where it contracts a split dim: `reduce_over` (all_reduce, in
 fp32 for half types) after a row-parallel product, `gather_over`
 (all_gather_into_tensor) where a split output must be whole (the
-vocabulary's logits, the router's). Both are the identity without a
-rank mesh or over an axis of one rank, so the one-position and virtual
-paths run as before.
+vocabulary's logits, the router's), and `enter_over` where a tensor
+that every rank of the axes holds alike meets a block split over them
+(Megatron's "f": the identity forward). `mean_over` averages statistics
+over the batch's ranks (MoE's load and importance). All four are the
+identity without a rank mesh or over axes of one rank, so the
+one-position and virtual paths run as before.
+
+Under autograd each is a torch.autograd.Function with the adjoint its
+docstring states: downstream of a reduce or a gather the compute is
+replicated over those ranks, so every rank receives the same gradient
+and a reduce passes it on as it is, a gather gives each rank its slice,
+and `enter_over` sums the partial gradients of its input over the ranks.
+`at_use` inside a train step returns a tensor whose backward adds its
+gradient, this rank's "model" block whole over the gathered axes and
+from this rank's rows, to its parameter (`use_grad` takes it): the step
+then reduces it over the batch's axes and cuts its block
+(`local_block(..., axes=)`). Under torch.no_grad() every op computes
+what the serve step computed before it had adjoints.
 """
 from __future__ import annotations
 
@@ -318,18 +333,27 @@ def position_bytes(tree, shardings) -> int:
 # blocks over ranks
 # --------------------------------------------------------------------------
 
-def local_block(x: torch.Tensor, sharding) -> torch.Tensor:
+def local_block(x: torch.Tensor, sharding, axes=None) -> torch.Tensor:
     """This rank's block of the global tensor `x` (a view of it) under
     `sharding` over a rank mesh; `x` itself over a virtual mesh, where
     every position holds the whole. Raises ValueError where a split dim
-    does not divide."""
+    does not divide. With `axes`, `x` is this rank's block under
+    `sharding.without(axes)` (what gather(..., axes=axes) returns) and
+    the result its block over those axes: gather's inverse."""
     if not _on_ranks(sharding):
         return x
-    sharding.shard_shape(x.shape)               # divides, or raises
     mesh = sharding.mesh
-    for dim, axes in sharding.splits():
-        size = x.shape[dim] // math.prod(mesh.shape[a] for a in axes)
-        x = x.narrow(dim, mesh.block_index(axes) * size, size)
+    if axes is None:
+        sharding.shard_shape(x.shape)           # divides, or raises
+        splits = sharding.splits()
+    else:
+        splits = [(dim, tuple(a for a in entry if a in axes))
+                  for dim, entry in sharding.splits()]
+    for dim, axes_ in splits:
+        if not axes_:
+            continue
+        size = x.shape[dim] // math.prod(mesh.shape[a] for a in axes_)
+        x = x.narrow(dim, mesh.block_index(axes_) * size, size)
     return x
 
 
@@ -391,7 +415,9 @@ def use_rules(mesh, rules, split=None, leaves=None):
     of this rank hold only a block of that dim (on a rank mesh, the
     batch's axes): logical_constraint resolves specs against the global
     size there. `leaves` ({id(parameter): NamedSharding}) names the
-    parameters that a step over ranks reads as blocks (at_use).
+    parameters that a step over ranks reads as blocks (at_use); a
+    parameter that requires grad, read with grad enabled, takes its
+    gradient at its use (use_grad).
     current_rules() gives back the arguments given, without trailing
     Nones."""
     stack = getattr(_ACTIVE, "stack", None)
@@ -422,21 +448,58 @@ def _active(i: int):
 # compute on blocks over ranks
 # --------------------------------------------------------------------------
 
+class _AtUse(torch.autograd.Function):
+    """The parameter block `p` gathered over the mesh axes `fsdp` (a new
+    tensor, `p`'s values where nothing is gathered). Adjoint: the
+    incoming gradient (this rank's block over the axes not gathered,
+    whole over `fsdp`, from this rank's rows) is added to `p`'s gradient
+    at its use (use_grad); `p` itself receives none. The train step over
+    ranks reduces it over the batch's axes and cuts the block."""
+
+    @staticmethod
+    def forward(ctx, p, sh, fsdp):
+        ctx.param = p
+        return gather(p, sh, axes=fsdp) if fsdp else p.view_as(p)
+
+    @staticmethod
+    def backward(ctx, g):
+        p = ctx.param
+        prev = getattr(p, "_use_grad", None)
+        p._use_grad = g if prev is None else prev + g
+        return None, None, None
+
+
 def at_use(t):
     """A parameter as a step over ranks computes with it: where the
     active use_rules names its sharding (`leaves`), its split over every
     axis but COMPUTE_AXES gathered (one leaf, here, at its use), a new
-    tensor object that records the sharding left (`split_axes`). Anything
-    else, `t` itself."""
+    tensor object that records the sharding left (`split_axes`), made by
+    _AtUse, whose backward (with grad enabled and `t` requiring grad)
+    leaves the gradient for use_grad. Anything else, `t` itself."""
     leaves = _active(3)
     sh = leaves.get(id(t)) if leaves is not None else None
     if sh is None:
         return t
     fsdp = tuple(a for _, entry in sh.splits() for a in entry
                  if a not in COMPUTE_AXES)
-    out = gather(t, sh, axes=fsdp) if fsdp else t.detach()
+    out = _AtUse.apply(t, sh, fsdp)
     out._sharding = sh.without(fsdp)
     return out
+
+
+def reads_blocks() -> bool:
+    """Whether the active use_rules names the parameters' shardings
+    (`leaves`): a step over ranks reads them as blocks (at_use)."""
+    return _active(3) is not None
+
+
+def use_grad(p):
+    """The gradient that the uses of parameter `p` (at_use) have left
+    since the last call, summed over the uses, and forget it; None where
+    the loss did not reach it."""
+    g = getattr(p, "_use_grad", None)
+    p._use_grad = None
+    return g
 
 
 def split_axes(t: torch.Tensor, dim: int) -> tuple:
@@ -468,35 +531,131 @@ def _rank_mesh():
     return mesh if getattr(mesh, "group", None) is not None else None
 
 
-def reduce_over(x: torch.Tensor, axes) -> torch.Tensor:
-    """The sum of `x` over the ranks of mesh `axes` (a name or a tuple)
-    of the active rank mesh: all_reduce over each axis's subgroup, half
-    types in fp32 and cast back once. `x` itself without a rank mesh or
-    over axes of one rank."""
+def _over(axes):
+    """(the active rank mesh, `axes` as a tuple of its axes of more than
+    one rank), or (None, ()) where nothing is split."""
     mesh = _rank_mesh()
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
-    if mesh is None or all(mesh.shape[a] == 1 for a in axes):
-        return x
+    if mesh is None:
+        return None, ()
+    axes = tuple(a for a in axes if mesh.shape[a] > 1)
+    return (mesh, axes) if axes else (None, ())
+
+
+def _all_reduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of `x` over the ranks of `axes`: all_reduce over each
+    axis's subgroup, half types in fp32 and cast back once."""
     import torch.distributed as dist
     dtype = x.dtype
     out = x.to(torch.float32 if x.element_size() < 4 else dtype,
                memory_format=torch.contiguous_format, copy=True)
     for a in axes:
-        if mesh.shape[a] > 1:
-            dist.all_reduce(out, group=mesh.axis_group(a))
+        dist.all_reduce(out, group=mesh.axis_group(a))
     return out.to(dtype)
+
+
+class _ReduceOver(torch.autograd.Function):
+    """Forward: the sum over the ranks of `axes`. Adjoint: the identity;
+    the output is replicated over those ranks, and so is everything
+    downstream, so every rank receives the same gradient, which is its
+    partial product's."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherOver(torch.autograd.Function):
+    """Forward: the concatenation along `dim` over the ranks of `axes`
+    (row-major). Adjoint: this rank's slice of the incoming gradient,
+    which every rank receives alike (the output is replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axes, mesh):
+        ctx.dim, ctx.size = dim, x.shape[dim]
+        ctx.start = mesh.block_index(axes) * x.shape[dim]
+        return _gather_dim(x, dim, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.start, ctx.size), None, None, None
+
+
+class _EnterOver(torch.autograd.Function):
+    """Forward: the identity (`x` is the same on every rank of `axes`).
+    Adjoint: the sum of the incoming gradients over those ranks (fp32
+    for half types), since each rank's holds only its block's part of
+    the split product that `x` enters."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ctx.axes), None, None
+
+
+class _MeanOver(torch.autograd.Function):
+    """Forward: the sum over the ranks of `axes` divided by their count.
+    Adjoint: the same, the sum of the incoming gradients over the ranks
+    divided by their count; every rank's loss carries the whole term that
+    reads the mean, and the train step divides the summed gradients by
+    the batch's blocks again."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        ctx.n = math.prod(mesh.shape[a] for a in axes)
+        return _all_reduce(x, mesh, axes) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ctx.axes) / ctx.n, None, None
+
+
+def reduce_over(x: torch.Tensor, axes) -> torch.Tensor:
+    """The sum of `x` over the ranks of mesh `axes` (a name or a tuple)
+    of the active rank mesh (_ReduceOver: its adjoint is the identity).
+    `x` itself without a rank mesh or over axes of one rank."""
+    mesh, axes = _over(axes)
+    return x if mesh is None else _ReduceOver.apply(x, mesh, axes)
 
 
 def gather_over(x: torch.Tensor, dim: int, axes) -> torch.Tensor:
     """`x` concatenated along `dim` over the ranks of mesh `axes` (a name
     or a spec entry's tuple, row-major) of the active rank mesh:
-    all_gather_into_tensor over each axis's subgroup. `x` itself without
-    a rank mesh or over axes of one rank."""
-    mesh = _rank_mesh()
-    axes = (axes,) if isinstance(axes, str) else tuple(axes)
-    if mesh is None or all(mesh.shape[a] == 1 for a in axes):
+    all_gather_into_tensor over each axis's subgroup (_GatherOver: its
+    adjoint is this rank's slice). `x` itself without a rank mesh or
+    over axes of one rank."""
+    mesh, axes = _over(axes)
+    return x if mesh is None else _GatherOver.apply(x, dim % x.ndim, axes,
+                                                     mesh)
+
+
+def enter_over(x: torch.Tensor, axes) -> torch.Tensor:
+    """`x`, the same on every rank of mesh `axes`, as it enters a product
+    whose other operand is split over them; under autograd its gradient
+    is summed over those ranks (_EnterOver). `x` itself without a rank
+    mesh, over axes of one rank, or where no gradient is taken."""
+    mesh, axes = _over(axes)
+    if mesh is None or not (torch.is_grad_enabled() and x.requires_grad):
         return x
-    return _gather_dim(x, dim % x.ndim, axes, mesh)
+    return _EnterOver.apply(x, mesh, axes)
+
+
+def mean_over(x: torch.Tensor, axes) -> torch.Tensor:
+    """The mean of `x` over the ranks of mesh `axes` (the batch's: each
+    rank's statistic over its rows, the global batch's where the blocks
+    are equal), _MeanOver under autograd. `x` itself without a rank mesh
+    or over axes of one rank."""
+    mesh, axes = _over(axes)
+    return x if mesh is None else _MeanOver.apply(x, mesh, axes)
 
 
 @contextmanager

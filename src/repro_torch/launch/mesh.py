@@ -19,15 +19,15 @@ for the collectives along it. A sharded table keeps a shard a rank and
 combines over the axis's subgroup; the compressed psum reduces over the
 "pod" subgroups. Train state is split: under a NamedSharding a rank
 holds the block of each leaf that its coordinates select
-(`block_index`; repro_torch.dist.sharding.local_block), the train step
-gathers the parameters whole and reduces the gradients over the batch's
-axes (repro_torch.train.step; its tensor-parallel form is ROADMAP.md's
-item 5d-train), checkpoints gather on save and restore a block a rank,
-and GPipe runs a stage a rank over send/recv. The serve steps
-(repro_torch.launch.specs.build_prefill / build_serve) hold the
-parameters and caches split and compute tensor- and expert-parallel
-over "model"; split-K decode and context parallelism on ranks are item
-5f.
+(`block_index`; repro_torch.dist.sharding.local_block), checkpoints
+gather on save and restore a block a rank, and GPipe runs a stage a rank
+over send/recv. The train and serve steps
+(repro_torch.launch.specs.build_train / build_prefill / build_serve)
+hold the parameters (and caches) split and compute tensor- and
+expert-parallel over "model", gathering a parameter over "data"/"pod" at
+its use; the train step reduces the gradients over the batch's axes
+(repro_torch.train.step). Split-K decode and context parallelism on
+ranks are ROADMAP.md's item 5f.
 """
 from __future__ import annotations
 

@@ -17,16 +17,19 @@ sharding tree an argument) and `donate_argnums` (the arguments updated in
 place), which the dry run (repro_torch.launch.dryrun) reads.
 
 On a mesh of ranks (launch.mesh.RankMesh) the arguments are this rank's
-blocks (lm.init / lm.init_caches with `mesh=`, or train.step.place_blocks
-of whole leaves), checked against the shardings' global shapes. The
-serve steps then compute tensor- and expert-parallel over "model" as the
-reference's layout implies (repro_torch.dist.sharding: at_use,
-reduce_over, gather_over), a rank's rows of a batch split over the
-batch's axes, under torch.no_grad(); every rank returns the global
-tokens and logits. A prompt may be shorter than the cell's seq_len, the
-caches' length. Rules that split a sequence dim over ranks (split-K
-decode, context parallelism) raise NotImplementedError (ROADMAP.md item
-5f).
+blocks (lm.init / lm.init_caches / train.step.init_state with `mesh=`,
+or train.step.place_blocks of whole leaves), checked against the
+shardings' global shapes. Every step then computes tensor- and
+expert-parallel over "model" as the reference's layout implies
+(repro_torch.dist.sharding: at_use, reduce_over, gather_over,
+enter_over, mean_over), on a rank's rows of a batch split over the
+batch's axes: the serve steps under torch.no_grad(), every rank
+returning the global tokens and logits (a prompt may be shorter than
+the cell's seq_len, the caches' length), and the train step with the
+collectives' adjoints (train.step.make_rank_train_step). Rules that
+split a sequence dim over ranks (split-K decode, context parallelism)
+raise NotImplementedError (ROADMAP.md item 5f), and so does a batch
+split over an axis that also splits a parameter.
 """
 from __future__ import annotations
 
@@ -118,8 +121,8 @@ def replicated(mesh, shape=None):
 SEQUENCE_DIMS = ("seq", "kv_seq", "cp_seq", "kv_full")
 
 
-def _serve_on_ranks(mesh, rules, p_sh, in_sh) -> dict | None:
-    """The serve steps' `use_rules(split=)` on a rank mesh (the batch's
+def _split_on_ranks(mesh, rules, p_sh, in_sh, kind="serve") -> dict | None:
+    """A `kind` step's `use_rules(split=)` on a rank mesh (the batch's
     axes, from the inputs' sharding), or None on a virtual mesh. Raises
     NotImplementedError for rules that split a sequence dim over ranks,
     and for a batch split over an axis that also splits a parameter."""
@@ -133,7 +136,7 @@ def _serve_on_ranks(mesh, rules, p_sh, in_sh) -> dict | None:
         split = [a for a in axes if mesh.shape.get(a, 1) > 1]
         if split:
             raise NotImplementedError(
-                f"the serve step on ranks with {name!r} split over "
+                f"the {kind} step on ranks with {name!r} split over "
                 f"{split}: split-K decode and context parallelism on "
                 f"ranks are ROADMAP.md's item 5f")
     batch = in_sh.dim_axes(0)
@@ -180,19 +183,24 @@ def build_train(cfg, shape, mesh, opt_cfg=None, num_microbatches: int = 1,
     batch, batch_axes = batch_specs(cfg, shape)
     state_sh = shardings(state, state_axes, mesh, rules)
     batch_sh = shardings(batch, batch_axes, mesh, rules)
-    split = None
+    split = _split_on_ranks(mesh, rules, state_sh["params"],
+                            batch_sh["labels"], "train")
     if mesh.group is None:
         step = train_step_lib.make_train_step(cfg, opt_cfg, num_microbatches)
     else:
-        axes = batch_sh["labels"].dim_axes(0)
-        split = {"batch": axes} if axes else None
         step = train_step_lib.make_rank_train_step(
-            cfg, opt_cfg, mesh, state_sh["params"], axes, num_microbatches)
+            cfg, opt_cfg, mesh, state_sh["params"],
+            batch_sh["labels"].dim_axes(0), num_microbatches)
 
     def fn(state, batch):
         shlib.check_placed(state, state_sh)
         shlib.check_placed(batch, batch_sh)
-        with shlib.use_rules(mesh, rules, split):
+        # on ranks the parameters are read as blocks (at_use); one rank
+        # holds every leaf whole and computes as one position
+        leaves = None if mesh.group is None or mesh.size == 1 else {
+            id(p): state_sh["params"][n]
+            for n, p in state["params"].named_parameters()}
+        with shlib.use_rules(mesh, rules, split, leaves):
             new, metrics = step(state, batch)
         state.update(new)
         return state, metrics
@@ -211,7 +219,7 @@ def build_prefill(cfg, shape, mesh, rules_extra: dict | None = None):
     p_sh = shardings(params, p_axes, mesh, rules)
     c_sh = shardings(caches, c_axes, mesh, rules)
     in_sh = shardings(batch["inputs"], batch_axes["inputs"], mesh, rules)
-    split = _serve_on_ranks(mesh, rules, p_sh, in_sh)
+    split = _split_on_ranks(mesh, rules, p_sh, in_sh)
     step = engine.make_prefill_step(cfg)
 
     def fn(params, inputs, caches):
@@ -247,7 +255,7 @@ def build_serve(cfg, shape, mesh, rules_extra: dict | None = None):
     in_sh = shardings(inputs, in_axes, mesh, rules)
     len_sh = shardings(cache_len, "batch", mesh, rules)
     key_sh = replicated(mesh, tuple(key.shape))
-    split = _serve_on_ranks(mesh, rules, p_sh, in_sh)
+    split = _split_on_ranks(mesh, rules, p_sh, in_sh)
     step = engine.make_serve_step(cfg)
 
     def fn(params, inputs, cache_len, caches, key):

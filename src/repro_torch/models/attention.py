@@ -26,7 +26,11 @@ output row-parallel and sums the partial products over the ranks that
 split the heads (repro_torch.dist.sharding.reduce_over). Where the heads
 are split but the kv heads are not (their count does not divide the
 axis), the ring is whole on each rank and a rank's q heads read the kv
-heads they group with, a slice of the ring.
+heads they group with, a slice of the ring. Under autograd x enters the
+q/k/v projections through sharding.enter_over, so its gradient is
+summed over the ranks that split the heads; where the kv heads are
+whole, wk and wv enter so too, as each rank's gradient of them holds
+only the kv heads its q heads read.
 """
 from __future__ import annotations
 
@@ -171,14 +175,19 @@ def attend(params, x, positions, cfg, *, window: int = 0, impl: str = "auto",
     """
     b, sq, _ = x.shape
     hd = cfg.resolved_head_dim
-    wq, wk = params["wq"], params["wk"]
+    wq, wk, wv = params["wq"], params["wk"], params["wv"]
     kv_lo, kvh = _kv_heads_of(wq, wk, cfg)     # this rank's heads
     group = wq.shape[1] // kvh
+    heads = shlib.split_axes(wq, 1)
+    x = shlib.enter_over(x, heads)
+    if heads and not shlib.split_axes(wk, 1):
+        wk, wv = shlib.enter_over(wk, heads), shlib.enter_over(wv, heads)
 
     q = torch.einsum("bsd,dnh->bsnh", x, wq)
     k = torch.einsum("bsd,dnh->bsnh", x, wk)
     del wq, wk
-    v = torch.einsum("bsd,dnh->bsnh", x, params["wv"])
+    v = torch.einsum("bsd,dnh->bsnh", x, wv)
+    del wv
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     q = q.reshape(b, sq, kvh, group, hd)

@@ -230,17 +230,21 @@ def softmax_cross_entropy(logits, labels):
     return (lse - gold).mean()
 
 
-def chunked_cross_entropy(x, head_w, labels, num_chunks: int = 8):
+def chunked_cross_entropy(x, head_w, labels, num_chunks: int = 8,
+                          logits_of=None):
     """CE computed sequence chunk by chunk, so the (B, S, V) logits are
-    made one chunk at a time: x (B, S, D) hidden, head_w (D, V). The mean
-    over B * S of the chunks' sums."""
+    made one chunk at a time: x (B, S, D) hidden, head_w (D, V), or
+    `logits_of(x_chunk)` where given (the head over a vocabulary split
+    over ranks, whose logits are gathered whole). The mean over B * S of
+    the chunks' sums."""
     b, s, _ = x.shape
     assert s % num_chunks == 0, (s, num_chunks)
     n = s // num_chunks
     totals = []
     for i in range(num_chunks):
-        logits = torch.einsum("bsd,dv->bsv", x[:, i * n:(i + 1) * n],
-                              head_w).float()
+        chunk = x[:, i * n:(i + 1) * n]
+        logits = (torch.einsum("bsd,dv->bsv", chunk, head_w)
+                  if logits_of is None else logits_of(chunk)).float()
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
                             labels[:, i * n:(i + 1) * n].long()[..., None])

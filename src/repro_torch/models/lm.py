@@ -21,8 +21,12 @@ On a mesh of ranks (repro_torch.launch.mesh.RankMesh) `init` and
 `init_caches` make this rank's blocks only, and a step over ranks
 (repro_torch.launch.specs) computes on them: the embedding lookup on a
 vocabulary split over ranks takes the tokens in the rank's rows and sums
-over the ranks (one term nonzero, so exact), and the head's split logits
-are gathered whole before anything reads them.
+over the ranks (one term nonzero, so exact; under autograd the sum's
+adjoint is the identity, so each rank's table rows take their own
+tokens' gradient), and the head's split logits are gathered whole
+before anything reads them (x enters the head through
+sharding.enter_over, so its gradient sums the ranks' vocabulary
+blocks).
 """
 from __future__ import annotations
 
@@ -214,11 +218,13 @@ def head_logits(params, cfg, x):
     rank's columns gathered whole."""
     if cfg.tie_embeddings:
         w, vocab_dim = params["embed"], 0
-        logits = torch.einsum("bsd,vd->bsv", x, w)
     else:
         w, vocab_dim = params["lm_head"], 1
-        logits = torch.einsum("bsd,dv->bsv", x, w)
-    return shlib.gather_over(logits, -1, shlib.split_axes(w, vocab_dim))
+    axes = shlib.split_axes(w, vocab_dim)
+    x = shlib.enter_over(x, axes)
+    logits = (torch.einsum("bsd,vd->bsv", x, w) if cfg.tie_embeddings
+              else torch.einsum("bsd,dv->bsv", x, w))
+    return shlib.gather_over(logits, -1, axes)
 
 
 def embed_lookup(table, tokens):

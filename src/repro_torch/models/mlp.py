@@ -1,7 +1,8 @@
 """SwiGLU feed-forward block, LLaMA-style (counterpart of
 repro/models/mlp.py). Over ranks that split the hidden dim ("mlp"),
 w_gate and w_up are column-parallel and w_down row-parallel: a rank's
-partial product is summed over those ranks."""
+partial product is summed over those ranks, and under autograd the
+gradient of x (sharding.enter_over) too."""
 from __future__ import annotations
 
 import torch
@@ -27,7 +28,10 @@ def init(cfg, dtype, generator: torch.Generator) -> MLP:
 
 
 def apply(params, x):
-    g = torch.einsum("bsd,df->bsf", x, params["w_gate"])
+    w_gate = params["w_gate"]
+    x = shlib.enter_over(x, shlib.split_axes(w_gate, 1))
+    g = torch.einsum("bsd,df->bsf", x, w_gate)
+    del w_gate
     u = torch.einsum("bsd,df->bsf", x, params["w_up"])
     w_down = params["w_down"]
     out = torch.einsum("bsf,fd->bsd", F.silu(g) * u, w_down)

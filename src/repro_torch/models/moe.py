@@ -31,6 +31,12 @@ choices of other ranks' experts add zeros; under the expert-TP fallback
 way the outputs are summed over the ranks, in fp32 for half types, so
 the ascending-id order of a token's sum in x's dtype holds within a rank
 only: across ranks the sum differs from the reference's in rounding.
+Under autograd x enters the router's and the experts' split products,
+and the slot weights the experts' (sharding.enter_over), so their
+gradients sum over the ranks. The load and importance that the aux
+loss reads are means over the global batch: each rank's rows' means,
+averaged over the batch's ranks (sharding.mean_over), since the
+reference takes them over every row; routing and capacity stay per row.
 """
 from __future__ import annotations
 
@@ -94,9 +100,10 @@ def _route(params, x, cfg):
     """x: (..., S, D) -> top-k (idx (..., S, k) int64, weights (..., S, k)
     fp32, probs (..., S, E)); the router runs in fp32."""
     router = params["router"]
-    logits = shlib.gather_over(
-        torch.einsum("...d,de->...e", x.float(), router), -1,
-        shlib.split_axes(router, 1))
+    axes = shlib.split_axes(router, 1)
+    logits = shlib.gather_over(torch.einsum(
+        "...d,de->...e", shlib.enter_over(x.float(), axes), router), -1,
+        axes)
     k = cfg.experts_per_token
     if cfg.aux_free_bias:
         scores = torch.sigmoid(logits)
@@ -171,6 +178,9 @@ def _experts(params, x, idx, token_for, weight_for, slot, keep):
     w_gate = params["w_gate"]
     e = w_gate.shape[0]
     e_axes = shlib.split_axes(w_gate, 0)
+    split = e_axes + shlib.split_axes(w_gate, 2)    # experts, expert_mlp
+    x = shlib.enter_over(x, split)
+    weight_for = shlib.enter_over(weight_for, split)
     if e_axes:                      # expert parallel: this rank's experts
         lo = shlib.block_start(w_gate, 0)
         token_for = token_for[..., lo:lo + e, :]
@@ -184,7 +194,6 @@ def _experts(params, x, idx, token_for, weight_for, slot, keep):
     del w_gate
     u = torch.bmm(xe, params["w_up"])
     w_down = params["w_down"]
-    f_axes = shlib.split_axes(w_down, 1)
     y = torch.bmm(F.silu(g) * u, w_down)                    # (E, B*C, D)
     del w_down
     y = y.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
@@ -199,7 +208,7 @@ def _experts(params, x, idx, token_for, weight_for, slot, keep):
     out = torch.zeros_like(x)
     for j in range(k):
         out = out + per[:, :, j]
-    return shlib.reduce_over(out, e_axes + f_axes)
+    return shlib.reduce_over(out, split)
 
 
 def _apply_row(params, x, cfg, cap):
@@ -221,10 +230,13 @@ def _apply_rows(params, x, cfg, cap):
 
 def apply(params, x, cfg):
     """x: (B, S, D) -> (out, aux) with aux = dict(load, importance,
-    aux_loss)."""
+    aux_loss); over ranks that split the batch, load and importance are
+    the global batch's (mean_over the batch's axes)."""
     cap = capacity(cfg, x.shape[1])
     out, load, imp = _apply_rows(params, x, cfg, cap)
-    load, imp = load.mean(dim=0), imp.mean(dim=0)
+    load, imp = shlib.mean_over(torch.stack([load.mean(dim=0),
+                                             imp.mean(dim=0)]),
+                                shlib.split_of("batch"))
     # Switch-style load-balance loss: E * sum(load * importance)
     aux_loss = cfg.num_experts * torch.sum(load * imp)
     return out, {"load": load, "importance": imp, "aux_loss": aux_loss}

@@ -17,15 +17,17 @@ optimizer state in place and returns the state dict.
 On a mesh of ranks (repro_torch.launch.mesh.RankMesh) the state is
 split: `init_state(..., mesh=, rules=)` keeps this rank's block of every
 parameter and so of m, v and master (repro_torch.dist.sharding), and
-`make_rank_train_step`'s step gathers every parameter whole, takes the
-loss and gradients of this rank's rows, all-reduces each gradient in
-fp32 over the mesh axes that split the batch (the mean of the ranks'
-means), clips by the norm of the whole reduced gradients and updates
-this rank's blocks. Ranks along an axis that does not split the batch
-compute the same rows: the compute is replicated there, as the
-reference's GSPMD step's arithmetic is (its tensor-parallel layout over
-"model" is ROADMAP.md's item 5d-train; the serve step on ranks computes
-tensor-parallel, repro_torch.launch.specs).
+`make_rank_train_step`'s step computes on the blocks as the serve step
+does: tensor-parallel over "model" (heads, mlp, vocabulary), expert-
+parallel where the expert count divides it, each parameter gathered
+over "data"/"pod" at its use (sharding.at_use), with the collectives'
+adjoints in the backward. It takes the loss and gradients of this
+rank's rows, all-reduces each gradient in fp32 over the mesh axes that
+split the batch (the mean of the ranks' means), clips by the norm of the
+whole reduced gradients and updates this rank's blocks. MoE routing
+statistics are the global batch's (models.moe), and a rank's
+microbatch i is its block of the global microbatch i, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -52,8 +54,12 @@ def loss_fn(params, cfg, batch):
     if cfg.fused_ce:
         hidden, _, aux = lm.apply(params, cfg, inputs, positions,
                                   return_hidden=True)
-        ce = chunked_cross_entropy(hidden, lm.head_weight(params, cfg),
-                                   labels)
+        if shlib.reads_blocks():        # the head's blocks, chunk by chunk
+            ce = chunked_cross_entropy(hidden, None, labels, logits_of=(
+                lambda h: lm.head_logits(params, cfg, h)))
+        else:
+            ce = chunked_cross_entropy(hidden, lm.head_weight(params, cfg),
+                                       labels)
     else:
         logits, _, aux = lm.apply(params, cfg, inputs, positions)
         ce = softmax_cross_entropy(logits, labels)
@@ -74,31 +80,49 @@ def value_and_grad(params, cfg, batch):
             {n: g for (n, _), g in zip(named, grads)})
 
 
+def value_and_grad_at_use(params, cfg, batch):
+    """value_and_grad over ranks, with the parameters read through
+    sharding.at_use: each gradient is the one its uses left
+    (sharding.use_grad), this rank's "model" block whole over the axes
+    at_use gathered, from this rank's rows; None where the loss does not
+    depend on the parameter."""
+    loss, parts = loss_fn(params, cfg, batch)
+    torch.autograd.backward(loss)
+    return (loss.detach(), {k: v.detach() for k, v in parts.items()},
+            {n: shlib.use_grad(p) for n, p in params.named_parameters()})
+
+
 def _microbatch(tree, idx, n):
     return {k: x.reshape(n, x.shape[0] // n, *x.shape[1:])[idx]
             for k, x in tree.items()}
 
 
-def _grad_fn(cfg, num_microbatches: int):
-    """(params, batch) -> (loss, parts, grads), every gradient a tensor.
-    With num_microbatches > 1 the gradients are the fp32 mean over the
-    microbatches and the parts (ce, aux) the last microbatch's, as the
-    reference's scan gives them."""
+def _grad_fn(cfg, num_microbatches: int, vg=value_and_grad,
+             shape_of=None, microbatch=_microbatch):
+    """(params, batch) -> (loss, parts, grads), every gradient a tensor
+    (`vg` computes them; an unused leaf's is zeros of `shape_of(name)`,
+    by default the parameter's shape). With num_microbatches > 1 the
+    gradients are the fp32 mean over the microbatches (`microbatch(batch,
+    idx, n)` cuts the rows of microbatch idx) and the parts (ce, aux) the
+    last microbatch's, as the reference's scan gives them."""
+
+    def shape(name, p):
+        return tuple(p.shape) if shape_of is None else shape_of(name)
 
     def single(params, batch):
-        loss, parts, grads = value_and_grad(params, cfg, batch)
+        loss, parts, grads = vg(params, cfg, batch)
         named = dict(params.named_parameters())
         # the reference's gradient of an unused leaf is zeros
-        return loss, parts, {n: torch.zeros_like(named[n]) if g is None
-                             else g for n, g in grads.items()}
+        return loss, parts, {n: named[n].new_zeros(shape(n, named[n]))
+                             if g is None else g for n, g in grads.items()}
 
     def accumulated(params, batch):
         loss_acc = 0.0
-        grads_acc = {n: torch.zeros(p.shape, dtype=torch.float32,
+        grads_acc = {n: torch.zeros(shape(n, p), dtype=torch.float32,
                                     device=p.device)
                      for n, p in params.named_parameters()}
         for idx in range(num_microbatches):
-            mb = _microbatch(batch, idx, num_microbatches)
+            mb = microbatch(batch, idx, num_microbatches)
             loss, parts, grads = single(params, mb)
             for n, g in grads.items():
                 grads_acc[n].add_(g)
@@ -166,29 +190,52 @@ def gathered(blocks: torch.nn.Module, shardings: dict, cfg):
 def make_rank_train_step(cfg, opt_cfg: optim.AdamWConfig, mesh,
                          shardings: dict, batch_axes: tuple = (),
                          num_microbatches: int = 1):
-    """step(state, batch) -> (state, metrics) on a rank mesh. `state`
-    holds this rank's blocks under `shardings` ({parameter name:
-    NamedSharding}, m, v and master alike), `batch` this rank's rows of a
-    global batch split over `batch_axes` (mesh axes; () where the batch
-    is whole on every rank). Loss and metrics are the same on every rank.
+    """step(state, batch) -> (state, metrics) on a rank mesh, run under
+    the cell's use_rules (launch.specs.build_train names the parameters'
+    shardings there, `leaves`). `state` holds this rank's blocks under
+    `shardings` ({parameter name: NamedSharding}, m, v and master
+    alike), `batch` this rank's rows of a global batch split over
+    `batch_axes` (mesh axes; () where the batch is whole on every rank).
+    Loss and metrics are the same on every rank.
 
-    The gradients are all-reduced in fp32 and divided by the number of
-    batch blocks: the global mean where the blocks are equal. Nothing is
-    reduced where the batch is whole, and on a one-rank mesh the step is
-    make_train_step's, bit for bit. MoE routing over split rows (its
-    capacity and load-balance loss are the global batch's in the
-    reference) is not ported, so MoE configs raise on a mesh of more
-    than one rank."""
+    The step computes on the blocks, each parameter read through
+    sharding.at_use; its gradient (value_and_grad_at_use) is this rank's
+    "model" block whole over "data"/"pod", from this rank's rows. Each
+    gradient is all-reduced in fp32 over the batch's axes and divided by
+    the number of batch blocks (the global mean where the blocks are
+    equal), then cut to this rank's block. The clip norm sums the squares
+    of the leaves split over "model" over every rank's block (an
+    all-reduce over those axes) and counts a leaf the "model" ranks hold
+    alike once, so it is the whole reduced gradients' norm on every rank.
+    The aux-free bias update reads each router gradient reduced and whole
+    over "embed". With num_microbatches > 1 a rank's microbatch i is its
+    block of the global microbatch i (the batch is gathered over its axes
+    first). On a one-rank mesh the step is make_train_step's, bit for
+    bit."""
     import torch.distributed as dist
-    if cfg.num_experts and mesh.size > 1:
-        raise NotImplementedError(
-            f"the MoE train step over {mesh.size} ranks: routing "
-            f"capacity and the load-balance loss over a batch split "
-            f"across ranks, with expert-parallel compute, are ROADMAP.md's "
-            f"item 5d-train")
-    grad_fn = _grad_fn(cfg, num_microbatches)
     groups = [mesh.axis_group(a) for a in batch_axes if mesh.shape[a] > 1]
     blocks_n = math.prod(mesh.shape[a] for a in batch_axes)
+    model = [a for a in shlib.COMPUTE_AXES if mesh.shape.get(a, 1) > 1]
+    # the axes at_use gathers a leaf over, and whether "model" splits it
+    fsdp = {n: tuple(a for _, e in sh.splits() for a in e
+                     if a not in shlib.COMPUTE_AXES)
+            for n, sh in shardings.items()}
+    split = {n: any(a in model for _, e in sh.splits() for a in e)
+             for n, sh in shardings.items()}
+    rows = shlib.NamedSharding(mesh, shlib.PartitionSpec(tuple(batch_axes)))
+
+    def rank_microbatch(batch, idx, n):
+        return {k: shlib.local_block(x, rows)
+                for k, x in _microbatch(batch, idx, n).items()}
+
+    if mesh.size == 1:
+        grad_fn = _grad_fn(cfg, num_microbatches)
+    else:
+        grad_fn = _grad_fn(
+            cfg, num_microbatches, value_and_grad_at_use,
+            lambda n: shardings[n].without(fsdp[n]).shard_shape(
+                shardings[n].global_shape),
+            rank_microbatch if groups else _microbatch)
 
     def reduced(t: torch.Tensor) -> torch.Tensor:
         # contiguous, as _grad_fn's fp32 accumulators are: autograd may
@@ -200,23 +247,38 @@ def make_rank_train_step(cfg, opt_cfg: optim.AdamWConfig, mesh,
         return t.div_(blocks_n)
 
     def step(state, batch):
+        if mesh.size > 1 and not shlib.reads_blocks():
+            raise ValueError("the train step over ranks reads the "
+                             "parameters as blocks: run it under "
+                             "use_rules(..., leaves=) (build_train)")
         params = state["params"]
-        loss, parts, grads = grad_fn(gathered(params, shardings, cfg), batch)
-        squares, blocks = [], {}
+        if groups and num_microbatches > 1:
+            batch = {k: _whole_rows(x, rows) for k, x in batch.items()}
+        loss, parts, grads = grad_fn(params, batch)
+        squares = {True: [], False: []}
+        blocks, loads = {}, {}
         for name in list(grads):
             g = grads.pop(name)
             if groups:
                 g = reduced(g)
-            squares.append(g.float().square().sum())
-            block = shlib.local_block(g, shardings[name])
+            squares[split[name]].append(g.float().square().sum())
+            if name.endswith(".router") and cfg.aux_free_bias:
+                loads[name] = g.float().abs().sum(dim=-2)
+            block = shlib.local_block(g, shardings[name], axes=fsdp[name])
             blocks[name] = block if block is g else block.clone()
             del g, block
         # optim.global_norm's arithmetic, over the whole reduced gradients
-        norm = torch.sqrt(torch.stack(squares).sum())
+        total = torch.stack(squares[False]).sum()
+        if squares[True]:
+            over = torch.stack(squares[True]).sum()
+            for a in model:
+                dist.all_reduce(over, group=mesh.axis_group(a))
+            total = over + total
+        norm = torch.sqrt(total)
         _, new_opt, om = optim.apply_updates(params, blocks, state["opt"],
                                              opt_cfg, norm=norm)
         if cfg.num_experts and cfg.aux_free_bias:
-            _moe_bias_update(params, blocks)
+            _moe_bias_update(params, loads, shardings)
         if groups:
             keys = list(parts)
             both = reduced(torch.stack([loss.float()] + [
@@ -229,26 +291,47 @@ def make_rank_train_step(cfg, opt_cfg: optim.AdamWConfig, mesh,
     return step
 
 
+def _whole_rows(x: torch.Tensor, rows) -> torch.Tensor:
+    """The global batch from every rank's rows `x` under `rows` (the
+    batch's sharding); integer tokens travel as the bits of a float32
+    tensor, as only float leaves are gathered over ranks."""
+    if x.is_floating_point():
+        return shlib.gather(x, rows)
+    return shlib.gather(x.view(torch.float32), rows).view(x.dtype)
+
+
 @torch.no_grad()
-def _moe_bias_update(params, grads):
+def _moe_bias_update(params, grads, shardings=None):
     """Aux-loss-free router balancing: the raw (unclipped) router
     gradient's per-expert magnitude is a live proxy for expert load; nudge
     each selection bias against heavy experts, outside the optimizer. The
     reference updates a stacked leaf at once, so the mean load it compares
     with is over every group of that pattern slot: blocks are grouped by
-    their reference leaf here too."""
+    their reference leaf here too. On ranks (`shardings`), `grads` maps
+    each router to its load proxy, read from the gradient reduced over
+    the batch and whole over "embed"; the proxies and the biases are
+    gathered over the experts' axes before bias_update's mean over the
+    experts, and each rank keeps its block of the new bias."""
     stacks: dict = {}
     for name, (path, _) in convert.leaf_map(params).items():
         if path[-1] == "router_bias":
             stacks.setdefault(path, []).append(name)
     named = dict(params.named_parameters())
     for names in stacks.values():
-        load = torch.stack([
-            grads[n[:-len("router_bias")] + "router"].float().abs()
-            .sum(dim=-2) for n in names])
-        new = moe.bias_update(torch.stack([named[n] for n in names]), load)
+        routers = [n[:-len("router_bias")] + "router" for n in names]
+        if shardings is None:
+            load = torch.stack([grads[r].float().abs().sum(dim=-2)
+                                for r in routers])
+            bias = torch.stack([named[n] for n in names])
+        else:       # a bias's sharding is its router's over the experts
+            load = torch.stack([shlib.gather(grads[r], shardings[n])
+                                for r, n in zip(routers, names)])
+            bias = torch.stack([shlib.gather(named[n], shardings[n])
+                                for n in names])
+        new = moe.bias_update(bias, load)
         for n, b in zip(names, new):
-            named[n].copy_(b)
+            named[n].copy_(b if shardings is None
+                           else shlib.local_block(b, shardings[n]))
 
 
 def make_eval_step(cfg):
