@@ -149,7 +149,16 @@ The LM serving slice (internlm2-1.8b) adds:
              in each of five scattered tiles, in a window band across the
              wrap, or inside one split's run; then controls (a 2% wrong
              softmax scale, a dropped tail of 64 slots) that the limit must
-             reject.
+             reject. Then kernel 10's partial entry (out fp32, m, l)
+             against its plain version at the serve path's shape and at
+             D 256 (a rank's 256-slot block of recurrentgemma's ring),
+             rows masked whole among them; recurrentgemma's 2048-slot
+             ring cut into 8 blocks, each block's partial from the
+             kernel, combined, against one kernel-10 call and against
+             decode_ref; and the kernel on a kv-head range of a B = 8
+             ring (read in place) bit for bit the call on a contiguous
+             copy, the allocator's peak growing by the output only, with
+             the three ways' times back to back.
 3b. graph replay — each attention kernel's call captured once in a CUDA
              graph at the serving path's shapes and replayed twice over
              new inputs; each replay equal to an eager call bit for bit,
@@ -538,7 +547,7 @@ W2. world (nccl, one rank a card) — torch.cuda.device_count() ranks
 W3. world train (one position, checkpoints) — train state split over
              the ranks. After its query path (its tables dropped) each
              gloo rank runs mamba2-1.3b at its published widths,
-             WORLD_TRAIN_LAYERS (2) of its 48 layers, bf16, remat
+             WORLD_TRAIN_LAYERS (1) of its 48 layers, bf16, remat
              "block", SyntheticLM batches of 2 x 2048: run A on a
              (2, 4) rank mesh, 3 steps of build_train's rank step
              (each rank holds its blocks of params, m, v and master and
@@ -601,7 +610,7 @@ W4. world serve (checks) — the serve step split over the ranks. Before
 W5. world supervised (gloo, 8 ranks on one card) — after W1-W4, the
              train launcher's supervision on ranks: launch.train.run_world
              on WORLD_RANKS gloo ranks sharing the card, mamba2-1.3b at its
-             published widths cut to WORLD_SUPERVISED_LAYERS (2) of 48
+             published widths cut to WORLD_SUPERVISED_LAYERS (1) of 48
              layers in each rank (as launch_depth cuts it), bf16, remat
              "block", --mesh 2,4 --global-batch 2 --seq-len 2048 --steps 3
              --checkpoint-every 2, --heartbeat-dir, --max-restarts 2 and
@@ -655,6 +664,41 @@ W6. world train tp (gloo, 8 ranks on one card) — after W5, the train
              step and layer. Its record joins the {"world": ...} line as
              "train_tp"; kernel 11's "launches_world" gets "train tp
              (2, 4)".
+W7. world seq (gloo, 8 ranks on one card) — after W6, sequences split
+             over ranks: recurrentgemma-2b at its published widths,
+             WORLD_SEQ_LAYERS (3) of 26 layers, bf16, attn_impl "flash",
+             drawn from SEED on every rank. First (c), the cp train step
+             (q's rows split over "model") on WORLD_SEQ_TRAIN_MESH, the
+             first four ranks (the reckoning of its bytes printed before
+             the world; under 10% of the card left fails),
+             WORLD_SEQ_TRAIN_STEPS steps of WORLD_SEQ_TRAIN rows x tokens
+             under remat "block"; then on WORLD_SEQ_MESH (a) long_500k's
+             rules (batch 1, the 2048-slot window ring split over all
+             eight ranks), a prefill of WORLD_SEQ_PROMPT tokens and
+             WORLD_SEQ_NEW greedy steps, kernel 10's partial entry on
+             every rank's block and the combine; (b) the cp strategy's
+             prefill of WORLD_SEQ_CP rows x tokens, kernel 11 on a rank's
+             quarter of q's rows. Once the world has ended, "world seq
+             (one position, comparison)" runs the same weights here: (a)
+             and (b) teacher-forced on the ranks' tokens through the
+             kernels and through the plain paths, and (c)'s steps.
+             Holds: requested cache bytes and ring bytes equal to
+             position_bytes (a ring block of 256 slots under (a)), the
+             state's to position_bytes under (c); kernels 10 and 11
+             launched once an attention layer a decode step and a
+             prefill, and kernel 11 twice an attention layer a train
+             step; the same outputs on every rank; the logits within
+             WORLD_SEQ_X x the one-position kernel-vs-plain spread and
+             the greedy tokens equal wherever the top-2 margin exceeds
+             it; each step's loss and grad_norm within W6's shares, and
+             after the last step each attention layer's norm1 and mixer
+             leaves (weights, master, m, v) and the m of the block
+             before it, written by (c)'s ranks at "model" 0 to
+             WORLD_SEQ_DIR, within W3's bounds of the one-position
+             state. Prints per rank ring bytes, seconds a step and by
+             part, peaks and launches. Its record joins the {"world":
+             ...} line as "seq"; kernels 10 and 11's "launches_world"
+             get "seq".
 
 Every phase prints its seconds and the smoke's running total as it ends
 ("-- name: s").
@@ -3029,8 +3073,183 @@ def attention_parity_phase() -> dict:
         fail(f"{len(bad)} attention parity cases out of tolerance, or "
              f"decode copies off the plan")
     controls = attention_controls(g)
+    partial = decode_partial_phase(g)
     return err, {"largest_err_over_limit": worst, "controls": controls,
-                 "decode_copies": copies}
+                 "decode_copies": copies, "decode_partial": partial}
+
+
+# kernel 10's partial entry against its plain version: the normalised
+# output (fp32 from both) within ATTN_TOL's fp32 limit, as the two differ
+# only in the order of fp32 sums; m within PARTIAL_M_ABS (a score near 4
+# from a 128- or 256-term fp32 dot moves by about 1e-6) and l within
+# PARTIAL_L_REL of itself; a row with no valid slot gives m = -1e30 and
+# l = S on both, exactly
+PARTIAL_M_ABS = 2.0 ** -14
+PARTIAL_L_REL = 2.0 ** -14
+PARTIAL_BLOCKS = 8            # the world seq phase's ring split, 8 ways
+
+
+def decode_partial_cases():
+    """(label, b, kvh, g, s, d, fills, wrap_to, window): the serve path's
+    ring and a rank's block of recurrentgemma's under long_500k (256 of
+    2048 slots), each with a row whose every slot is masked (an empty
+    slot; for the block, slots all in the query's future) beside filled
+    and wrapped rows."""
+    return (("serve path", 8, 8, 2, 8192, 128,
+             [0, 1, 100, 1000, 4096, 8000, 8192, 0], [None] * 7 + [9000],
+             0),
+            ("serve path, window 512", 8, 8, 2, 8192, 128,
+             [0, 512, 513, 3000, 4096, 6000, 8191, 0],
+             [None] * 7 + [12000], 512),
+            ("a rank's block of recurrentgemma's ring, D 256", 8, 1, 10,
+             2048 // PARTIAL_BLOCKS, 256, [0, 1, 100, 255, 256, 0, 0, 0],
+             [None] * 5 + [300, 5000, 2100], 2048))
+
+
+def decode_partial_phase(g) -> dict:
+    """Kernel 10's partial entry (ops.decode_attention_partial, mode
+    "cuda": out fp32, m, l) against ref.decode_partial_ref at the serve
+    path's shape and at D 256, fp32 and bf16, rows masked whole among
+    them; then recurrentgemma's 2048-slot ring at D 256 cut into
+    PARTIAL_BLOCKS blocks, each block's partial from the kernel, folded by
+    ref.combine_ref, against one kernel-10 call on the whole ring and
+    against decode_ref (ATTN_TOL), with a row masked in every block and
+    rows whose later blocks are masked whole; then the strided ring: the
+    kernel on a kv-head range of a B = 8 ring (a narrow, its batch rows
+    farther apart than its own KVH * S * D) against the same call on a
+    contiguous copy of it, bit for bit, and the allocator's peak during
+    the call against the range's bytes."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    bad = []
+    out = {"cases": 0, "worst": {}}
+    rel, row = ATTN_TOL[torch.float32]
+
+    def randn(*shape, dt):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    for label, b, kvh, gq, s, d, fills, wrap, window in \
+            decode_partial_cases():
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (randn(b, kvh, gq, d, dt=dt), randn(b, kvh, s, d, dt=dt),
+                       randn(b, kvh, s, d, dt=dt))
+            kv_pos, q_pos = ring_positions(b, s, fills, wrap)
+            if label.startswith("a rank's block"):
+                kv_pos[6] = 10_000         # every slot in the query's future
+            before = dk.LAUNCHES
+            o, m, l_ = dec_ops.decode_attention_partial(
+                q, k, v, q_pos, kv_pos, window=window, mode="cuda")
+            launched = dk.LAUNCHES - before
+            wo, wm, wl = dec_ops.decode_attention_partial(
+                q, k, v, q_pos, kv_pos, window=window, mode="torch_ref")
+            e, ratio = float_err(o, wo, torch.float32)
+            none = ~((q_pos[:, None] - kv_pos >= 0) & (
+                (q_pos[:, None] - kv_pos < window) if window else True)
+            ).any(dim=1)
+            m_err = float((m - wm)[~none].abs().max()) if (~none).any() \
+                else 0.0
+            l_err = float(((l_ - wl) / wl)[~none].abs().max()) \
+                if (~none).any() else 0.0
+            masked_exact = bool((m[none] == -1e30).all()
+                                and (wm[none] == -1e30).all()
+                                and (l_[none] == s).all()
+                                and (wl[none] == s).all())
+            key = f"{label} {str(dt).split('.')[-1]}"
+            out["worst"][key] = {"out_err_over_limit": ratio,
+                                 "m_abs": m_err, "l_rel": l_err,
+                                 "rows_masked": int(none.sum()),
+                                 "masked_exact": masked_exact}
+            out["cases"] += 1
+            if not (ratio <= 1.0 and m_err <= PARTIAL_M_ABS
+                    and l_err <= PARTIAL_L_REL and masked_exact
+                    and int(none.sum()) >= 1 and launched == 1
+                    and o.dtype == torch.float32):
+                bad.append(("partial", key, ratio, m_err, l_err,
+                            masked_exact, launched))
+    # the 8 blocks of one ring, combined, against one call on the whole
+    b, kvh, gq, s, d, window = 8, 1, 10, 2048, 256, 2048
+    n = s // PARTIAL_BLOCKS
+    combine = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (randn(b, kvh, gq, d, dt=dt), randn(b, kvh, s, d, dt=dt),
+                   randn(b, kvh, s, d, dt=dt))
+        kv_pos, q_pos = ring_positions(
+            b, s, [0, 1, 100, 1000, 2047, 2048, 0, 0],
+            [None] * 6 + [4160, 3001])
+        parts = [dec_ops.decode_attention_partial(
+            q, k[:, :, i * n:(i + 1) * n], v[:, :, i * n:(i + 1) * n],
+            q_pos, kv_pos[:, i * n:(i + 1) * n].contiguous(),
+            window=window, mode="cuda") for i in range(PARTIAL_BLOCKS)]
+        got = dec_ref.combine_ref(*(torch.stack(t) for t in zip(*parts)))
+        whole = dec_ops.decode_attention(q, k, v, q_pos, kv_pos,
+                                         window=window, mode="cuda")
+        plain = dec_ref.decode_ref(q, k, v, q_pos, kv_pos, window=window)
+        _, r_whole = float_err(got.to(dt), whole, dt)
+        _, r_plain = float_err(got.to(dt), plain, dt)
+        masked_blocks = sum(int((m == -1e30).sum()) for _, m, _ in parts)
+        combine[str(dt).split(".")[-1]] = {
+            "vs_one_call_err_over_limit": r_whole,
+            "vs_plain_err_over_limit": r_plain,
+            "masked_block_rows": masked_blocks}
+        if not (r_whole <= 1.0 and r_plain <= 1.0 and masked_blocks > 0):
+            bad.append(("8-block combine", str(dt), r_whole, r_plain,
+                        masked_blocks))
+    out["combine"] = combine
+    # kernel 10 on a kv-head range of a ring, read in place
+    ring_k = randn(8, 8, SERVE_MAX_LEN, 128, dt=torch.bfloat16)
+    ring_v = randn(8, 8, SERVE_MAX_LEN, 128, dt=torch.bfloat16)
+    kk, vv = ring_k.narrow(1, 2, 2), ring_v.narrow(1, 2, 2)
+    q = randn(8, 2, 3, 128, dt=torch.bfloat16)
+    kv_pos, q_pos = ring_positions(
+        8, SERVE_MAX_LEN, [0, 1, 100, 1000, 4096, 8000, 8192, 0],
+        [None] * 7 + [9000])
+    kc, vc = kk.contiguous(), vv.contiguous()
+    strided = {"strides": list(kk.stride()), "slice_bytes":
+               2 * kk.numel() * kk.element_size()}
+    for entry, call in (
+            ("out", lambda a, b_: dec_ops.decode_attention(
+                q, a, b_, q_pos, kv_pos, mode="cuda")),
+            ("partial", lambda a, b_: torch.cat([
+                t.flatten() for t in dec_ops.decode_attention_partial(
+                    q, a, b_, q_pos, kv_pos, mode="cuda")]))):
+        call(kk, vv)                               # plan and scratch made
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = call(kk, vv)
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated() - base
+        want = call(kc, vc)
+        equal = torch.equal(got, want)
+        strided[entry] = {
+            "bit_equal": equal, "peak_growth_bytes": grew,
+            # b2b ms: the range read in place; a contiguous range; the
+            # range copied contiguous first, as the op did before
+            "b2b_ms": {"in place": time_ms(lambda: call(kk, vv),
+                                           KERNEL_REPS),
+                       "contiguous": time_ms(lambda: call(kc, vc),
+                                             KERNEL_REPS),
+                       "copied first": time_ms(lambda: call(
+                           kk.contiguous(), vv.contiguous()),
+                           KERNEL_REPS)}}
+        if not (equal and grew < strided["slice_bytes"] // 8):
+            bad.append(("strided ring", entry, equal, grew))
+    out["strided"] = strided
+    del ring_k, ring_v, kc, vc
+    print(f"kernel 10 partial entry against its plain version: "
+          f"{out['cases']} cases, out within ATTN_TOL fp32 (rel {rel}, row "
+          f"{row}), m within {PARTIAL_M_ABS}, l within {PARTIAL_L_REL} "
+          f"relative, masked rows exact: {json.dumps(out['worst'])}; "
+          f"{PARTIAL_BLOCKS} ring blocks combined against one call and "
+          f"decode_ref: {json.dumps(combine)}; a kv-head range of a "
+          f"B = 8 ring read in place: {json.dumps(strided)}", flush=True)
+    if bad:
+        for b_ in bad:
+            print("MISMATCH", b_, file=sys.stderr)
+        fail(f"{len(bad)} checks of kernel 10's partial entry, its "
+             f"combine or its strided ring failed")
+    return out
 
 
 def attention_graph_phase() -> dict:
@@ -7562,7 +7781,7 @@ def world_query_rank(rows: int, full: bool) -> dict:
 # the world's train slice: train state split over the ranks
 # --------------------------------------------------------------------------
 
-WORLD_TRAIN_LAYERS = 2             # of mamba2-1.3b's 48: the time limit
+WORLD_TRAIN_LAYERS = 1             # of mamba2-1.3b's 48: the time limit
 WORLD_TRAIN_BS = (2, 2048)         # the global batch: rows x tokens
 WORLD_TRAIN_STEPS = 3              # run A's steps
 WORLD_TRAIN_SAVES = (2, 3)         # A's checkpoints; B resumes from the first
@@ -8703,7 +8922,7 @@ def world_serve_launches(serve: dict, name: str) -> dict:
 
 # mamba2-1.3b at its published widths, WORLD_SUPERVISED_LAYERS of its 48
 # layers (the time limit), bf16, remat "block", 2 x 2048 a step, 3 steps
-WORLD_SUPERVISED_LAYERS = 2
+WORLD_SUPERVISED_LAYERS = 1
 WORLD_SUPERVISED_TRAIN = ["--arch", LAUNCH_ARCH, "--global-batch", "2",
                           "--seq-len", "2048", "--steps", "3"]
 WORLD_SUPERVISED_STEPS = 3
@@ -9519,6 +9738,675 @@ def _span(xs) -> str:
     return f"{min(got):.3f}-{max(got):.3f}" if got else "none"
 
 
+# --------------------------------------------------------------------------
+# the world's sequence splits: split-K decode and context parallelism
+# --------------------------------------------------------------------------
+
+# recurrentgemma-2b at its published widths (10 heads, 1 kv head, head
+# dim 256, vocabulary 256000), WORLD_SEQ_LAYERS of its 26 layers (one
+# pattern period: rglru, rglru, swa), bf16, attn_impl "flash": its heads
+# divide neither 4 nor 8 and it is subquadratic, so the reference runs it
+# under both layouts. (a) long_500k's rules on WORLD_SEQ_MESH: batch 1,
+# the 2048-slot window ring split over all 8 ranks (256 slots a rank), a
+# prefill of WORLD_SEQ_PROMPT tokens (the ring wraps), then WORLD_SEQ_NEW
+# greedy steps, kernel 10's partial entry on every rank's block; (b) the
+# cp strategy's prefill of WORLD_SEQ_CP rows x tokens, kernel 11 on a
+# rank's quarter of q's rows; (c) WORLD_SEQ_TRAIN_STEPS steps of the cp
+# train step at WORLD_SEQ_TRAIN rows x tokens under remat "block", run
+# first (world_seq_rank).
+WORLD_SEQ_LAYERS = 3
+WORLD_SEQ_MESH = (2, 4)
+WORLD_SEQ_PROMPT, WORLD_SEQ_NEW = 4096, 2
+WORLD_SEQ_CP = (2, 1024)
+WORLD_SEQ_TRAIN = (2, 512)
+WORLD_SEQ_TRAIN_STEPS = 2
+# (c) runs on the world's first four ranks as a (2, 2) mesh: under cp
+# "model" splits no parameter, so on (2, 4) the state (14 B a parameter,
+# halved by "data") would lie on the card four times over, with eight
+# ranks' steps beside it (world_seq_reckoning prints both meshes)
+WORLD_SEQ_TRAIN_MESH = (2, 2)
+WORLD_SEQ_DEADLINE_S = 480
+# (c)'s ranks at "model" 0 write their blocks of the leaves that
+# world_seq_held names here, for the comparison after the world
+WORLD_SEQ_DIR = Path(__file__).resolve().parent / "build" / "world_seq"
+# the logits' bound: WORLD_SEQ_X times the spread between the
+# one-position run's kernel and plain paths on the same tokens; greedy
+# tokens must agree wherever the one-position top-2 margin exceeds the
+# bound; the train steps' losses and grad_norms within W6's shares
+# (written into PERF.md before the first run); after (c)'s steps the
+# leaves world_seq_held names within W3's bounds of the one-position
+# state (UPDATE_X x the summed lr and BF16_ULP for weights, MOMENT_REL
+# for m and v; written into PERF.md before their first run)
+WORLD_SEQ_X = 4.0
+
+
+def world_seq_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(RG_ARCH), attn_impl="flash",
+                               num_layers=WORLD_SEQ_LAYERS)
+
+
+def world_seq_prompt(cfg, b: int, s: int, device) -> torch.Tensor:
+    """(b, s) int32 tokens, the same on every rank and in the parent."""
+    g = torch.Generator().manual_seed(SEED + 53)
+    return torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                         dtype=torch.int32).to(device)
+
+
+def world_seq_attention_layers(cfg) -> int:
+    return sum(cfg.pattern_at(i) in ("attn", "swa")
+               for i in range(cfg.num_layers))
+
+
+def world_seq_reckoning(cfg) -> dict:
+    """The bytes of (c), reckoned from the config before the world
+    starts, on WORLD_SEQ_MESH and on WORLD_SEQ_TRAIN_MESH: the state at
+    14 B a parameter split over "data" only (cp splits nothing over
+    "model"), and each rank's step: its parameters gathered whole over
+    "data" (bf16), their fp32 gradients, its row's logits in fp32, and a
+    context for each of the world's WORLD_RANKS ranks."""
+    from repro_torch.models import lm
+    n = sum(t.numel() for t in lm.init(cfg, device="meta").parameters())
+    step = 6 * n + WORLD_SEQ_TRAIN[1] * cfg.vocab_size * 4
+    out = {"total_params": n, "state_bytes": 14 * n,
+           "rank_step_bytes": step, "card_bytes": CARD_BYTES}
+    for dims in (WORLD_SEQ_MESH, WORLD_SEQ_TRAIN_MESH):
+        ranks = math.prod(dims)
+        need = 14 * n * dims[1] + ranks * step + WORLD_RANKS * CONTEXT_BYTES
+        out[str(tuple(dims))] = {"need_bytes": need,
+                                 "left": 1.0 - need / CARD_BYTES}
+    return out
+
+
+def world_seq_held(cfg, key: str) -> bool:
+    """Whether (c) holds leaf `key` ("params.<name>", "m.<name>",
+    "v.<name>", "master.<name>") against the one-position state: every
+    tree of an attention layer's norm1 and mixer (wq, wk, wv, wo: their
+    gradients are sums over the rows' ranks), and the m of the block
+    before it, which the rows' adjoint of x reaches first."""
+    tree, name = key.split(".", 1)
+    for i in range(cfg.num_layers):
+        if cfg.pattern_at(i) not in ("attn", "swa"):
+            continue
+        if name.startswith((f"blocks.{i}.mixer.", f"blocks.{i}.norm1")) \
+                or (tree == "m" and name.startswith(f"blocks.{i - 1}.")):
+            return True
+    return False
+
+
+def world_seq_rows(mesh, in_sh, b: int) -> slice:
+    axes = in_sh.dim_axes(0)
+    n = math.prod(mesh.shape[a] for a in axes)
+    i = mesh.block_index(axes)
+    return slice(i * (b // n), (i + 1) * (b // n))
+
+
+def world_seq_leaves(caches) -> list:
+    """The attention rings of `caches` (a layer's {k, v, pos})."""
+    return [c for c in caches if "pos" in c]
+
+
+def world_seq_serve(mesh, cfg, layout: str) -> dict:
+    """(a) or (b) on this rank: the blocks of the weights drawn from SEED
+    and of the caches (the caches' requested bytes against position_bytes,
+    the rings' bytes against theirs), then, kernels 10 and 11 at 0,
+    build_prefill on this rank's rows of the prompt and, for long_500k,
+    WORLD_SEQ_NEW greedy steps of build_serve: the logits (rank 0) and
+    their digest, the tokens fed, seconds, peak and launches."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist import sharding as shlib
+    from repro_torch.dist import strategies, world
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch import specs
+    from repro_torch.models import lm
+    if layout == "long_500k":
+        b, p, new, extra = 1, WORLD_SEQ_PROMPT, WORLD_SEQ_NEW, None
+    else:
+        (b, p), new = WORLD_SEQ_CP, 0
+        extra = strategies.strategy_for(cfg, None, layout)[0]
+    t0 = time.perf_counter()
+    pre = ShapeSpec(layout, "prefill", p + new, b)
+    dec = ShapeSpec(layout, "decode", p + new, b)
+    prefill, _ = specs.build_prefill(cfg, pre, mesh, rules_extra=extra)
+    serve = specs.build_serve(cfg, dec, mesh, rules_extra=extra)[0] \
+        if new else None
+    rules = specs.rules_for(cfg, pre, extra)
+    p_sh, in_sh, c_sh = prefill.in_shardings
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = lm.init(cfg, seed=SEED, device=mesh.device, mesh=mesh,
+                     rules=rules)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    release()
+    base = requested_bytes()
+    caches = lm.init_caches(cfg, b, p + new, mesh=mesh, rules=rules)
+    torch.cuda.synchronize()
+    rings = world_seq_leaves(caches)
+    ring_sh = [sh for c, sh in zip(caches, c_sh) if "pos" in c]
+    rec = {"layout": layout, "build_s": build_s, "draw_s": draw_s,
+           "caches_requested": requested_bytes() - base,
+           "caches_position_bytes": shlib.position_bytes(caches, c_sh),
+           "ring_bytes": sum(t.numel() * t.element_size()
+                             for c in rings for t in c.values()),
+           "ring_position_bytes": shlib.position_bytes(rings, ring_sh),
+           "ring_whole_bytes": sum(math.prod(sh[k].global_shape)
+                                   * c[k].element_size()
+                                   for c, sh in zip(rings, ring_sh)
+                                   for k in c),
+           "ring_slots": [c["k"].shape[2] for c in rings],
+           "ring_specs": [str(sh["k"].spec) for sh in ring_sh]}
+    rows = world_seq_rows(mesh, in_sh, b)
+    prompt = world_seq_prompt(cfg, b, p, mesh.device)[rows]
+    key = torch.zeros(2, dtype=torch.uint32, device=mesh.device)
+    torch.cuda.reset_peak_memory_stats()
+    world.barrier()
+    dk.LAUNCHES = fk.LAUNCHES = 0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, prompt, caches)
+        torch.cuda.synchronize()
+        rec["prefill_s"] = time.perf_counter() - t0
+        got, fed, step_s = [logits.float()], [], []
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        for i in range(new):
+            fed.append(nxt.cpu())
+            cache_len = torch.full((b,), p + i, dtype=torch.int32,
+                                   device=mesh.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nxt, logits, caches = serve(params, nxt[:, None], cache_len,
+                                        caches, key)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            got.append(logits.float())
+    got = torch.stack(got)                       # (1 + new, B, V)
+    rec.update(launches={"decode_attention": dk.LAUNCHES,
+                         "flash_attention": fk.LAUNCHES},
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               step_s=step_s, digest=leaf_digest(got),
+               finite=bool(torch.isfinite(got).all()),
+               tokens=torch.stack(fed).numpy() if fed else None,
+               logits=got.cpu() if mesh.rank == 0 else None)
+    del params, caches, got, logits
+    release()
+    return rec
+
+
+def world_seq_train(mesh, cfg) -> dict:
+    """(c) on this rank of the train mesh: the state drawn from SEED and
+    cut to its blocks (requested bytes against position_bytes), then,
+    kernel 11 at 0, WORLD_SEQ_TRAIN_STEPS steps of build_train under the
+    cp strategy on SyntheticLM rows: losses, grad_norms, seconds, peak,
+    the seconds of each part; a rank at "model" 0 writes its blocks of
+    the leaves world_seq_held names to WORLD_SEQ_DIR (the ranks along
+    "model" hold the same blocks under cp)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticLM, make_global_batch
+    from repro_torch.dist import sharding as shlib
+    from repro_torch.dist import strategies, world
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch import specs
+    from repro_torch.train import optim
+    from repro_torch.train import step as step_lib
+    t0 = time.perf_counter()
+    extra = strategies.strategy_for(cfg, None, "cp")[0]
+    b, s = WORLD_SEQ_TRAIN
+    shape = ShapeSpec("cp", "train", s, b)
+    opt_cfg = optim.AdamWConfig(**TRAIN_FULL_OPT)
+    fn, _ = specs.build_train(cfg, shape, mesh, opt_cfg=opt_cfg,
+                              rules_extra=extra)
+    state_sh, batch_sh = fn.in_shardings
+    secs = {"build": time.perf_counter() - t0}
+    release()
+    base = requested_bytes()
+    t0 = time.perf_counter()
+    state, _ = step_lib.init_state(SEED, cfg, opt_cfg, device=mesh.device,
+                                   mesh=mesh,
+                                   rules=specs.rules_for(cfg, shape, extra))
+    torch.cuda.synchronize()
+    secs["draw"] = time.perf_counter() - t0
+    release()
+    rec = {"resident_requested": requested_bytes() - base,
+           "position_bytes": shlib.position_bytes(state, state_sh)}
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                global_batch=b))
+    specs_ = {k: sh.spec for k, sh in batch_sh.items()}
+    torch.cuda.reset_peak_memory_stats()
+    world.barrier(mesh.group)
+    fk.LAUNCHES = 0
+    losses, norms, step_s = [], [], []
+    for i in range(WORLD_SEQ_TRAIN_STEPS):
+        batch = make_global_batch(ds.batch(i), mesh, specs_)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = fn(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        del batch, m
+    rec.update(launches=fk.LAUNCHES,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               losses=losses, norms=norms, step_s=step_s)
+    if mesh.coords["model"] == 0:
+        t0 = time.perf_counter()
+        blocks = world_tp_blocks(state)
+        shardings = {f"params.{n}": sh
+                     for n, sh in state_sh["params"].items()}
+        for k in ("m", "v", "master"):
+            shardings.update({f"{k}.{n}": sh
+                              for n, sh in state_sh["opt"][k].items()})
+        held = {k: t.cpu() for k, t in blocks.items()
+                if world_seq_held(cfg, k)}
+        rec.update(specs={k: tuple(shardings[k].spec) for k in held},
+                   shape=dict(mesh.shape), held_bytes=sum(
+                       t.numel() * t.element_size() for t in held.values()))
+        WORLD_SEQ_DIR.mkdir(parents=True, exist_ok=True)
+        torch.save(held, WORLD_SEQ_DIR / f"rank{mesh.rank}.pt")
+        secs["write held leaves"] = time.perf_counter() - t0
+        del blocks, held
+    rec["secs"] = secs
+    del state
+    release()
+    return rec
+
+
+def card_memory() -> str:
+    """This process's allocated and reserved GiB, the card's free GiB and
+    each process's use as nvidia-smi reads it."""
+    free, total = torch.cuda.mem_get_info()
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().replace("\n", "; ")
+    return (f"this process {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+            f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} "
+            f"reserved; the card {free / 2**30:.3f} of "
+            f"{total / 2**30:.3f} GiB free; processes: {apps}")
+
+
+def world_seq_rank() -> list:
+    """The world seq phase on one rank of the gloo world: first (c) on
+    the first four ranks' WORLD_SEQ_TRAIN_MESH (the others wait), while
+    no rank holds anything yet (run after (a) and (b), it ran out of the
+    card's memory: each rank kept ~2.4 GiB reserved that
+    torch.cuda.empty_cache could not return, large freed segments in
+    which cuBLAS's 32 MiB workspaces, one a thread's handle, had been
+    placed); then (a) and (b) on WORLD_SEQ_MESH. Returns every rank's
+    record."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import world
+    from repro_torch.launch.mesh import make_mesh
+    t_rank = time.perf_counter()
+    mesh = make_mesh(WORLD_SEQ_MESH, ("data", "model"),
+                     group=dist.group.WORLD)
+    cfg = world_seq_config()
+    rec = {"rank": mesh.rank, "coords": mesh.coords}
+    tmesh = make_mesh(WORLD_SEQ_TRAIN_MESH, ("data", "model"),
+                      members=range(math.prod(WORLD_SEQ_TRAIN_MESH)))
+    rec["cp_train"] = None if tmesh is None else dict(
+        world_seq_train(tmesh, cfg), coords=tmesh.coords)
+    world.barrier()
+    if mesh.rank == 0:
+        print(f"[world seq] rank 0 after (c): {card_memory()}",
+              flush=True)
+    rec["long_500k"] = world_seq_serve(mesh, cfg, "long_500k")
+    rec["cp_prefill"] = world_seq_serve(mesh, cfg, "cp")
+    world.barrier()
+    rec["s"] = time.perf_counter() - t_rank
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, rec)
+    return every
+
+
+def world_seq_one_position(ranks: list) -> dict:
+    """The one-position runs of the same weights, on the card once the
+    world has ended: (a) and (b) teacher-forced on the ranks' prompt and
+    tokens, through attn_impl "flash" (kernels 10 and 11) and "auto" (the
+    plain paths), and (c)'s steps with make_train_step on the whole
+    batch."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticLM, make_global_batch
+    from repro_torch.dist import strategies
+    from repro_torch.dist.sharding import PartitionSpec as P
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    from repro_torch.train import optim
+    from repro_torch.train import step as step_lib
+    cfg = world_seq_config()
+    plain = dataclasses.replace(cfg, attn_impl="auto")
+    model = lm.init(cfg, seed=SEED, device="cuda")
+    out = {}
+    a = ranks[0]["long_500k"]
+    prompt = world_seq_prompt(cfg, 1, WORLD_SEQ_PROMPT, "cuda")
+    fed = torch.from_numpy(a["tokens"]).cuda()
+    for name, c in (("kernel", cfg), ("plain", plain)):
+        caches = lm.init_caches(c, 1, WORLD_SEQ_PROMPT + WORLD_SEQ_NEW,
+                                device="cuda")
+        serve = engine.make_serve_step(c)
+        with torch.no_grad():
+            logits, caches = engine.make_prefill_step(c)(model, prompt,
+                                                         caches)
+            got = [logits.float()]
+            for i in range(WORLD_SEQ_NEW):
+                _, logits, caches = serve(model, fed[i][:, None], torch.full(
+                    (1,), WORLD_SEQ_PROMPT + i, dtype=torch.int32,
+                    device="cuda"), caches, None)
+                got.append(logits.float())
+        out[f"long_500k {name}"] = torch.stack(got).cpu()
+        del caches
+    prompt = world_seq_prompt(cfg, *WORLD_SEQ_CP, "cuda")
+    for name, c in (("kernel", cfg), ("plain", plain)):
+        caches = lm.init_caches(c, WORLD_SEQ_CP[0], WORLD_SEQ_CP[1],
+                                device="cuda")
+        with torch.no_grad():
+            logits, _ = engine.make_prefill_step(c)(model, prompt, caches)
+        out[f"cp {name}"] = logits.float()[None].cpu()
+        del caches
+    del model, prompt
+    release()
+    extra = strategies.strategy_for(cfg, None, "cp")[0]
+    b, s = WORLD_SEQ_TRAIN
+    mesh = make_mesh((1, 1), ("data", "model"))
+    opt_cfg = optim.AdamWConfig(**TRAIN_FULL_OPT)
+    fn, _ = specs.build_train(cfg, ShapeSpec("cp", "train", s, b), mesh,
+                              opt_cfg=opt_cfg, rules_extra=extra)
+    state, _ = step_lib.init_state(SEED, cfg, opt_cfg, device="cuda")
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                global_batch=b))
+    losses, norms, step_s = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(WORLD_SEQ_TRAIN_STEPS):
+        batch = make_global_batch(ds.batch(i), mesh, {
+            "inputs": P("data"), "labels": P("data")})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = fn(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        del batch, m
+    out["train"] = {"losses": losses, "norms": norms, "step_s": step_s,
+                    "peak_bytes": torch.cuda.max_memory_allocated()}
+    lrs = [float(optim.schedule(opt_cfg, torch.tensor(c)))
+           for c in range(1, WORLD_SEQ_TRAIN_STEPS + 1)]
+    out["held"] = world_seq_compare(ranks, state, lrs)
+    del state
+    release()
+    return out
+
+
+def world_seq_compare(ranks: list, state, lrs: list) -> dict:
+    """(c)'s held leaves (the files of the ranks at "model" 0) against
+    their blocks of the one-position state: bound_share with UPDATE_X x
+    the summed lr. Returns the leaves and bytes compared, the worst share
+    by kind and the leaves past their bound."""
+    named = dict(state["params"].named_parameters())
+    bound = UPDATE_X * sum(lrs)
+    out = {"leaves": 0, "bytes": 0, "worst": {}, "over": []}
+    for r in ranks:
+        t = r["cp_train"]
+        if t is None or "specs" not in t:
+            continue
+        got = torch.load(WORLD_SEQ_DIR / f"rank{r['rank']}.pt")
+        for key, block in got.items():
+            tree, name = key.split(".", 1)
+            whole = (named[name] if tree == "params"
+                     else state["opt"][tree][name]).detach()
+            want = block_at(whole, t["specs"][key], t["coords"], t["shape"])
+            kind, share = bound_share(key, block.to(want.device), want,
+                                      bound)
+            out["leaves"] += 1
+            out["bytes"] += block.numel() * block.element_size()
+            if not share <= out["worst"].get(kind, (-1.0, ""))[0]:
+                out["worst"][kind] = (share, key)
+            if not share <= 1.0:
+                out["over"].append((r["rank"], key, share))
+        del got
+    return out
+
+
+def world_seq_logits(got: torch.Tensor, kernel: torch.Tensor,
+                     plain: torch.Tensor) -> dict:
+    """The ranks' logits (steps, B, V) against the one-position kernel
+    path's: the bound WORLD_SEQ_X x the kernel-vs-plain spread, the
+    largest |difference|, and the greedy tokens compared wherever the
+    kernel path's top-2 margin exceeds the bound."""
+    spread = float((kernel - plain).abs().max())
+    bound = WORLD_SEQ_X * spread
+    diff = float((got - kernel).abs().max())
+    top2 = kernel.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > bound
+    same = got.argmax(-1) == kernel.argmax(-1)
+    return {"spread": spread, "bound": bound, "max_abs": diff,
+            "share": diff / bound if bound > 0 else float("inf"),
+            "tokens_decided": int(decided.sum()),
+            "tokens": int(decided.numel()),
+            "tokens_differ_where_decided": int((decided & ~same).sum()),
+            "tokens_differ": int((~same).sum())}
+
+
+def world_seq_phase(dev: dict) -> dict:
+    """The world's sequence splits: the reckoning of (c)'s bytes, then
+    world_seq_rank on WORLD_RANKS gloo ranks sharing the card; once the
+    world has ended, the one-position runs in this process. Holds, on
+    every rank: the caches' requested bytes equal to position_bytes, the
+    rings' bytes to theirs and a ring block of 256 slots under
+    long_500k; kernel 10 launched once an attention layer a decode step
+    and kernel 11 once a prefill (each rank's own rows, or its quarter
+    of q's rows under cp), kernel 11 twice an attention layer a train
+    step (remat "block"); the same logits, tokens, losses and grad_norms
+    on every rank; (c)'s requested state bytes equal to position_bytes.
+    Against the one-position runs: the logits within WORLD_SEQ_X x the
+    kernel-vs-plain spread, greedy tokens equal wherever the top-2 margin
+    exceeds it, each step's loss within WORLD_TP_LOSS_REL and grad_norm
+    within WORLD_TP_NORM_REL, and after the last step the leaves
+    world_seq_held names within W3's bounds (world_seq_compare)."""
+    import shutil
+
+    from repro_torch.dist import world
+    phase(f"world seq (gloo, {WORLD_RANKS} ranks on one card)")
+    t_phase = time.perf_counter()
+    smi = dev["smi"]
+    cfg = world_seq_config()
+    plan = world_seq_reckoning(cfg)
+    on = plan[str(tuple(WORLD_SEQ_TRAIN_MESH))]
+    print(f"[world seq] [{smi}] reckoning of (c): {cfg.name} at "
+          f"{cfg.num_layers} of 26 layers, {plan['total_params']} "
+          f"parameters, state {plan['state_bytes'] / 1e9:.2f} GB; a "
+          f"rank's step {plan['rank_step_bytes'] / 1e9:.2f} GB; on "
+          f"{WORLD_SEQ_MESH} "
+          f"{plan[str(tuple(WORLD_SEQ_MESH))]['need_bytes'] / 1e9:.2f} GB, "
+          f"on {WORLD_SEQ_TRAIN_MESH} {on['need_bytes'] / 1e9:.2f} GB of "
+          f"{CARD_BYTES / 1e9:.0f} ({on['left']:.1%} left)", flush=True)
+    if on["left"] < 0.10:
+        fail(f"(c) reckons {on['need_bytes'] / 1e9:.2f} GB: under 10% of "
+             f"the card left")
+    release()
+    print(f"[world seq] [{smi}] before the world: {card_memory()}",
+          flush=True)
+    shutil.rmtree(WORLD_SEQ_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        ranks = world.spawn(world_seq_rank, WORLD_RANKS, backend="gloo",
+                            device="cuda:0",
+                            deadline_s=WORLD_SEQ_DEADLINE_S,
+                            timeout_s=WORLD_COLLECTIVE_S)
+        world_s = time.perf_counter() - t0
+        release()
+        phase("world seq (one position, comparison)")
+        one = world_seq_one_position(ranks)
+    finally:
+        shutil.rmtree(WORLD_SEQ_DIR, ignore_errors=True)
+    return world_seq_check(dev, cfg, ranks, one, plan, world_s, t_phase)
+
+
+def world_seq_check(dev: dict, cfg, ranks: list, one: dict, plan: dict,
+                    world_s: float, t_phase: float) -> dict:
+    """world_seq_phase's checks and prints."""
+    smi = dev["smi"]
+    bad = []
+    attn = world_seq_attention_layers(cfg)
+    want = {"long_500k": {"decode_attention": attn * WORLD_SEQ_NEW,
+                          "flash_attention": attn},
+            "cp_prefill": {"decode_attention": 0, "flash_attention": attn}}
+    train_want = attn * (1 if cfg.remat == "none" else 2) \
+        * WORLD_SEQ_TRAIN_STEPS
+    ring_slots = min(cfg.window, WORLD_SEQ_PROMPT + WORLD_SEQ_NEW) \
+        // math.prod(WORLD_SEQ_MESH)
+    r0 = ranks[0]
+    for r in ranks:
+        for part in ("long_500k", "cp_prefill"):
+            x = r[part]
+            if x["caches_requested"] != x["caches_position_bytes"] or \
+                    x["ring_bytes"] != x["ring_position_bytes"]:
+                bad.append(("rank", r["rank"], part, "cache bytes",
+                            x["caches_requested"],
+                            x["caches_position_bytes"], x["ring_bytes"],
+                            x["ring_position_bytes"]))
+            if x["launches"] != want[part]:
+                bad.append(("rank", r["rank"], part, "launches",
+                            x["launches"], want[part]))
+            if x["digest"] != r0[part]["digest"] or not x["finite"] or (
+                    x["tokens"] is not None and not np.array_equal(
+                        x["tokens"], r0[part]["tokens"])):
+                bad.append(("rank", r["rank"], part, "outputs differ "
+                            "from rank 0's, or not finite"))
+        if set(r["long_500k"]["ring_slots"]) != {ring_slots}:
+            bad.append(("rank", r["rank"], "ring blocks",
+                        r["long_500k"]["ring_slots"], ring_slots))
+        t = r["cp_train"]
+        if t is None:
+            continue
+        if t["resident_requested"] != t["position_bytes"]:
+            bad.append(("rank", r["rank"], "cp train resident bytes",
+                        t["resident_requested"], t["position_bytes"]))
+        if t["launches"] != train_want:
+            bad.append(("rank", r["rank"], "cp train kernel 11 launches",
+                        t["launches"], train_want))
+        if t["losses"] != r0["cp_train"]["losses"] or \
+                t["norms"] != r0["cp_train"]["norms"]:
+            bad.append(("rank", r["rank"], "cp train losses or grad_norm "
+                        "differ from rank 0's"))
+    cmp = {"long_500k": world_seq_logits(
+        r0["long_500k"]["logits"], one["long_500k kernel"],
+        one["long_500k plain"]),
+        "cp_prefill": world_seq_logits(
+        r0["cp_prefill"]["logits"], one["cp kernel"], one["cp plain"])}
+    for part, c in cmp.items():
+        if not (c["max_abs"] <= c["bound"] and c["spread"] > 0
+                and c["tokens_differ_where_decided"] == 0):
+            bad.append(("against one position", part, c))
+    ot = one["train"]
+    shares = {"loss": [abs(a - b) / (WORLD_TP_LOSS_REL * abs(b)) for a, b
+                       in zip(r0["cp_train"]["losses"], ot["losses"])],
+              "grad_norm": [abs(a - b) / (WORLD_TP_NORM_REL * abs(b))
+                            for a, b in zip(r0["cp_train"]["norms"],
+                                            ot["norms"])]}
+    if not all(x <= 1.0 for v in shares.values() for x in v):
+        bad.append(("cp train against one position", shares))
+    held = one["held"]
+    if held["over"] or not held["leaves"]:
+        bad.append(("cp train held leaves against one position",
+                    held["leaves"], held["over"][:8]))
+    for r in ranks:
+        a, bp, t = r["long_500k"], r["cp_prefill"], r["cp_train"]
+        train = "" if t is None else (
+            f"; (c) on {WORLD_SEQ_TRAIN_MESH} at {t['coords']}: state "
+            f"{t['resident_requested']} B requested, position_bytes "
+            f"{t['position_bytes']}; step s "
+            f"{[round(x, 3) for x in t['step_s']]}; peak "
+            f"{t['peak_bytes'] / 2**30:.3f} GiB; kernel 11 launches "
+            f"{t['launches']} (want {train_want}); losses {t['losses']}; "
+            f"grad_norm {t['norms']}; seconds "
+            f"{ {k: round(v, 3) for k, v in t['secs'].items()} }")
+        print(f"[world seq] [{smi}] rank {r['rank']} {r['coords']}: (a) "
+              f"long_500k: rings {a['ring_bytes']} B (block of "
+              f"{a['ring_slots'][0]} slots, {a['ring_specs'][0]}) against "
+              f"position_bytes {a['ring_position_bytes']} of "
+              f"{a['ring_whole_bytes']} whole; caches requested "
+              f"{a['caches_requested']} B, position_bytes "
+              f"{a['caches_position_bytes']}; prefill {a['prefill_s']:.3f} "
+              f"s, decode s a step {[round(x, 4) for x in a['step_s']]}, "
+              f"build {a['build_s']:.3f} s, draw {a['draw_s']:.3f} s; "
+              f"peak {a['peak_bytes'] / 2**30:.3f} GiB; launches "
+              f"{a['launches']} (want {want['long_500k']}); (b) cp "
+              f"prefill {bp['prefill_s']:.3f} s, peak "
+              f"{bp['peak_bytes'] / 2**30:.3f} GiB, build "
+              f"{bp['build_s']:.3f} s, draw {bp['draw_s']:.3f} s, caches "
+              f"requested "
+              f"{bp['caches_requested']} B, position_bytes "
+              f"{bp['caches_position_bytes']}, launches {bp['launches']} "
+              f"(want {want['cp_prefill']}){train}; rank {r['s']:.3f} s",
+              flush=True)
+    wall = time.perf_counter() - t_phase
+    worst = held["worst"]
+    print(f"[world seq] [{smi}] {cfg.name} at {cfg.num_layers} of 26 "
+          f"layers, bf16, attn flash, {WORLD_SEQ_MESH} gloo ranks: world "
+          f"{world_s:.3f} s; against the one-position runs (bound "
+          f"{WORLD_SEQ_X} x its kernel-vs-plain spread): "
+          f"{json.dumps(cmp)}; (c) one position losses {ot['losses']}, "
+          f"grad_norm {ot['norms']}, step s "
+          f"{[round(x, 3) for x in ot['step_s']]}, peak "
+          f"{ot['peak_bytes'] / 2**30:.3f} GiB; shares of "
+          f"({WORLD_TP_LOSS_REL}, {WORLD_TP_NORM_REL}) relative "
+          f"{json.dumps(shares)}; after step {WORLD_SEQ_TRAIN_STEPS} "
+          f"{held['leaves']} held leaves ({held['bytes']} B of blocks) "
+          f"against the one-position state, share of UPDATE_X x sum(lr) "
+          f"(BF16_ULP, MOMENT_REL) by kind "
+          f"{ {k: (round(v, 4), key) for k, (v, key) in worst.items()} }"
+          f"; phase wall {wall:.3f} s", flush=True)
+    if bad:
+        for b in bad:
+            print("MISMATCH", str(b)[:2000], file=sys.stderr)
+        fail(f"{len(bad)} world seq checks failed")
+    keep = ("rank", "coords", "s")
+    parts = ("launches", "prefill_s", "step_s", "peak_bytes",
+             "ring_bytes", "ring_position_bytes", "caches_requested",
+             "caches_position_bytes")
+    return {"config": {"arch": cfg.name, "layers": cfg.num_layers,
+                       "mesh": list(WORLD_SEQ_MESH),
+                       "train_mesh": list(WORLD_SEQ_TRAIN_MESH),
+                       "long_500k": [1, WORLD_SEQ_PROMPT, WORLD_SEQ_NEW],
+                       "cp_prefill": list(WORLD_SEQ_CP),
+                       "cp_train": list(WORLD_SEQ_TRAIN),
+                       "train_steps": WORLD_SEQ_TRAIN_STEPS},
+            "reckoning": plan, "world_s": world_s,
+            "ranks": [dict({k: r[k] for k in keep},
+                           **{p: {k: r[p][k] for k in parts}
+                              for p in ("long_500k", "cp_prefill")},
+                           cp_train=None if r["cp_train"] is None else
+                           {k: v for k, v in r["cp_train"].items()})
+                      for r in ranks],
+            "against_one_position": cmp, "train_shares": shares,
+            "train_held": {k: held[k] for k in ("leaves", "bytes", "worst")},
+            "one_position_train": ot, "wall_s": wall, "card": smi}
+
+
+def world_seq_launches(seq: dict, name: str) -> dict:
+    """Kernel `name`'s launches in the world seq phase's runs."""
+    out = {}
+    for part, label in (("long_500k", f"long_500k {WORLD_SEQ_MESH}"),
+                        ("cp_prefill", f"cp prefill {WORLD_SEQ_MESH}")):
+        per = [r[part]["launches"][name] for r in seq["ranks"]]
+        if sum(per):
+            out[label] = {"ranks": len(per), "sum": sum(per),
+                          "per_rank": per}
+    if name == "flash_attention":
+        per = [r["cp_train"]["launches"] for r in seq["ranks"]
+               if r["cp_train"] is not None]
+        out[f"cp train {WORLD_SEQ_TRAIN_MESH}"] = {
+            "ranks": len(per), "sum": sum(per), "per_rank": per}
+    return out
+
+
 def main() -> None:
     import faulthandler
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=False)
@@ -9624,6 +10512,7 @@ def main() -> None:
     world = world_phases(dev, sharded, kernels, serve_refs)
     world["supervised"] = world_supervised_phase(dev)
     world["train_tp"] = world_tp_phase(dev)
+    world["seq"] = world_seq_phase(dev)
     print(json.dumps({"world": world}, default=str), flush=True)
     model, engine, serve = serve_phase(dev)
     del engine
@@ -9639,6 +10528,8 @@ def main() -> None:
             tp = world["train_tp"]["launches"]
             runs[f"train tp {WORLD_TP_MESH}"] = {
                 "ranks": len(tp), "sum": sum(tp), "per_rank": tp}
+        if rec["name"] in ("decode_attention", "flash_attention"):
+            runs["seq"] = world_seq_launches(world["seq"], rec["name"])
         if runs:
             rec.setdefault("launches_world", {}).update(runs)
     serve["attention_parity"] = attn_check

@@ -5,7 +5,14 @@
 // repro/kernels/decode_attention/kernel.py::decode_attention_fwd (body
 // _decode_kernel): q (B, KVH, G, D), k/v (B, KVH, S, D) in the model's
 // kernel-native ring layout, q_pos (B,) and the stored-position plane
-// kv_pos (B, S) int32 in; (B, KVH, G, D) in q's dtype out. A slot counts
+// kv_pos (B, S) int32 in; (B, KVH, G, D) in q's dtype out. K and V may be
+// a kv-head range of a wider ring: their rows of S * D elements lie one
+// after another within a batch row, and the batch rows kv_bs elements
+// apart (KVH * S * D for a whole ring). With m_out / l_out given the call
+// also writes each (row, kv head, query head)'s softmax partial: m, the
+// largest masked score, and l, the sum of exp(score - m) over the ring's
+// slots, and then writes the normalised output in fp32 (out_f32), so
+// partials of ring blocks held apart combine exactly. A slot counts
 // where 0 <= q_pos - kv_pos (< window when window > 0); never-written slots
 // hold INF_POS and so are masked. Masked scores are the finite -1e30, as in
 // the reference, so a row whose every slot is masked averages V uniformly
@@ -112,6 +119,10 @@ struct Args {
   int* tickets;     // (rows,), zero between calls
   unsigned long long* copied;  // K/V bytes copied, summed; may be null
   void* out;
+  float* m_out;     // (B, KVH, G) or null
+  float* l_out;     // (B, KVH, G) or null
+  long long kv_bs;  // elements between the batch rows of k and v
+  int out_f32;      // out is fp32 (else q's type)
   int kvh;
   int g;
   int zs;           // z-slices of a kv head: ceil(G / GM)
@@ -168,8 +179,10 @@ __global__ void __launch_bounds__(kThreads)
   const int sub = lane % LPK;
   const int grp = warp * (32 / LPK) + lane / LPK;
 
-  const T* kb = static_cast<const T*>(a.k) + (size_t)bh * a.s * D;
-  const T* vb = static_cast<const T*>(a.v) + (size_t)bh * a.s * D;
+  const size_t kv_off =
+      (size_t)b * a.kv_bs + (size_t)(bh - b * a.kvh) * a.s * D;
+  const T* kb = static_cast<const T*>(a.k) + kv_off;
+  const T* vb = static_cast<const T*>(a.v) + kv_off;
   const int32_t* pb = a.kv_pos + (size_t)b * a.s;
   const int qp = a.q_pos[b];
   const uint32_t ring = smem_u32(smem);
@@ -440,8 +453,16 @@ __global__ void __launch_bounds__(kThreads)
       ll = fmaf(__ldcg(r + 1), w, ll);
       aa = fmaf(__ldcg(r + 2 + d), w, aa);
     }
-    store(static_cast<T*>(a.out) + ((size_t)bh * a.g + g0 + g) * D + d,
-          aa / fmaxf(ll, 1e-30f));
+    const size_t head = (size_t)bh * a.g + g0 + g;
+    const float o = aa / fmaxf(ll, 1e-30f);
+    if (a.out_f32)
+      static_cast<float*>(a.out)[head * D + d] = o;
+    else
+      store(static_cast<T*>(a.out) + head * D + d, o);
+    if (d == 0 && a.m_out != nullptr) {
+      a.m_out[head] = mm;
+      a.l_out[head] = ll;
+    }
   }
   if (tid == 0) a.tickets[row] = 0;
 }
@@ -541,13 +562,18 @@ extern "C" int decode_attention_plan(int dtype, int b, int kvh, int g,
 // GM * (D + 2) partial floats followed by one int32 ticket a row, which
 // every call leaves zero again. Calls sharing one scratch must not
 // overlap. copied: null, or an int64 to which each block adds the bytes of
-// the K/V copies it issued.
+// the K/V copies it issued. kv_bs: the elements between two batch rows of
+// k (and v), at least KVH * S * D and a multiple of 16 bytes. m_out /
+// l_out: both null, or (B, KVH, G) fp32 each for the softmax partials, and
+// then out is fp32.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* q_pos,
-    const void* kv_pos, void* scratch, void* copied, void* out, int dtype,
-    int b, int kvh, int g, long long s, int d, int n_splits, int window,
-    void* stream) {
-  if (s < 1 || s > 0x7fffffffLL || n_splits < 1 || n_splits > 65535)
+    const void* kv_pos, void* scratch, void* copied, void* out, void* m_out,
+    void* l_out, int dtype, int b, int kvh, int g, long long s, int d,
+    long long kv_bs, int n_splits, int window, void* stream) {
+  if (s < 1 || s > 0x7fffffffLL || n_splits < 1 || n_splits > 65535 ||
+      kv_bs < (long long)kvh * s * d ||
+      (m_out == nullptr) != (l_out == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -559,6 +585,10 @@ extern "C" int decode_attention_launch(
   a.tickets = nullptr;
   a.copied = static_cast<unsigned long long*>(copied);
   a.out = out;
+  a.m_out = static_cast<float*>(m_out);
+  a.l_out = static_cast<float*>(l_out);
+  a.kv_bs = kv_bs;
+  a.out_f32 = m_out != nullptr;
   a.kvh = kvh;
   a.g = g;
   a.zs = 1;

@@ -26,6 +26,8 @@ axes. A world is supervised whole (world.supervise,
 launch.train.run_world): a failure on any rank ends every rank, and a
 fresh world restores the latest checkpoint, up to the restart budget; no
 rank restarts alone, since its peers wait in the same collectives.
-Split-K decode and context parallelism on ranks are ROADMAP.md's item
-5f.
+Sequences split over ranks too: a decode cache's ring over its slots
+(split-K decode; each rank's softmax partial combined by all-reduce,
+sharding.combine_over) and q's rows over the cp strategy's axes
+(context parallelism, the rows' outputs gathered).
 """

@@ -55,6 +55,17 @@ over the batch's ranks (MoE's load and importance). All four are the
 identity without a rank mesh or over axes of one rank, so the
 one-position and virtual paths run as before.
 
+The caches' layout inside a serve step: `use_rules(..., rings=)` names
+each cache leaf's sharding (a rank's ring blocks), and `split_axes` /
+`block_start` read a ring leaf as they read a parameter: which axes
+split its slots ("kv_seq") and where the rank's block starts. k/v and
+pos may split differently (a kv-head dim claims an axis that pos, which
+has none, gives to its slots). `constraint_axes` reads which axes the
+rules split a dim of an activation over (context parallelism's
+"cp_seq"), and `combine_over` folds the ranks' partial softmaxes of a
+split ring: an all-reduce of the max, then one of the rescaled outputs
+and sums, in fp32.
+
 Under autograd each is a torch.autograd.Function with the adjoint its
 docstring states: downstream of a reduce or a gather the compute is
 replicated over those ranks, so every rank receives the same gradient
@@ -409,7 +420,7 @@ _ACTIVE = threading.local()
 
 
 @contextmanager
-def use_rules(mesh, rules, split=None, leaves=None):
+def use_rules(mesh, rules, split=None, leaves=None, rings=None):
     """Activate (mesh, rules) for logical_constraint within this thread.
     `split` maps a logical name to the mesh axes over which the tensors
     of this rank hold only a block of that dim (on a rank mesh, the
@@ -417,13 +428,15 @@ def use_rules(mesh, rules, split=None, leaves=None):
     size there. `leaves` ({id(parameter): NamedSharding}) names the
     parameters that a step over ranks reads as blocks (at_use); a
     parameter that requires grad, read with grad enabled, takes its
-    gradient at its use (use_grad).
+    gradient at its use (use_grad). `rings` ({id(tensor): NamedSharding})
+    names the caches' leaves, this rank's blocks, whose layout the step
+    reads with split_axes / block_start (ring_sharding).
     current_rules() gives back the arguments given, without trailing
     Nones."""
     stack = getattr(_ACTIVE, "stack", None)
     if stack is None:
         stack = _ACTIVE.stack = []
-    args = [mesh, rules, dict(split) if split else None, leaves]
+    args = [mesh, rules, dict(split) if split else None, leaves, rings]
     while args[-1] is None:
         args.pop()
     stack.append(tuple(args))
@@ -502,10 +515,23 @@ def use_grad(p):
     return g
 
 
+def ring_sharding(t: torch.Tensor):
+    """The sharding of `t` where the active use_rules names it a cache
+    leaf (`rings`), else None."""
+    rings = _active(4)
+    return rings.get(id(t)) if rings is not None else None
+
+
+def _sharding_of(t: torch.Tensor):
+    sh = getattr(t, "_sharding", None)
+    return sh if sh is not None else ring_sharding(t)
+
+
 def split_axes(t: torch.Tensor, dim: int) -> tuple:
     """The mesh axes of more than one rank that split dim `dim` of `t`, a
-    parameter read by at_use on a rank mesh; () for anything else."""
-    sh = getattr(t, "_sharding", None)
+    parameter read by at_use or a cache leaf named by use_rules(rings=)
+    on a rank mesh, in its spec entry's order; () for anything else."""
+    sh = _sharding_of(t)
     if sh is None or not _on_ranks(sh):
         return ()
     return tuple(a for a in sh.dim_axes(dim % t.ndim)
@@ -516,7 +542,24 @@ def block_start(t: torch.Tensor, dim: int) -> int:
     """The global index of this rank's first element along dim `dim` of
     `t` (as split_axes reads it); 0 where the dim is whole."""
     axes = split_axes(t, dim)
-    return t._sharding.mesh.block_index(axes) * t.shape[dim] if axes else 0
+    return _sharding_of(t).mesh.block_index(axes) * t.shape[dim] \
+        if axes else 0
+
+
+def constraint_axes(shape, names, dim: int) -> tuple:
+    """The mesh axes of more than one rank over which the active rules
+    split dim `dim` of a tensor of this rank's `shape` annotated `names`
+    (logical_constraint's resolution); () without a rank mesh. A step
+    over ranks computes only its block of such a dim (context
+    parallelism: the "cp_seq" rows of attention's q)."""
+    mesh = _rank_mesh()
+    if mesh is None:
+        return ()
+    spec = _resolve_active(shape, names)
+    entry = spec[dim] if dim < len(spec) else None
+    group = () if entry is None else \
+        (entry,) if isinstance(entry, str) else tuple(entry)
+    return tuple(a for a in group if mesh.shape[a] > 1)
 
 
 def split_of(name: str) -> tuple:
@@ -649,6 +692,30 @@ def enter_over(x: torch.Tensor, axes) -> torch.Tensor:
     return _EnterOver.apply(x, mesh, axes)
 
 
+def combine_over(out: torch.Tensor, m: torch.Tensor, l_: torch.Tensor,
+                 axes) -> torch.Tensor:
+    """The softmax over every rank's block of a dim split over mesh `axes`
+    from each rank's partial: `out` (..., D) normalised over its block,
+    `m` (...) its largest score and `l_` (...) its sum of exp(score - m).
+    An all-reduce of the max, then one of the rescaled outputs and sums
+    (l exp(m - max m)), in fp32; a block masked whole (m = -1e30 beside
+    a finite max) weighs nothing. Returns fp32; under torch.no_grad()
+    only (decode). `out` itself, in fp32, without a rank mesh or over
+    axes of one rank."""
+    import torch.distributed as dist
+    mesh, axes = _over(axes)
+    if mesh is None:
+        return out.float()
+    big = m.to(torch.float32, memory_format=torch.contiguous_format,
+               copy=True)
+    for a in axes:
+        dist.all_reduce(big, op=dist.ReduceOp.MAX, group=mesh.axis_group(a))
+    w = l_.float() * torch.exp(m.float() - big)
+    both = torch.cat([out.float() * w[..., None], w[..., None]], dim=-1)
+    both = _all_reduce(both, mesh, axes)
+    return both[..., :-1] / both[..., -1:].clamp_min(1e-30)
+
+
 def mean_over(x: torch.Tensor, axes) -> torch.Tensor:
     """The mean of `x` over the ranks of mesh `axes` (the batch's: each
     rank's statistic over its rows, the global batch's where the blocks
@@ -672,6 +739,21 @@ def uncounted():
         _uncounted -= 1
 
 
+def _resolve_active(shape, names) -> PartitionSpec:
+    """resolve_spec under the active use_rules for a tensor of this rank's
+    `shape`: resolved against its global shape (its own, times the
+    positions of the axes that `use_rules(split=)` names for a dim's
+    logical name)."""
+    mesh, rules = current_rules()[:2]
+    split = _active(2)
+    if split:                       # dims of which x is this rank's block
+        shape = tuple(n * math.prod(mesh.shape[a] for a in split.get(name,
+                                                                      ()))
+                      for n, name in zip(shape, _names_of(names)
+                                         + (None,) * len(shape)))
+    return resolve_spec(shape, names, mesh, rules)
+
+
 def logical_constraint(x, names):
     """The reference's with_sharding_constraint by logical names. Returns
     `x` itself: outside a use_rules context it does nothing; inside, it
@@ -684,15 +766,8 @@ def logical_constraint(x, names):
     global CONSTRAINT_CALLS
     if not _uncounted:
         CONSTRAINT_CALLS += 1
-    mesh, rules = active[:2]
-    shape = tuple(x.shape)
-    split = _active(2)
-    if split:                       # dims of which x is this rank's block
-        shape = tuple(n * math.prod(mesh.shape[a] for a in split.get(name,
-                                                                      ()))
-                      for n, name in zip(shape, _names_of(names)
-                                         + (None,) * x.ndim))
-    spec = resolve_spec(shape, names, mesh, rules)
+    mesh = active[0]
+    spec = _resolve_active(tuple(x.shape), names)
     if x.device != mesh.device:
         raise ValueError(f"a tensor on {x.device} under a mesh on "
                          f"{mesh.device} ({spec})")

@@ -82,10 +82,11 @@ SIGNATURES = {
     "decode_attention": {
         # (dtype, b, kvh, g, s, d, plan: four int64 out)
         "decode_attention_plan": (_I, _I, _I, _I, _LL, _I, _P),
-        # (q, k, v, q_pos, kv_pos, scratch, copied, out, dtype, b, kvh, g,
-        #  s, d, n_splits, window, stream)
-        "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _LL, _I, _I, _I, _P)},
+        # (q, k, v, q_pos, kv_pos, scratch, copied, out, m_out, l_out,
+        #  dtype, b, kvh, g, s, d, kv_batch_stride, n_splits, window, stream)
+        "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _LL, _I, _LL, _I, _I,
+                                    _P)},
     "ssd_chunk": {
         # (x, dt, a_log, b, c, h_in, cb, states, total, y, h_out, dtype,
         #  route, b, s, h, p, n, q, stream)

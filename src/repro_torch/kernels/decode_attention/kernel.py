@@ -90,22 +90,54 @@ def _scratch(device, stream: int, key: tuple, floats: int,
     return buf
 
 
+def ring_strides(k: torch.Tensor) -> int | None:
+    """The elements between two batch rows of `k` (B, KVH, S, D) when the
+    kernel reads it in place: each kv head's S * D elements contiguous and
+    one after another, the batch rows 16-byte aligned apart, as a whole
+    ring, or a kv-head range of one (a `narrow` along dim 1), lies. None
+    for any other layout (the op makes such a tensor contiguous)."""
+    b, kvh, s, d = k.shape
+    if k.stride(3) != 1 or (s > 1 and k.stride(2) != d) or \
+            (kvh > 1 and k.stride(1) != s * d):
+        return None
+    if b == 1:
+        return kvh * s * d
+    bs = k.stride(0)
+    if bs < kvh * s * d or (bs * k.element_size()) % 16:
+        return None
+    return bs
+
+
 def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
                          window: int = 0,
-                         copied_bytes: torch.Tensor | None = None
-                         ) -> torch.Tensor:
-    """q (B, KVH, G, D), k/v (B, KVH, S, D) contiguous float32 or bfloat16
+                         copied_bytes: torch.Tensor | None = None,
+                         partial: bool = False):
+    """q (B, KVH, G, D) contiguous, k/v (B, KVH, S, D) float32 or bfloat16
     CUDA tensors of one dtype, q_pos (B,) and kv_pos (B, S) int32 ->
-    (B, KVH, G, D) in q's dtype. Launches once on the current stream and
-    does not synchronise; calls may be captured in a CUDA graph. With
-    `copied_bytes`, an int64 tensor of one element on q's device, the
-    kernel adds to it the bytes of the K and V copies it issued."""
+    (B, KVH, G, D) in q's dtype. K and V are read in place where
+    `ring_strides` gives their batch stride (a whole ring, or a kv-head
+    range of one) and must have equal strides. With `partial`, returns
+    (out fp32, m, l), m and l (B, KVH, G) fp32: each row's largest masked
+    score and its sum of exp(score - m), the softmax partial of this ring
+    (block) that ref.combine_ref folds with others. Launches once on the
+    current stream and does not synchronise; calls may be captured in a
+    CUDA graph. With `copied_bytes`, an int64 tensor of one element on
+    q's device, the kernel adds to it the bytes of the K and V copies it
+    issued."""
     global LAUNCHES
     dtypes = tuple(_build.FLOAT_DTYPES)
     _build.check_operand(q, "q", ndim=4, dtypes=dtypes)
-    _build.check_operand(k, "k", ndim=4, dtypes=dtypes)
-    _build.check_operand(v, "v", like=k, ndim=4, dtypes=dtypes)
+    for name, t in (("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor, "
+                             f"got one on {t.device}")
+        if t.dtype not in dtypes or t.dim() != 4:
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}; expected "
+                             f"a 4-D operand of one of {dtypes}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned (the kernels "
+                             f"load 16 bytes at a time)")
     _build.check_operand(q_pos, "q_pos")
     _build.check_operand(kv_pos, "kv_pos", ndim=2)
     b, kvh, g, d = q.shape
@@ -114,6 +146,16 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             tuple(k.shape) != (b, kvh, s, d):
         raise ValueError(f"k {k.dtype} {tuple(k.shape)} does not fit q "
                          f"{q.dtype} {tuple(q.shape)}")
+    if v.dtype != k.dtype or v.device != k.device or v.shape != k.shape \
+            or v.stride() != k.stride():
+        raise ValueError(f"v {v.dtype} {tuple(v.shape)} {v.stride()} does "
+                         f"not match k {k.dtype} {tuple(k.shape)} "
+                         f"{k.stride()}")
+    kv_bs = ring_strides(k)
+    if kv_bs is None:
+        raise ValueError(f"k/v strides {k.stride()} of {tuple(k.shape)}: "
+                         f"the kernel reads a ring or a kv-head range of "
+                         f"one")
     if tuple(q_pos.shape) != (b,) or tuple(kv_pos.shape) != (b, s) or \
             q_pos.device != q.device or kv_pos.device != q.device:
         raise ValueError(f"q_pos {tuple(q_pos.shape)} / kv_pos "
@@ -129,9 +171,14 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("empty ring (S = 0)")
     if window < 0:
         raise ValueError(f"window {window} < 0")
-    out = torch.empty_like(q)
+    if partial:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        m = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        l_ = torch.empty_like(m)
+    else:
+        out, m, l_ = torch.empty_like(q), None, None
     if out.numel() == 0:
-        return out
+        return (out, m, l_) if partial else out
     code = _build.FLOAT_DTYPES[q.dtype]
     lib = _build.load("decode_attention")
     key = (q.get_device(), code, b, kvh, g, s, d)
@@ -145,7 +192,9 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
         scratch.data_ptr(),
         None if copied_bytes is None else copied_bytes.data_ptr(),
-        out.data_ptr(), code, b, kvh, g, s, d, splits, int(window), stream)
+        out.data_ptr(), None if m is None else m.data_ptr(),
+        None if l_ is None else l_.data_ptr(), code, b, kvh, g, s, d,
+        kv_bs, splits, int(window), stream)
     _build.check(lib, err, "decode_attention")
     LAUNCHES += 1
-    return out
+    return (out, m, l_) if partial else out

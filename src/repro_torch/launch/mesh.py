@@ -26,8 +26,9 @@ over send/recv. The train and serve steps
 hold the parameters (and caches) split and compute tensor- and
 expert-parallel over "model", gathering a parameter over "data"/"pod" at
 its use; the train step reduces the gradients over the batch's axes
-(repro_torch.train.step). Split-K decode and context parallelism on
-ranks are ROADMAP.md's item 5f.
+(repro_torch.train.step). A ring split over its slots decodes split-K
+and q's rows split over the cp strategy's axes attend as context
+parallelism (repro_torch.models.attention).
 """
 from __future__ import annotations
 
@@ -78,6 +79,19 @@ class Mesh:
         return f"Mesh({self.shape}, device={self.device})"
 
 
+def _line_groups(dims, members, backend) -> list:
+    """(axis index, line of positions, group) for every subgroup of a
+    mesh of `dims` over `members` (ranks of the default group), made in
+    one order: torch.distributed.new_group needs every rank of the
+    default group, members of the line or not."""
+    import torch.distributed as dist
+    grid = np.arange(len(members)).reshape(dims)
+    return [(i, line, dist.new_group([members[r] for r in line],
+                                     backend=backend))
+            for i in range(len(dims))
+            for line in np.moveaxis(grid, i, -1).reshape(-1, dims[i])]
+
+
 class RankMesh(Mesh):
     """Named axes over the ranks of a process group, one position a rank.
     `shape` and `size` are global; `device` is this rank's, `rank` its
@@ -97,17 +111,12 @@ class RankMesh(Mesh):
         dims = tuple(self.shape.values())
         self.coords = {a: int(c) for a, c in
                        zip(self.axes, np.unravel_index(self.rank, dims))}
-        members = dist.get_process_group_ranks(group)
-        backend = dist.get_backend(group)
-        grid = np.arange(self.size).reshape(dims)
         self._groups = {}
-        # every rank creates every subgroup, in the same order
-        for i, axis in enumerate(self.axes):
-            for line in np.moveaxis(grid, i, -1).reshape(-1, dims[i]):
-                sub = dist.new_group([members[r] for r in line],
-                                     backend=backend)
-                if self.rank in line:
-                    self._groups[axis] = sub
+        for i, line, sub in _line_groups(
+                dims, dist.get_process_group_ranks(group),
+                dist.get_backend(group)):
+            if self.rank in line:
+                self._groups[self.axes[i]] = sub
 
     def axis_group(self, axis: str):
         if axis not in self.shape:
@@ -134,15 +143,30 @@ class RankMesh(Mesh):
                 f"coords={self.coords}, device={self.device})")
 
 
-def make_mesh(shape, axes, device=None, *, group=None) -> Mesh:
+def make_mesh(shape, axes, device=None, *, group=None, members=None):
     """A mesh of virtual shards, or with `group` (a torch.distributed
     process group, e.g. torch.distributed.group.WORLD) a RankMesh over
-    its ranks, which every rank of the default group calls alike.
+    its ranks, which every rank of the default group calls alike. With
+    `members` (ranks of the default group) instead, every rank of the
+    default group calls it alike too: it makes the members' group and
+    the mesh's subgroups, and returns the RankMesh on the members and
+    None on the other ranks.
 
     Virtual: `device` is one device (the CUDA device unless the caller
     passes one), or a sequence of them, one a position, which must all
     be the same device. Ranks: `device` is this rank's device (by default
     the one repro_torch.dist.world.init gave it)."""
+    if members is not None:
+        import torch.distributed as dist
+        members = list(members)
+        if group is not None or math.prod(shape) != len(members):
+            raise ValueError(f"a mesh of shape {tuple(shape)} over members "
+                             f"{members} (and no group)")
+        backend = dist.get_backend()
+        group = dist.new_group(members, backend=backend)
+        if dist.get_rank() not in members:
+            _line_groups(tuple(shape), members, backend)
+            return None
     if group is not None:
         if isinstance(device, (list, tuple)):
             raise ValueError("a rank mesh takes this rank's device, not a "

@@ -26,10 +26,14 @@ enter_over, mean_over), on a rank's rows of a batch split over the
 batch's axes: the serve steps under torch.no_grad(), every rank
 returning the global tokens and logits (a prompt may be shorter than
 the cell's seq_len, the caches' length), and the train step with the
-collectives' adjoints (train.step.make_rank_train_step). Rules that
-split a sequence dim over ranks (split-K decode, context parallelism)
-raise NotImplementedError (ROADMAP.md item 5f), and so does a batch
-split over an axis that also splits a parameter.
+collectives' adjoints (train.step.make_rank_train_step). The serve
+steps name the caches' shardings too (use_rules(rings=)), so a ring
+split over its slots ("kv_seq": 2d_splitcache, long_500k) decodes
+split-K and rows of q split over "cp_seq" (the cp strategy) attend as
+context parallelism (models.attention); no rank gathers a K/V ring leaf.
+A rule that splits the "seq" dim itself over ranks (no strategy sets
+one) raises NotImplementedError, and so does a batch split over an axis
+that also splits a parameter.
 """
 from __future__ import annotations
 
@@ -116,29 +120,24 @@ def replicated(mesh, shape=None):
     return shlib.NamedSharding(mesh, shlib.PartitionSpec(), shape)
 
 
-# logical dims of a sequence: split over ranks, they need split-K decode
-# or context parallelism, which the rank path does not run
-SEQUENCE_DIMS = ("seq", "kv_seq", "cp_seq", "kv_full")
-
-
 def _split_on_ranks(mesh, rules, p_sh, in_sh, kind="serve") -> dict | None:
     """A `kind` step's `use_rules(split=)` on a rank mesh (the batch's
     axes, from the inputs' sharding), or None on a virtual mesh. Raises
-    NotImplementedError for rules that split a sequence dim over ranks,
-    and for a batch split over an axis that also splits a parameter."""
+    NotImplementedError for rules that split the "seq" dim over ranks
+    (the ring's and q's sequence dims, "kv_seq" and "cp_seq", split;
+    "kv_full" only ever replicates K/V, whole on every rank), and for a
+    batch split over an axis that also splits a parameter."""
     if mesh.group is None:
         return None
-    merged = dict(shlib.DEFAULT_RULES, **rules)
-    for name in SEQUENCE_DIMS:
-        rule = merged.get(name)
-        axes = () if rule is None else (rule,) if isinstance(rule, str) \
-            else tuple(rule)
-        split = [a for a in axes if mesh.shape.get(a, 1) > 1]
-        if split:
-            raise NotImplementedError(
-                f"the {kind} step on ranks with {name!r} split over "
-                f"{split}: split-K decode and context parallelism on "
-                f"ranks are ROADMAP.md's item 5f")
+    rule = dict(shlib.DEFAULT_RULES, **rules).get("seq")
+    axes = () if rule is None else (rule,) if isinstance(rule, str) \
+        else tuple(rule)
+    split = [a for a in axes if mesh.shape.get(a, 1) > 1]
+    if split:
+        raise NotImplementedError(
+            f"the {kind} step on ranks with 'seq' split over {split}: the "
+            f"rank steps split a sequence as 'kv_seq' (the ring) or "
+            f"'cp_seq' (q's rows)")
     batch = in_sh.dim_axes(0)
     clash = sorted({a for sh in p_sh.values() for _, axes in sh.splits()
                     for a in axes} & set(batch) & set(shlib.COMPUTE_AXES))
@@ -156,16 +155,20 @@ def _refill(caches: list, new: list) -> list:
 
 
 @contextlib.contextmanager
-def _serving(mesh, rules, split, params, p_sh):
+def _serving(mesh, rules, split, params, p_sh, caches, c_sh):
     """The serve steps' context: use_rules(mesh, rules) on a virtual mesh;
-    on ranks also the batch's `split` and the parameters' shardings
-    (at_use), under torch.no_grad()."""
+    on ranks also the batch's `split`, the parameters' shardings (at_use)
+    and the caches' (`rings`: each leaf's split, read by attention),
+    under torch.no_grad()."""
     if mesh.group is None:
         with shlib.use_rules(mesh, rules):
             yield
         return
     leaves = {id(p): p_sh[n] for n, p in params.named_parameters()}
-    with torch.no_grad(), shlib.use_rules(mesh, rules, split, leaves):
+    rings = {id(t): sh[k] for c, sh in zip(caches, c_sh)
+             for k, t in c.items()}
+    with torch.no_grad(), shlib.use_rules(mesh, rules, split, leaves,
+                                          rings):
         yield
 
 
@@ -230,7 +233,7 @@ def build_prefill(cfg, shape, mesh, rules_extra: dict | None = None):
             shlib.check_placed(inputs, shlib.NamedSharding(
                 mesh, in_sh.spec, (b,) + tuple(inputs.shape[1:])))
         shlib.check_placed(caches, c_sh)
-        with _serving(mesh, rules, split, params, p_sh):
+        with _serving(mesh, rules, split, params, p_sh, caches, c_sh):
             logits, new = step(params, inputs, caches)
         return logits, _refill(caches, new)
 
@@ -266,7 +269,7 @@ def build_serve(cfg, shape, mesh, rules_extra: dict | None = None):
         if isinstance(key, torch.Tensor):
             shlib.check_placed(key, key_sh)
             key = None
-        with _serving(mesh, rules, split, params, p_sh):
+        with _serving(mesh, rules, split, params, p_sh, caches, c_sh):
             nxt, logits, new = step(params, inputs, cache_len, caches, key)
         return nxt, logits, _refill(caches, new)
 

@@ -20,25 +20,48 @@ and returns the same dict: a copy of a multi-GiB ring every step is what
 the reference's functional update leaves XLA to elide.
 
 Over ranks (a step of repro_torch.launch.specs on a RankMesh) a rank
-holds its block of each weight and ring: its heads, kv heads and batch
-rows. It takes its head counts from the blocks, projects its heads'
-output row-parallel and sums the partial products over the ranks that
-split the heads (repro_torch.dist.sharding.reduce_over). Where the heads
-are split but the kv heads are not (their count does not divide the
-axis), the ring is whole on each rank and a rank's q heads read the kv
-heads they group with, a slice of the ring. Under autograd x enters the
-q/k/v projections through sharding.enter_over, so its gradient is
+holds its block of each weight and ring: its heads, kv heads, batch rows
+and ring slots. It takes its head counts from the blocks, projects its
+heads' output row-parallel and sums the partial products over the ranks
+that split the heads (repro_torch.dist.sharding.reduce_over). Where the
+heads are split but the kv heads are not (their count does not divide the
+axis), a rank's q heads read the kv heads they group with, a kv-head
+range of its ring that kernel 10 reads in place. Under autograd x enters
+the q/k/v projections through sharding.enter_over, so its gradient is
 summed over the ranks that split the heads; where the kv heads are
 whole, wk and wv enter so too, as each rank's gradient of them holds
 only the kv heads its q heads read.
+
+Sequence splits over ranks (the steps name the caches' shardings,
+use_rules(rings=)):
+- split-K decode, a ring whose slots ("kv_seq") are split: `fill_cache`
+  writes a token only on the rank whose block holds its slot, in each
+  ring leaf by that leaf's own split (pos, which has no kv-head dim, may
+  be split further than k and v; a rank then gathers the int32 pos
+  entries of the slots its k holds). A decode step computes each head's
+  softmax partial over the rank's block (kernel 10's partial entry under
+  "flash", ref.decode_partial_ref otherwise) and combines them over the
+  split's ranks (sharding.combine_over); where the heads are split over
+  the same axes, a rank first gathers the token's q of every head and
+  keeps its own heads' output. No rank gathers a K/V ring leaf.
+- context parallelism, where the rules split q's "cp_seq" dim (the cp
+  strategy, K/V whole on every rank: "kv_full"): a rank attends only its
+  rows [r S/n, (r + 1) S/n) against the K/V prefix [0, (r + 1) S/n) (kernel
+  11 aligns q to the end of K/V) and the output is gathered over those
+  axes (gather_over; its adjoint is the slice). Under autograd x, wq, wk
+  and wv enter through enter_over, as each rank's gradient holds only its
+  rows' part.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.dist import sharding as shlib
 from repro_torch.dist.sharding import logical_constraint
 from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.decode_attention import ref as dec_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.common import Params, apply_rope, dense_init
 
@@ -92,8 +115,7 @@ def _naive(q, k, v, q_pos, kv_pos, window):
 def _blockwise(q, k, v, q_pos, kv_pos, window, block_kv: int = 1024):
     """Online softmax over KV blocks; O(Sq * block) live memory."""
     skv = k.shape[1]
-    block_kv = min(block_kv, skv)
-    assert skv % block_kv == 0, (skv, block_kv)
+    block_kv = min(block_kv, skv)          # the last block may be short
     qs = q * q.shape[-1] ** -0.5
     acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     m = torch.full(q.shape[:-1], NEG_INF, dtype=torch.float32,
@@ -179,9 +201,17 @@ def attend(params, x, positions, cfg, *, window: int = 0, impl: str = "auto",
     kv_lo, kvh = _kv_heads_of(wq, wk, cfg)     # this rank's heads
     group = wq.shape[1] // kvh
     heads = shlib.split_axes(wq, 1)
-    x = shlib.enter_over(x, heads)
+    h0, nh = shlib.block_start(wq, 1), wq.shape[1]
+    # context parallelism: the axes that split q's rows (cp_seq)
+    cp = shlib.constraint_axes((b, sq, kvh, group, hd), _Q_AXES, 1)
+    if cp and heads:
+        raise NotImplementedError(f"q's rows split over {cp} beside its "
+                                  f"heads over {heads}")
+    x = shlib.enter_over(x, heads + cp)
     if heads and not shlib.split_axes(wk, 1):
         wk, wv = shlib.enter_over(wk, heads), shlib.enter_over(wv, heads)
+    if cp:
+        wq, wk, wv = (shlib.enter_over(w, cp) for w in (wq, wk, wv))
 
     q = torch.einsum("bsd,dnh->bsnh", x, wq)
     k = torch.einsum("bsd,dnh->bsnh", x, wk)
@@ -194,32 +224,143 @@ def attend(params, x, positions, cfg, *, window: int = 0, impl: str = "auto",
     # context-parallel hooks: "cp_seq"/"kv_full" are absent from the default
     # rules (no-ops); the cp strategy defines them so q stays seq-sharded
     # while K/V replicate over the model axis
-    q = logical_constraint(q, (None, "cp_seq", None, None, None))
+    q = logical_constraint(q, _Q_AXES)
     k = logical_constraint(k, (None, "kv_full", None, None))
     v = logical_constraint(v, (None, "kv_full", None, None))
 
     if kv_cache is None or sq > 1:
         # train / prefill: attend over the segment's own K/V; the ring is
         # written out of band
-        o = _run(q, _kv_slice(k, kv_lo, kvh, 2), _kv_slice(v, kv_lo, kvh, 2),
-                 positions, positions, window, impl)
+        ks, vs = _kv_slice(k, kv_lo, kvh, 2), _kv_slice(v, kv_lo, kvh, 2)
+        if cp:
+            o = _attend_rows(q, ks, vs, positions, window, impl, cp)
+        else:
+            o = _run(q, ks, vs, positions, positions, window, impl)
         new_cache = (fill_cache(kv_cache, k, v, positions)
                      if kv_cache is not None else (k, v))
         return _project_out(params, o, b, sq, cfg, x.dtype), new_cache
 
     new_cache = fill_cache(kv_cache, k, v, positions)
+    seq = shlib.split_axes(new_cache["k"], 2)
+    pos = _ring_pos(new_cache)
+    if seq:
+        o = _split_k(q[:, 0], new_cache, positions[:, 0], pos, window, impl,
+                     seq, heads, (kv_lo, kvh), (h0, nh))
+        return _project_out(params, o[:, None], b, sq, cfg, x.dtype), \
+            new_cache
     ring_k = _kv_slice(new_cache["k"], kv_lo, kvh, 1)
     ring_v = _kv_slice(new_cache["v"], kv_lo, kvh, 1)
     if impl == "flash":
         # one-token decode goes to the split-K kernel (ring-buffer aware
         # via the stored-pos plane); the ring is already in its layout
         o = dec_ops.decode_attention(
-            q[:, 0], ring_k, ring_v, positions[:, 0],
-            new_cache["pos"], window=window)[:, None]    # (B,1,KV,G,H)
+            q[:, 0], ring_k, ring_v, positions[:, 0], pos,
+            window=window)[:, None]    # (B,1,KV,G,H)
         return _project_out(params, o, b, sq, cfg, x.dtype), new_cache
     o = _run(q, ring_k.transpose(1, 2), ring_v.transpose(1, 2), positions,
-             new_cache["pos"], window, impl)
+             pos, window, impl)
     return _project_out(params, o, b, sq, cfg, x.dtype), new_cache
+
+
+_Q_AXES = (None, "cp_seq", None, None, None)
+
+
+def _attend_rows(q, k, v, positions, window, impl, cp):
+    """Context parallelism: this rank's block of q's rows [lo, hi) (its
+    block over the `cp` axes) against the K/V prefix [0, hi), whose
+    relative positions are the whole sequence's (kernel 11 aligns q to
+    the end of K/V), gathered over `cp` to every row."""
+    sq = q.shape[1]
+    mesh = shlib.current_rules()[0]
+    rows = sq // math.prod(mesh.shape[a] for a in cp)
+    lo = mesh.block_index(cp) * rows
+    hi = lo + rows
+    o = _run(q[:, lo:hi], k[:, :hi], v[:, :hi], positions[:, lo:hi],
+             positions[:, :hi], window, impl)
+    return shlib.gather_over(o, 1, cp)
+
+
+def _ring_pos(cache):
+    """The pos entries of the ring slots this rank's k holds: the pos
+    block itself, or, where pos is split over more axes than k (k's
+    kv-head dim took an axis that pos, without one, gives to its slots),
+    the pos blocks gathered over those axes. They travel as the bits of
+    float32, as the ranks gather only float tensors."""
+    pos = cache["pos"]
+    extra = tuple(a for a in shlib.split_axes(pos, 1)
+                  if a not in shlib.split_axes(cache["k"], 2))
+    if not extra:
+        return pos
+    return shlib.gather_over(pos.view(torch.float32), 1, extra).view(
+        pos.dtype)
+
+
+def _split_k(q, cache, q_pos, pos, window, impl, seq, heads, kv, qh):
+    """One-token decode over a ring whose slots are split over the mesh
+    axes `seq`: each head's softmax partial over this rank's block,
+    combined over `seq`. q (B, KVH', G', D) holds this rank's heads
+    [h0, h0 + nh) (`qh`), grouped with kv heads [kv_lo, kv_lo + KVH')
+    (`kv`) of the ring; where `heads` splits them over axes of `seq`, the
+    token's q is gathered over those axes first and this rank keeps its
+    own heads of the combined output. Returns (B, KVH', G', D) fp32."""
+    b, _, _, d = q.shape
+    ring_k, ring_v = cache["k"], cache["v"]
+    shared = tuple(a for a in heads if a in seq)
+    if shared:
+        if shared != tuple(heads) or shlib.split_axes(ring_k, 1):
+            raise NotImplementedError(
+                f"heads split over {heads}, ring slots over {seq} and kv "
+                f"heads over {shlib.split_axes(ring_k, 1)}")
+        q = shlib.gather_over(q.reshape(b, -1, d), 1, shared)
+        q = q.reshape(b, ring_k.shape[1], -1, d)
+    else:
+        ring_k = _kv_slice(ring_k, kv[0], kv[1], 1)
+        ring_v = _kv_slice(ring_v, kv[0], kv[1], 1)
+    if impl == "flash":
+        o, m, l_ = dec_ops.decode_attention_partial(
+            q, ring_k, ring_v, q_pos, pos, window=window)
+    else:
+        o, m, l_ = dec_ref.decode_partial_ref(q, ring_k, ring_v, q_pos, pos,
+                                              window=window)
+    o = shlib.combine_over(o, m, l_, seq)
+    if shared:
+        o = o.reshape(b, -1, d).narrow(1, qh[0], qh[1])
+    return o
+
+
+def _ring_block(t, dim: int):
+    """(first global slot, slots) of this rank's block of ring leaf `t`
+    along its kv_seq dim `dim`, and the ring's global size."""
+    n = t.shape[dim]
+    axes = shlib.split_axes(t, dim)
+    if not axes:
+        return 0, n, n
+    mesh = shlib.ring_sharding(t).mesh
+    return shlib.block_start(t, dim), n, \
+        n * math.prod(mesh.shape[a] for a in axes)
+
+
+def _write_slots(leaf, dim: int, slots, values):
+    """Write `values` (B, Sq, ...) at the global ring slots `slots` (B,
+    Sq; distinct within a row) of ring leaf `leaf`, whose slots lie along
+    `dim`, in place; a rank whose block holds only some of the slots
+    writes those. With one token a row the others rewrite their row's
+    first local slot with itself, so no index leaves the device."""
+    lo, n, size = _ring_block(leaf, dim)
+    ring = leaf.movedim(dim, 1)                         # (B, n, ...)
+    values = values.to(leaf.dtype)
+    rows = torch.arange(slots.shape[0], device=slots.device)[:, None]
+    rows = rows.expand_as(slots)
+    local = slots - lo
+    if n < size:
+        keep = (local >= 0) & (local < n)
+        if slots.shape[1] == 1:
+            local = torch.where(keep, local, 0)
+            keep = keep.view(keep.shape + (1,) * (values.dim() - 2))
+            values = torch.where(keep, values, ring[rows, local])
+        else:
+            rows, local, values = rows[keep], local[keep], values[keep]
+    ring[rows, local] = values
 
 
 def fill_cache(cache, k, v, positions):
@@ -229,25 +370,20 @@ def fill_cache(cache, k, v, positions):
     k/v arrive in model layout (B, Sq, KVH, D); only this segment is
     transposed into the ring's kernel-native (B, KVH, S, D) layout. The
     write is in place, so it refuses to run under autograd: training
-    passes no caches."""
+    passes no caches. Where a ring leaf's slots are split over ranks
+    (use_rules(rings=)), each rank writes only the slots of its block of
+    that leaf."""
     if torch.is_grad_enabled() and (k.requires_grad or v.requires_grad):
         raise RuntimeError("fill_cache writes the ring in place; run "
                            "decode and cached prefill under "
                            "torch.no_grad() (training passes caches=None)")
-    size = cache["k"].shape[2]
+    size = _ring_block(cache["pos"], 1)[2]
     if k.shape[1] > size:
         k, v, positions = k[:, -size:], v[:, -size:], positions[:, -size:]
-    b, kvh = k.shape[0], k.shape[2]
-    dev = cache["k"].device
     slots = (positions % size).long()                   # (B, Sq)
-    bidx = torch.arange(b, device=dev)[:, None, None]   # (B, 1, 1)
-    hidx = torch.arange(kvh, device=dev)[None, :, None]  # (1, KVH, 1)
-    sidx = slots[:, None, :]                             # (B, 1, Sq)
-    dt = cache["k"].dtype
-    cache["k"][bidx, hidx, sidx] = k.transpose(1, 2).to(dt)
-    cache["v"][bidx, hidx, sidx] = v.transpose(1, 2).to(dt)
-    cache["pos"][torch.arange(b, device=dev)[:, None], slots] = \
-        positions.to(cache["pos"].dtype)
+    _write_slots(cache["k"], 2, slots, k)
+    _write_slots(cache["v"], 2, slots, v)
+    _write_slots(cache["pos"], 1, slots, positions)
     return cache
 
 

@@ -208,7 +208,12 @@ def make_rank_train_step(cfg, opt_cfg: optim.AdamWConfig, mesh,
     all-reduce over those axes) and counts a leaf the "model" ranks hold
     alike once, so it is the whole reduced gradients' norm on every rank.
     The aux-free bias update reads each router gradient reduced and whole
-    over "embed". With num_microbatches > 1 a rank's microbatch i is its
+    over "embed". Under the cp strategy each "model" rank attends only
+    its block of q's rows (models.attention: context parallelism), and
+    x, wq, wk and wv enter attention through enter_over, so their
+    gradients are summed over those ranks before they reach the
+    parameters: no "model" rank's gradient is partial here either. With
+    num_microbatches > 1 a rank's microbatch i is its
     block of the global microbatch i (the batch is gathered over its axes
     first). On a one-rank mesh the step is make_train_step's, bit for
     bit."""

@@ -17,7 +17,9 @@ weights, drawn a leaf at a time and cut to each rank's blocks, for
 moonshot (its split router_bias), mamba2, recurrentgemma, internlm2
 under the dp and 2d strategies, and mixtral on (8, 1), against the
 port's one-position steps. Logits within TOL, greedy tokens equal; a
-one-rank mesh is the one-position step bit for bit.
+one-rank mesh is the one-position step bit for bit. The sequence splits
+(cp, 2d_splitcache, long_500k) build on ranks here and run in
+tests/test_torch_world_seq.py.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ PORT_CASES = (("moonshot-v1-16b-a3b", (2, 4), "megatron"),
               ("internlm2-1.8b", (2, 4), "dp"),
               ("internlm2-1.8b", (2, 4), "2d"),
               ("mixtral-8x22b", (8, 1), "megatron"))
-REFUSED = ("cp", "2d_splitcache", "long_500k")
+SEQUENCE_SPLITS = ("cp", "2d_splitcache", "long_500k")
 DEADLINE_S = 240
 
 
@@ -203,17 +205,20 @@ def _blocks(params, shardings) -> dict:
 
 
 def _refusals(mesh) -> dict:
-    """The messages of the builds that must raise on ranks."""
+    """What the builds of the sequence splits give on ranks ("built", or
+    the message they raise: tests/test_torch_world_seq.py runs them), and
+    the message of the build that must raise."""
     from repro_torch.launch import specs
     cfg = _config("mixtral-8x22b")
     out = {}
-    for name in REFUSED:
+    for name in SEQUENCE_SPLITS:
         try:
             if name == "long_500k":
                 specs.build_serve(cfg, ShapeSpec(name, "decode", MAX_LEN, 1),
                                   mesh)
             else:
                 _steps(cfg, mesh, name)
+            out[name] = "built"
         except NotImplementedError as e:
             out[name] = str(e)
     specs.build_train(cfg, TRAIN, mesh)    # builds: MoE trains on ranks
@@ -422,15 +427,17 @@ def test_a_one_rank_mesh_serves_as_the_one_position_step():
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
 
 
-def test_sequence_splits_and_the_moe_train_step_refuse_on_ranks(eight):
+def test_sequence_splits_build_and_a_model_batch_split_refuses_on_ranks(
+        eight):
     """cp, 2d_splitcache and long_500k's kv_seq rule split a sequence dim
-    over ranks: NotImplementedError naming ROADMAP item 5f, and a batch
-    split over the axis that splits the heads is refused. The MoE train
-    step, refused on ranks until the train step computed on the blocks,
-    now builds there (tests/test_torch_world_train_tp.py trains it)."""
+    over ranks: their prefill and serve steps build there (split-K decode
+    and context parallelism, held against the reference in
+    tests/test_torch_world_seq.py), and a batch split over the axis that
+    splits the heads is refused. The MoE train step builds on ranks too
+    (tests/test_torch_world_train_tp.py trains it)."""
     for r in eight:
         got = r["refused"]
-        assert set(got) == set(REFUSED) | {"batch_model"}
-        for name in REFUSED:
-            assert "5f" in got[name], got[name]
+        assert set(got) == set(SEQUENCE_SPLITS) | {"batch_model"}
+        for name in SEQUENCE_SPLITS:
+            assert got[name] == "built", got[name]
         assert "['model']" in got["batch_model"], got["batch_model"]

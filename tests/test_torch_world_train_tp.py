@@ -304,7 +304,9 @@ def _fused_ce_run(mesh_shape) -> dict:
 
 
 def _refusals() -> dict:
-    """The messages of the train builds that must raise on ranks."""
+    """What the train builds give on ranks: "built" for the cp strategy
+    (tests/test_torch_world_seq.py trains it), the message of the one
+    that must raise."""
     import torch.distributed as dist
 
     from repro_torch.dist import strategies
@@ -316,6 +318,7 @@ def _refusals() -> dict:
     extra, cp_cfg, _ = strategies.strategy_for(cfg, None, "cp")
     try:
         specs.build_train(cp_cfg, TRAIN, mesh, rules_extra=extra)
+        out["cp"] = "built"
     except NotImplementedError as e:
         out["cp"] = str(e)
     try:        # rows split over "model" beside heads split over it
@@ -455,12 +458,13 @@ def test_the_chunked_cross_entropy_on_ranks_gathers_each_chunks_logits(
                                    **TOL)
 
 
-def test_the_train_step_refuses_sequence_and_model_batch_splits(eight):
-    """On ranks build_train refuses the cp strategy (a sequence split:
-    ROADMAP item 5f) and a batch split over the axis that splits the
-    heads."""
+def test_the_train_step_builds_cp_and_refuses_model_batch_splits(eight):
+    """On ranks build_train builds the cp strategy (q's rows split over
+    "model": context parallelism, trained against the reference in
+    tests/test_torch_world_seq.py) and refuses a batch split over the
+    axis that splits the heads."""
     for r in eight:
         got = r["refused"]
         assert set(got) == {"cp", "batch_model"}, got
-        assert "5f" in got["cp"] and "train step" in got["cp"], got["cp"]
+        assert got["cp"] == "built", got["cp"]
         assert "['model']" in got["batch_model"], got["batch_model"]
